@@ -1,0 +1,411 @@
+"""Smoke test of the PyTorch/CUDA port on one GPU: build, check, train.
+
+    python3 chip_smoke.py
+
+1. Needs a CUDA card (exits 1 otherwise). Prints the card's name and power
+   limit, builds the kernels from localrf_tpu_torch/csrc/ and prints the
+   build time.
+2. Checks each hand-written kernel against its plain PyTorch version on the
+   card at the shapes of the training step, and times both (CUDA events).
+3. Trains the default full-width TensoRF-VM model through the port's entry
+   points (LocalTensorfs.optimizer_step on SyntheticDataset batches of 4096
+   rays over 960x540 frames): 5 steps from 64^3 (alpha refresh, dense cull,
+   upsample to 101^3), then 3 steps at 640^3 with a 320^3 ball alpha volume
+   (coarse probe + compaction to 332 samples per ray).
+4. After each slice phase: every loss finite, parameters changed, every
+   kernel launched by the step itself (launch counts reset just before).
+
+Prints a {"kernels": [...]} line, then the last line
+{"ok": true, "device": {...}}. Any failure raises before that line.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+# kernel tolerances (see the kernel modules): K1 forward/backward against the
+# cumprod reference, which multiplies in another order on the card
+K1_TOL = {"fwd": (1e-4, 1e-6), "bwd": (1e-3, 1e-5)}
+K2_TOL_F32 = (1e-4, 1e-4)
+
+W, H = 960, 540
+BATCH, N_VIEWS, N_FRAMES = 4096, 16, 8
+
+
+def _require_cuda():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        sys.exit(1)
+    return torch
+
+
+def _gpu_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def _time_ms(fn, reps: int = 20) -> float:
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _close(got, ref, rtol: float, atol: float) -> float:
+    """max |got - ref|; raises unless |got - ref| <= atol + rtol |ref| everywhere."""
+    import torch
+
+    got, ref = got.detach().float(), ref.detach().float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("kernel output is not finite")
+    err = (got - ref).abs()
+    bad = err > atol + rtol * ref.abs()
+    if bad.any():
+        raise AssertionError(
+            f"{int(bad.sum())} elements off (max abs err {float(err.max()):.3e})"
+        )
+    return float(err.max())
+
+
+def _within_one_bf16_ulp(got, ref) -> float:
+    """got, ref bf16: |got - ref| <= one bf16 ulp of max(|got|, |ref|)."""
+    import torch
+
+    g, r = got.float(), ref.float()
+    mag = torch.maximum(g.abs(), r.abs())
+    ulp = torch.where(
+        mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), torch.zeros_like(mag)
+    )
+    ulp = torch.clamp(ulp, min=2.0**-133)  # smallest bf16 subnormal step
+    err = (g - r).abs()
+    bad = err > ulp
+    if bad.any():
+        raise AssertionError(f"{int(bad.sum())} bf16 elements differ by more than one ulp")
+    return float(err.max())
+
+
+def check_kernels(dev) -> list[dict]:
+    """Each kernel against its plain version at the training step's shapes."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+    from localrf_tpu_torch.ops.kernels import composite as k1
+    from localrf_tpu_torch.ops.rays import sample_ray_contracted
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+    k1_cases = []
+    # 64^3 no-alpha march: S = 72 samples, the shared [1, S] dist row of the
+    # sampler; 640^3 compacted march: 332 samples, per-ray dists
+    o = torch.zeros(1, 3, device=dev)
+    d = torch.tensor([[0.0, 0.0, -1.0]], device=dev)
+    _, _, dists72 = sample_ray_contracted(o, d, 219, False)
+    k1_cases.append(("64^3 [4096,72], dists [1,72]", 4096, 72, dists72))
+    k1_cases.append((
+        "640^3 [4096,332], dists [4096,332]", 4096, 332,
+        0.01 + 0.49 * torch.rand(4096, 332, generator=gen, device=dev),
+    ))
+    for label, r, s, dists in k1_cases:
+        sigma = 2.0 * torch.rand(r, s, generator=gen, device=dev)
+        cot = torch.randn(r, s, generator=gen, device=dev)
+        sig_k = sigma.clone().requires_grad_(True)
+        sig_p = sigma.clone().requires_grad_(True)
+        w_k = k1.fused_weights(sig_k, dists, 25.0)
+        w_p = k1.fused_weights_plain(sig_p, dists, 25.0)
+        (g_k,) = torch.autograd.grad(w_k, sig_k, cot)
+        (g_p,) = torch.autograd.grad(w_p, sig_p, cot)
+        err_f = _close(w_k, w_p, *K1_TOL["fwd"])
+        err_b = _close(g_k, g_p, K1_TOL["bwd"][0], K1_TOL["bwd"][1] * float(g_p.abs().max()))
+        fwd_ms = _time_ms(lambda: k1._launch_fwd(sigma, dists, 25.0))
+        fwd_plain = _time_ms(lambda: k1.fused_weights_plain(sigma, dists, 25.0))
+
+        def bwd_plain():
+            x = sigma.clone().requires_grad_(True)
+            torch.autograd.grad(k1.fused_weights_plain(x, dists, 25.0), x, cot)
+
+        def bwd_plain_fwd():
+            x = sigma.clone().requires_grad_(True)
+            k1.fused_weights_plain(x, dists, 25.0)
+
+        bwd_ms = _time_ms(lambda: k1._launch_bwd(sigma, dists, cot, 25.0))
+        # the plain backward alone: autograd (fwd + bwd) less its forward
+        bwd_plain_ms = _time_ms(bwd_plain) - _time_ms(bwd_plain_fwd)
+        rows.append(dict(name="fused_weights_fwd", shape=label, max_abs_err=err_f,
+                         ms=fwd_ms, plain_ms=fwd_plain))
+        rows.append(dict(name="fused_weights_bwd", shape=label, max_abs_err=err_b,
+                         ms=bwd_ms, plain_ms=bwd_plain_ms))
+
+    # plane tables: 64^2 = 4096 rows with 4096 x 72 points; 640^2 = 409,600
+    # rows with 4096 x 332 points; payload rows of 128 bf16
+    for n_rows, p in ((4096, 4096 * 72), (409_600, 4096 * 332)):
+        idx = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
+        g = torch.randn(p, 128, generator=gen, device=dev).to(torch.bfloat16)
+        err32 = _close(
+            k2.segment_sum(idx, g, n_rows, torch.float32),
+            k2.segment_sum_plain(idx, g, n_rows, torch.float32), *K2_TOL_F32,
+        )
+        err16 = _within_one_bf16_ulp(
+            k2.segment_sum(idx, g, n_rows, torch.bfloat16),
+            k2.segment_sum_plain(idx, g, n_rows, torch.bfloat16),
+        )
+        rows.append(dict(
+            name="segment_sum", shape=f"n_rows {n_rows}, P {p}, bf16 -> bf16",
+            max_abs_err=max(err32, err16),
+            ms=_time_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16)),
+            plain_ms=_time_ms(lambda: k2.segment_sum_plain(idx, g, n_rows, torch.bfloat16)),
+        ))
+    return rows
+
+
+KERNELS = {
+    # name -> (source, pallas_call site of the TPU kernel it replaces)
+    "fused_weights_fwd": ("localrf_tpu_torch/csrc/composite.cu",
+                          "localrf_tpu/ops/pallas/composite.py:94"),
+    "fused_weights_bwd": ("localrf_tpu_torch/csrc/composite.cu",
+                          "localrf_tpu/ops/pallas/composite.py:120"),
+    "segment_sum": ("localrf_tpu_torch/csrc/segment_sum.cu",
+                    "localrf_tpu/ops/pallas/binned_scatter.py:191"),
+}
+
+
+def _launch_counts() -> dict:
+    from localrf_tpu_torch.ops.kernels import binned_scatter, composite
+
+    return {**composite.LAUNCHES, **binned_scatter.LAUNCHES}
+
+
+def _reset_launch_counts() -> None:
+    from localrf_tpu_torch.ops.kernels import binned_scatter, composite
+
+    for counts in (composite.LAUNCHES, binned_scatter.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def make_dataset(w: int, h: int, n_frames: int, seed: int = 0):
+    """Random frames with depth and flow supervision, made in bulk."""
+    from localrf_tpu_torch.data.dataset import SyntheticDataset
+
+    rng = np.random.default_rng(seed)
+    shape = (n_frames, h, w)
+    return SyntheticDataset(
+        rng.random((*shape, 3), dtype=np.float32), "train",
+        invdepths=(0.1 + 0.9 * rng.random(shape, dtype=np.float32)),
+        fwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32), fwd_mask=np.ones(shape, np.float32),
+        bwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32), bwd_mask=np.ones(shape, np.float32),
+        n_init_frames=n_frames, test_frame_every=0,
+    )
+
+
+def full_width_config(grid: int, **local_kw):
+    """The default TensoRF-VM model at full width (train.py's defaults: the
+    compositing kernel on, bf16 gather tables and MLP, f32 Adam moments)."""
+    from localrf_tpu_torch.models.local import LocalConfig
+    from localrf_tpu_torch.models.tensorf import TensorfConfig
+
+    tf = TensorfConfig(
+        grid_size=(grid, grid, grid), pallas_composite=True,
+        gather_dtype="bfloat16", mlp_dtype="bfloat16",
+    )
+    return LocalConfig(WH=(W, H), n_init_frames=N_FRAMES, n_views=N_VIEWS,
+                       batch_size=BATCH, tensorf=tf, **local_kw)
+
+
+def _snapshot(model) -> dict:
+    f = model.fields[-1]["params"]
+    return {
+        "basis_mat": f["basis_mat"].detach().clone(),
+        "mlp.w1": f["mlp"]["w1"].detach().clone(),
+        "pose_r": model._pose_dev.r.detach().clone(),
+        "pose_t": model._pose_dev.t.detach().clone(),
+        "exposure": model._pose_dev.exposure.detach().clone(),
+    }
+
+
+def run_slice(label: str, model, ds, n_steps: int) -> dict:
+    """Drive n_steps optimizer_steps; check losses, updates and launches."""
+    import torch
+
+    before = _snapshot(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    times, losses = [], []
+    for _ in range(n_steps):
+        batch = ds.sample(BATCH, model.is_refining, True, n_views=N_VIEWS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.optimizer_step(batch, optimize_poses=True)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(dict(model.last_metrics))
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, m in enumerate(losses):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label}: step {i} has a non-finite loss: {m}")
+    after = _snapshot(model)
+    for k in before:
+        if torch.equal(before[k], after[k]):
+            raise AssertionError(f"{label}: {k} did not change")
+    for k, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{label}: kernel {k} was not launched by the training step")
+    f = model.fields[-1]
+    ms = float(np.median(times))
+    print(f"slice {label}: grid {f['cfg'].grid_size} occ_m {f['cfg'].occ_m} "
+          f"alpha {None if f['alpha_volume'] is None else tuple(f['alpha_volume'].shape)}")
+    print(f"slice {label}: step ms {[round(t, 3) for t in times]} median {ms:.3f}"
+          f" peak mem {peak / 2**30:.3f} GiB launches {launches}")
+    print(f"slice {label}: last losses {losses[-1]}")
+    return {"ms": ms, "peak": peak, "launches": launches}
+
+
+def check_small_step_against_cpu(dev) -> None:
+    """Losses and gradients of one training step on a small field, on the
+    card (kernels) and on the CPU (plain versions), from the same weights,
+    batch and noise: without an alpha volume (dense march) and with a ball
+    alpha volume (coarse probe + compaction). f32 tables and MLP; gradients
+    agree to 1e-3 of their largest entry (atomic-add order on the card)."""
+    import torch
+
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.step import loss_grads
+    from localrf_tpu_torch.models.tensorf import TensorfConfig, TensorfField
+
+    w, h = 96, 64
+    ds = make_dataset(w, h, 4, seed=1)
+    tf = TensorfConfig(grid_size=(32, 32, 32), pallas_composite=True, binned_min_rows=500)
+    cfg = LocalConfig(WH=(w, h), n_init_frames=4, n_views=4, batch_size=512, occ_min=8, tensorf=tf)
+    gpu = LocalTensorfs(cfg, device=dev)
+    cpu = LocalTensorfs(cfg, device="cpu")
+    cpu.fields[-1]["params"] = TensorfField(
+        {k: p.detach().cpu() for k, p in gpu.fields[-1]["params"].named_parameters()})
+    noise = gpu._next_noise(tf)
+    batch = ds.sample(512, True, True, n_views=4)
+    ax = torch.linspace(-1, 1, 16)
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    ball = ((xx**2 + yy**2 + zz**2) < 0.6**2).to(torch.float32)
+    for label, alpha in (("dense", None), ("probe", ball)):
+        out = []
+        for m in (gpu, cpu):
+            m.is_refining = True
+            m.rf_iter[-1] = 2
+            f = m.fields[-1]
+            f["alpha_volume"] = None if alpha is None else alpha.to(m.device)
+            f["cfg"] = dataclasses.replace(f["cfg"], occ_m=m._occ_m(f["cfg"], alpha is not None))
+            g_field, g_pose, _, metrics = loss_grads(
+                f["params"], m._pose_dev, m.intr.params, m._statics(True),
+                m._device_batch(batch), m._scalars_py(),
+                {k: v.to(m.device) for k, v in noise.items()}, f["alpha_volume"],
+            )
+            grads = {**g_field, "r": g_pose[0], "t": g_pose[1], "exposure": g_pose[2]}
+            out.append(({k: float(v) for k, v in metrics.items()},
+                        {k: v.detach().float().cpu() for k, v in grads.items()}))
+        (m_gpu, g_gpu), (m_cpu, g_cpu) = out
+        for k in m_cpu:
+            if not np.isclose(m_gpu[k], m_cpu[k], rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"small step {label}: {k} card {m_gpu[k]} vs cpu {m_cpu[k]}")
+        worst = 0.0
+        for k in g_cpu:
+            scale = float(g_cpu[k].abs().max()) + 1e-12
+            rel = float((g_gpu[k] - g_cpu[k]).abs().max()) / scale
+            worst = max(worst, rel)
+            if rel > 1e-3:
+                raise AssertionError(f"small step {label}: grad {k} off by {rel:.2e} of max")
+        print(f"small step card vs cpu ({label}, occ_m {gpu.fields[-1]['cfg'].occ_m}):"
+              f" total_loss {m_gpu['total_loss']:.6f} vs {m_cpu['total_loss']:.6f},"
+              f" worst grad err {worst:.2e} of max")
+
+
+def main() -> None:
+    torch = _require_cuda()
+    from localrf_tpu_torch.models.local import LocalTensorfs
+    from localrf_tpu_torch.ops.kernels import _build
+
+    dev = torch.device("cuda", 0)
+    print(_gpu_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s ({_build.build_info['path']})")
+    for ln in _build.build_info["log"].splitlines():
+        if "registers" in ln:
+            print(f"  ptxas: {ln.strip()}")
+
+    # phase 2: kernels against their plain versions
+    rows = check_kernels(dev)
+    for row in rows:
+        print(f"kernel {row['name']:18s} {row['shape']:38s} err {row['max_abs_err']:.3e}"
+              f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms")
+    check_small_step_against_cpu(dev)
+
+    # phase 3: the slice at 64^3 — dense march, alpha refresh after the 2nd
+    # step, dense cull, upsample to 101^3 after the 3rd
+    ds = make_dataset(W, H, N_FRAMES)
+    model = LocalTensorfs(
+        full_width_config(64, update_AlphaMask_list=[3], N_voxel_list={4: 101**3}), device=dev
+    )
+    model.is_refining = True
+    model.rf_iter[-1] = 2  # past the schedule rescale at rf_iter 1
+    s64 = run_slice("64^3", model, ds, 5)
+    f = model.fields[-1]
+    if f["cfg"].grid_size != (101, 101, 101) or f["alpha_volume"] is None:
+        raise AssertionError("64^3 slice: the upsample / alpha refresh did not happen")
+    del model, f
+
+    # phase 4: the slice at 640^3 with a ~8% ball alpha volume at 320^3
+    model = LocalTensorfs(full_width_config(640), device=dev)
+    model.is_refining = True
+    model.rf_iter[-1] = 10
+    model.lr_factor = 0.999
+    ax = torch.linspace(-1, 1, 320, device=dev)
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    f = model.fields[-1]
+    f["alpha_volume"] = ((xx**2 + yy**2 + zz**2) < 0.535**2).to(torch.float32)
+    f["cfg"] = dataclasses.replace(f["cfg"], occ_m=model._occ_m(f["cfg"], True))
+    if f["cfg"].occ_m != 332:
+        raise AssertionError(f"640^3 slice: occ_m {f['cfg'].occ_m}, expected 332")
+    s640 = run_slice("640^3", model, ds, 3)
+
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        mine = [r for r in rows if r["name"] == name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": s64["launches"][name] + s640["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in mine),
+            "ms": mine[-1]["ms"], "plain_ms": mine[-1]["plain_ms"],
+            "shape": mine[-1]["shape"],
+        })
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"slice": {
+        "64^3": {"ms_per_step": s64["ms"], "peak_bytes": s64["peak"]},
+        "640^3": {"ms_per_step": s640["ms"], "peak_bytes": s640["peak"]}}}))
+    if "jax" in sys.modules:
+        raise AssertionError("jax was imported")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,414 @@
+"""LocalTensorfs: host-side progressive manager over the training step
+(PyTorch port of localrf_tpu/models/local.py, first slice).
+
+Trainable state lives on `device`: a sliding pose window and the active
+field. The host keeps the full per-frame history and the schedule (lr
+decay, refine/regularize flags, gates, upsampling, occupancy refresh).
+
+Ported so far: construction, frame append, the first field, the pose
+window, and `optimizer_step`. Spawning further fields, sliding the window,
+fused chunks and evaluation are still to come (ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from ..ops.math import mtx_to_sixD, n_to_reso, sixD_to_mtx
+from ..optim import AdamState, pytree_adam_init
+from .render import draw_noise
+from .step import FieldState, IntrState, PoseState, StepStatics, train_step
+from .tensorf import TensorfConfig, init_tensorf, update_alpha_volume, upsample_tensorf
+
+
+@dataclasses.dataclass
+class LocalConfig:
+    """Configuration of the progressive multi-field model (the JAX
+    LocalConfig's fields)."""
+
+    fov: float = 85.6
+    n_init_frames: int = 5
+    n_overlap: int = 30
+    WH: tuple[int, int] = (960, 540)
+    n_iters_per_frame: int = 600
+    n_iters_reg: int = 100
+    lr_R_init: float = 5e-3
+    lr_t_init: float = 5e-4
+    lr_i_init: float = 0.0
+    lr_exposure_init: float = 1e-3
+    rf_lr_init: float = 0.02
+    rf_lr_basis: float = 1e-3
+    lr_decay_target_ratio: float = 0.1
+    N_voxel_list: dict[int, int] = dataclasses.field(default_factory=dict)
+    update_AlphaMask_list: list[int] = dataclasses.field(default_factory=list)
+    lr_upsample_reset: bool = True
+    loss_flow_weight: float = 1.0
+    loss_depth_weight: float = 0.1
+    tv_weight_density: float = 0.0
+    tv_weight_app: float = 0.0
+    l1_weight: float = 1e-2
+    n_views: int = 16
+    batch_size: int = 4096
+    occ_ratio: float = 0.45
+    occ_min: int = 256
+    moment_dtype: str = "float32"
+    tensorf: TensorfConfig = dataclasses.field(
+        default_factory=lambda: TensorfConfig(grid_size=(64, 64, 64))
+    )
+    seed: int = 20211202
+
+    @property
+    def px_per_view(self) -> int:
+        return self.batch_size // self.n_views
+
+
+def _rot6d_roundtrip(r: np.ndarray) -> np.ndarray:
+    """mtx_to_sixD(sixD_to_mtx(r)) on host float32."""
+    return mtx_to_sixD(sixD_to_mtx(torch.from_numpy(np.ascontiguousarray(r)))).numpy()
+
+
+class LocalTensorfs:
+    def __init__(self, cfg: LocalConfig, camera_prior: dict | None = None, device="cpu"):
+        self.cfg = cfg
+        self.camera_prior = camera_prior
+        self.device = torch.device(device)
+        self.W, self.H = cfg.WH
+        # field init and every step's noise come from this generator
+        self._gen = torch.Generator(device=self.device).manual_seed(cfg.seed)
+
+        # --- per-frame host state (full history) ---
+        self.r_all = np.zeros((0, 3, 2), np.float32)
+        self.t_all = np.zeros((0, 3), np.float32)
+        self.exp_all = np.zeros((0, 3, 3), np.float32)
+        self.pose_opt_all: dict[str, np.ndarray] = {}
+        self.pose_linked_rf: list[int] = []
+        self.blending_weights = np.ones((0, 1), np.float32)
+
+        # --- per-field state ---
+        self.fields: list[dict[str, Any]] = []
+        self.world2rf: list[np.ndarray] = []
+        self.rf_iter: list[int] = []
+
+        # --- schedule state ---
+        self.is_refining = False
+        self.lr_factor = 1.0
+        self.n_iters = cfg.n_iters_per_frame
+        self.n_iters_reg = cfg.n_iters_reg
+        self.N_voxel_list = dict(cfg.N_voxel_list)
+        self.update_AlphaMask_list = list(cfg.update_AlphaMask_list)
+
+        # --- intrinsics ---
+        if camera_prior is not None:
+            focal = camera_prior["transforms"]["fl_x"]
+            focal *= self.W / camera_prior["transforms"]["w"]
+        else:
+            focal = self.W / math.tan(cfg.fov * math.pi / 180 / 2) / 2
+        self.init_focal = float(focal)
+        intr_params = {
+            "focal_offset": torch.ones((), device=self.device),
+            "center_rel": 0.5 * torch.ones((2,), device=self.device),
+        }
+        self.intr = IntrState(intr_params, pytree_adam_init(intr_params))
+
+        # --- device pose window ---
+        self.win_start = 0
+        self._wc = 64  # capacity; grows in steps of 32
+        self._pose_dev: PoseState | None = None
+
+        for _ in range(cfg.n_init_frames):
+            self.append_frame()
+        self.append_rf()
+
+    # ------------------------------------------------------------------
+    # window plumbing
+    # ------------------------------------------------------------------
+
+    @property
+    def n_frames(self) -> int:
+        return self.r_all.shape[0]
+
+    @property
+    def win_len(self) -> int:
+        return self.n_frames - self.win_start
+
+    def _next_noise(self, tf_cfg: TensorfConfig) -> dict:
+        return draw_noise(tf_cfg.n_samples, self._gen, self.device)
+
+    def _init_pose_opt_rows(self, n: int) -> dict[str, np.ndarray]:
+        c = self.cfg
+        rows = {}
+        for name, shape, lr in (
+            ("r", (3, 2), c.lr_R_init), ("t", (3,), c.lr_t_init), ("e", (3, 3), c.lr_exposure_init)
+        ):
+            rows[f"{name}_m"] = np.zeros((n, *shape), np.float32)
+            rows[f"{name}_v"] = np.zeros((n, *shape), np.float32)
+            rows[f"{name}_step"] = np.zeros((n,), np.int32)
+            rows[f"{name}_lr"] = np.full((n,), lr, np.float32)
+        return rows
+
+    def sync_window_to_host(self):
+        """Pull the device pose window back into the full host arrays."""
+        if self._pose_dev is None:
+            return
+        s, l = self.win_start, self.win_len
+        p = self._pose_dev
+
+        def host(x):
+            return x[:l].detach().cpu().numpy()
+
+        self.r_all[s : s + l] = host(p.r)
+        self.t_all[s : s + l] = host(p.t)
+        self.exp_all[s : s + l] = host(p.exposure)
+        o = self.pose_opt_all
+        for name, st in (("r", p.r_opt), ("t", p.t_opt), ("e", p.e_opt)):
+            o[f"{name}_m"][s : s + l] = host(st.m)
+            o[f"{name}_v"][s : s + l] = host(st.v)
+            o[f"{name}_step"][s : s + l] = host(st.step)
+            o[f"{name}_lr"][s : s + l] = host(st.lr)
+
+    def _build_window(self):
+        """(Re)build the device pose window [win_start, n_frames) padded to
+        capacity."""
+        s, l = self.win_start, self.win_len
+        while l > self._wc:
+            self._wc += 32
+        wc = self._wc
+
+        def dev(a: np.ndarray) -> torch.Tensor:
+            out = np.zeros((wc,) + a.shape[1:], a.dtype)
+            out[:l] = a[s : s + l]
+            if a.ndim == 3 and a.shape[1:] == (3, 3):
+                out[l:] = np.eye(3, dtype=a.dtype)  # keep padding exposures sane
+            return torch.from_numpy(out).to(self.device)
+
+        o = self.pose_opt_all
+
+        def adam(name) -> AdamState:
+            return AdamState(*(dev(o[f"{name}_{k}"]) for k in ("m", "v", "step", "lr")))
+
+        self._pose_dev = PoseState(
+            r=dev(self.r_all), t=dev(self.t_all), exposure=dev(self.exp_all),
+            r_opt=adam("r"), t_opt=adam("t"), e_opt=adam("e"),
+        )
+
+    def _gate(self) -> np.ndarray:
+        """Per-window-frame bool: pose/exposure updates only for frames linked
+        to the current field while it still trains."""
+        cur = len(self.rf_iter) - 1
+        gate = np.zeros((self._wc,), bool)
+        if self.rf_iter[-1] < self.n_iters:
+            for i in range(self.win_len):
+                if self.pose_linked_rf[self.win_start + i] == cur:
+                    gate[i] = True
+        return gate
+
+    # ------------------------------------------------------------------
+    # progressive growth
+    # ------------------------------------------------------------------
+
+    def append_frame(self):
+        self.sync_window_to_host()
+        if self.n_frames == 0:
+            r = np.eye(3, dtype=np.float32)[:, :2][None]
+            t = np.zeros((1, 3), np.float32)
+            self.pose_linked_rf.append(0)
+            self.blending_weights = np.ones((1, 1), np.float32)
+        else:
+            r = _rot6d_roundtrip(self.r_all[-1:])
+            t = self.t_all[-1:].copy()
+            self.blending_weights = np.concatenate(
+                [self.blending_weights, self.blending_weights[-1:, :]], axis=0
+            )
+            # threshold, not exact nonzero: the cross-fade ladder can leave a
+            # ~1e-16 residue in a retired column, which would link the frame
+            # to the retired field and freeze its pose (JAX local.py:282-291)
+            w_row = self.blending_weights[-1, :]
+            self.pose_linked_rf.append(int(np.nonzero(w_row > 1e-6)[0][0]))
+
+        exp = np.eye(3, dtype=np.float32)[None]
+        if self.camera_prior is not None:
+            rel_pose = np.asarray(self.camera_prior["rel_poses"][self.n_frames], np.float32)
+            last_r = sixD_to_mtx(torch.from_numpy(np.ascontiguousarray(r))).numpy()[0]
+            r = mtx_to_sixD(torch.from_numpy((last_r @ rel_pose[:3, :3])[None])).numpy()
+            t = t + (last_r @ rel_pose[:3, 3])[None]
+
+        self.r_all = np.concatenate([self.r_all, r], axis=0)
+        self.t_all = np.concatenate([self.t_all, t], axis=0)
+        self.exp_all = np.concatenate([self.exp_all, exp], axis=0)
+        rows = self._init_pose_opt_rows(1)
+        if not self.pose_opt_all:
+            self.pose_opt_all = rows
+        else:
+            for k in rows:
+                self.pose_opt_all[k] = np.concatenate([self.pose_opt_all[k], rows[k]], axis=0)
+        self._build_window()
+
+    def append_rf(self):
+        """Create the first local field. Spawning further fields (blending
+        ladder, offload) is not ported yet."""
+        if self.fields:
+            raise NotImplementedError("only the first local field is ported")
+        self.sync_window_to_host()
+        self.is_refining = False
+        tf_cfg = self.cfg.tensorf
+        params = init_tensorf(tf_cfg, self._gen, self.device)
+        self.fields.append({
+            "params": params,
+            "cfg": tf_cfg,
+            "alpha_volume": None,
+            "opt": pytree_adam_init(params, self.cfg.moment_dtype),
+        })
+        self.world2rf.append(np.zeros(3, np.float32))
+        self.rf_iter.append(0)
+
+    # ------------------------------------------------------------------
+    # optimization
+    # ------------------------------------------------------------------
+
+    def _statics(self, optimize_poses: bool) -> StepStatics:
+        c = self.cfg
+        f = self.fields[-1]
+        return StepStatics(
+            cfg=f["cfg"],
+            w=self.W,
+            h=self.H,
+            n_views=c.n_views,
+            px_per_view=c.px_per_view,
+            wc=self._wc,
+            fov360=(c.fov == 360),
+            white_bg=True,
+            optimize_poses=optimize_poses,
+            exposure_on=c.lr_exposure_init > 0,
+            intrinsics_on=c.lr_i_init > 0,
+            flow_on=c.loss_flow_weight > 0 and c.fov != 360,
+            depth_on=c.loss_depth_weight > 0 and c.fov != 360,
+            has_alpha=f["alpha_volume"] is not None,
+            flow_weight=c.loss_flow_weight,
+            depth_weight=c.loss_depth_weight,
+            lr_spatial=c.rf_lr_init,
+            lr_net=c.rf_lr_basis,
+        )
+
+    def _scalars_py(self, pose_only: bool = False) -> dict[str, Any]:
+        c = self.cfg
+        it = self.rf_iter[-1]
+        regularize = it < self.n_iters_reg
+        reg_w = self.lr_factor**it
+        reg_on = regularize and it < self.n_iters
+        return {
+            "init_focal": float(np.float32(self.init_focal)),
+            "w_scale": 1.0,
+            "world2rf": np.asarray(self.world2rf[-1], np.float32),
+            "n_valid": int(self.win_len),
+            "lr_factor": float(self.lr_factor),
+            "reg_w": float(np.float32(reg_w)),
+            "reg_flag": 1.0 if regularize else 0.0,
+            "refine": 1.0 if self.is_refining else 0.0,
+            "is_refining": 1.0 if self.is_refining else 0.0,
+            "is_first_rf": 1.0 if self.blending_weights.shape[1] == 1 else 0.0,
+            "tv_wd": float(np.float32(c.tv_weight_density * reg_w if reg_on else 0.0)),
+            "tv_wa": float(np.float32(c.tv_weight_app * reg_w if reg_on else 0.0)),
+            "l1_w": float(np.float32(c.l1_weight if reg_on else 0.0)),
+            "lr_i_base": float(np.float32(c.lr_i_init)),
+            "pose_only": 1.0 if pose_only else 0.0,
+        }
+
+    def _host_batch(self, batch: dict) -> dict:
+        """Host batch -> numpy arrays with window-relative view ids."""
+        view_rel = np.asarray(batch["view_ids"], np.int64) - self.win_start
+        out = {
+            "ray_idx": np.asarray(batch["idx"], np.int64),
+            "view_ids": view_rel,
+            "rgbs": np.asarray(batch["rgbs"], np.float32),
+            "loss_weights": np.asarray(batch["loss_weights"], np.float32).reshape(-1, 1),
+        }
+        for k in ("fwd_flow", "bwd_flow"):
+            if batch.get(k) is not None:
+                out[k] = np.asarray(batch[k], np.float32)
+        for k in ("fwd_mask", "bwd_mask", "invdepths"):
+            if batch.get(k) is not None:
+                out[k] = np.asarray(batch[k], np.float32).reshape(-1)
+        return out
+
+    def _device_batch(self, batch: dict) -> dict:
+        out = {
+            k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+            for k, v in self._host_batch(batch).items()
+        }
+        out["gate"] = torch.from_numpy(self._gate()).to(self.device)
+        return out
+
+    def _schedule_entry(self):
+        """Per-step schedule bookkeeping at step entry."""
+        c = self.cfg
+        if self.rf_iter[-1] == 0:
+            self.lr_factor = 1.0
+            self.n_iters = c.n_iters_per_frame
+            self.n_iters_reg = c.n_iters_reg
+        elif self.rf_iter[-1] == 1:
+            n_training_frames = int((self.blending_weights[:, -1] > 0).sum())
+            self.n_iters = int(c.n_iters_per_frame * n_training_frames)
+            self.n_iters_reg = int(c.n_iters_reg * n_training_frames)
+            self.lr_factor = c.lr_decay_target_ratio ** (1 / self.n_iters)
+            self.N_voxel_list = {
+                int(k * n_training_frames): v for k, v in c.N_voxel_list.items()
+            }
+            self.update_AlphaMask_list = [
+                int(u * n_training_frames) for u in c.update_AlphaMask_list
+            ]
+
+    def _occ_m(self, tf_cfg: TensorfConfig, has_alpha: bool) -> int:
+        """Compacted samples per ray once an alpha volume exists: ~45% of the
+        march (floor 256); 0 (dense cull) when that keeps more than 85%."""
+        if not has_alpha:
+            return 0
+        s = tf_cfg.n_samples // 6 * 2
+        m = min(s, max(self.cfg.occ_min, int(s * self.cfg.occ_ratio)))
+        return 0 if m > 0.85 * s else int(m)
+
+    def _apply_post_step_events(self):
+        """Upsample / occupancy refresh keyed on the pre-increment rf_iter."""
+        c = self.cfg
+        f = self.fields[-1]
+        if self.rf_iter[-1] in self.N_voxel_list:
+            reso = n_to_reso(self.N_voxel_list[self.rf_iter[-1]], f["cfg"].aabb)
+            lr_scale = f["opt"].lr_scale
+            f["params"], f["cfg"] = upsample_tensorf(f["params"], f["cfg"], reso)
+            f["opt"] = pytree_adam_init(f["params"], c.moment_dtype)
+            if not c.lr_upsample_reset:
+                f["opt"] = f["opt"]._replace(lr_scale=lr_scale)
+        if self.rf_iter[-1] in self.update_AlphaMask_list:
+            reso_mask = tuple(int(g / 2) for g in f["cfg"].grid_size)
+            f["alpha_volume"] = update_alpha_volume(f["params"], f["cfg"], reso_mask)
+        f["cfg"] = dataclasses.replace(
+            f["cfg"], occ_m=self._occ_m(f["cfg"], f["alpha_volume"] is not None)
+        )
+
+    def optimizer_step(self, batch: dict, optimize_poses: bool) -> bool:
+        """One joint step; returns can_add_rf."""
+        self._schedule_entry()
+        f = self.fields[-1]
+        statics = self._statics(optimize_poses)
+        new_field, new_pose, new_intr, metrics = train_step(
+            FieldState(f["params"], f["opt"]),
+            self._pose_dev,
+            self.intr,
+            self._device_batch(batch),
+            self._scalars_py(),
+            statics,
+            self._next_noise(statics.cfg),
+            f["alpha_volume"],
+        )
+        f["params"], f["opt"] = new_field.params, new_field.opt
+        self._pose_dev = new_pose
+        self.intr = new_intr
+        self.last_metrics = {k: float(v) for k, v in metrics.items()}
+
+        self._apply_post_step_events()
+        if self.is_refining:
+            self.rf_iter[-1] += 1
+        return self.rf_iter[-1] >= self.n_iters - 1

@@ -1,0 +1,558 @@
+"""Port parity: localrf_tpu_torch ops/, models/tensorf.py and optim.py against
+the JAX package on the CPU, on the same numpy inputs.
+
+Values and gradients agree to rtol 1e-5 / atol 1e-6 in float32 (both sides
+run the same arithmetic; only XLA's and PyTorch's reduction orders differ)
+unless a test states otherwise; occupancy masks, packed bytes and compacted
+indices must match exactly.
+"""
+import ast
+import pathlib
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from localrf_tpu.models import tensorf as jtf
+from localrf_tpu.ops import grid as jgrid
+from localrf_tpu.ops import math as jmath
+from localrf_tpu.ops import occupancy as jocc
+from localrf_tpu.ops import rays as jrays
+from localrf_tpu import optim as joptim
+from localrf_tpu_torch.convert import field_from_jax, params_from_jax
+from localrf_tpu_torch.models import tensorf as ttf
+from localrf_tpu_torch.ops import grid as tgrid
+from localrf_tpu_torch.ops import math as tmath
+from localrf_tpu_torch.ops import occupancy as tocc
+from localrf_tpu_torch.ops import rays as trays
+from localrf_tpu_torch import optim as toptim
+
+RTOL, ATOL = 1e-5, 1e-6
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def T(x, dtype=None):
+    t = torch.from_numpy(np.array(x, copy=True))
+    return t if dtype is None else t.to(dtype)
+
+
+def close(got, want, rtol=RTOL, atol=ATOL):
+    if isinstance(got, torch.Tensor):
+        got = got.detach().float().numpy()
+    np.testing.assert_allclose(got, np.asarray(want, np.float32), rtol=rtol, atol=atol)
+
+
+def tgrad(fn, *xs):
+    """Gradient of sum(fn(*xs) * fixed weights) w.r.t. every x, torch side."""
+    xs = [T(x).requires_grad_(True) for x in xs]
+    out = fn(*xs)
+    w = torch.linspace(-1.0, 1.0, out.numel()).reshape(out.shape)
+    return torch.autograd.grad((out * w).sum(), xs)
+
+
+def jgrad(fn, *xs):
+    def f(*a):
+        out = fn(*a)
+        w = jnp.linspace(-1.0, 1.0, out.size).reshape(out.shape)
+        return jnp.sum(out * w)
+
+    return jax.jit(jax.grad(f, argnums=tuple(range(len(xs)))))(*[jnp.asarray(x) for x in xs])
+
+
+# ------------------------------- math -------------------------------
+
+
+def test_contract_and_positional_encoding(rng):
+    x = rng.normal(0, 2, (257, 3)).astype(np.float32)
+    close(tmath.contract(T(x)), jmath.contract(jnp.asarray(x)))
+    for g_t, g_j in zip(tgrad(tmath.contract, x), jgrad(jmath.contract, x)):
+        close(g_t, g_j)
+    close(tmath.positional_encoding(T(x), 4), jmath.positional_encoding(jnp.asarray(x), 4))
+
+
+def test_sixd_rotation_roundtrip_and_grad(rng):
+    r = rng.normal(size=(9, 3, 2)).astype(np.float32)
+    m_t = tmath.sixD_to_mtx(T(r))
+    close(m_t, jmath.sixD_to_mtx(jnp.asarray(r)))
+    close(tmath.mtx_to_sixD(m_t), jmath.mtx_to_sixD(jmath.sixD_to_mtx(jnp.asarray(r))))
+    close(tgrad(tmath.sixD_to_mtx, r)[0], jgrad(jmath.sixD_to_mtx, r)[0], atol=1e-5)
+
+
+def test_alpha2weights(rng):
+    alpha = rng.uniform(0, 1, (33, 20)).astype(np.float32)
+    w_t, t_t = tmath.alpha2weights(T(alpha))
+    w_j, t_j = jmath.alpha2weights(jnp.asarray(alpha))
+    close(w_t, w_j)
+    close(t_t, t_j)
+
+
+@pytest.mark.parametrize("rows", [3, 4])
+def test_inverse_pose(rng, rows):
+    pose = rng.normal(size=(5, rows, 4)).astype(np.float32)
+    close(tmath.inverse_pose(T(pose)), jmath.inverse_pose(jnp.asarray(pose)), atol=1e-5)
+
+
+def test_pred_flow_values_and_grads(rng):
+    pts = rng.normal(0, 1, (4, 50, 3)).astype(np.float32)
+    pts[..., 2] -= 3.0
+    ij = rng.uniform(0, 60, (4, 50, 2)).astype(np.float32)
+    c2c = rng.normal(0, 0.1, (4, 3, 4)).astype(np.float32) + np.eye(3, 4, dtype=np.float32)
+    focal = np.float32(55.0)
+    center = np.array([31.0, 22.5], np.float32)
+    args = (pts, ij, c2c, focal, center)
+    close(tmath.get_pred_flow(*map(T, args)), jmath.get_pred_flow(*map(jnp.asarray, args)), atol=1e-4)
+    g_t = tgrad(tmath.get_pred_flow, *args)
+    g_j = jgrad(jmath.get_pred_flow, *args)
+    for a, b in zip(g_t, g_j):
+        close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_depth_loss_median_averages_middle_pair(rng):
+    """jnp.median averages the two middle values of an even count; the port
+    uses torch.quantile(., 0.5), not torch.median (the lower one)."""
+    dyn = rng.uniform(0.5, 3.0, (4, 64)).astype(np.float32)
+    gt = rng.uniform(0.1, 1.0, (4, 64)).astype(np.float32)
+    assert not np.allclose(torch.median(T(dyn), dim=-1).values.numpy(), np.median(dyn, -1))
+    close(tmath._median(T(dyn))[:, 0], np.median(dyn, -1))
+    for a, b in zip(tmath.compute_depth_loss(T(dyn), T(gt)),
+                    jmath.compute_depth_loss(jnp.asarray(dyn), jnp.asarray(gt))):
+        close(a, b, atol=1e-5)
+    g_t = tgrad(lambda d, g: tmath.compute_depth_loss(d, g)[2], dyn, gt)
+    g_j = jgrad(lambda d, g: jmath.compute_depth_loss(d, g)[2], dyn, gt)
+    for a, b in zip(g_t, g_j):
+        close(a, b, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("q", [0.8, 0.9])
+def test_quantile_interpolates_linearly(rng, q):
+    arr = rng.uniform(0, 1, (16, 37)).astype(np.float32)
+    close(torch.quantile(T(arr), q, dim=1, keepdim=True),
+          jnp.quantile(jnp.asarray(arr), q, axis=1, keepdims=True))
+
+
+def test_tv_loss_and_n_to_reso(rng):
+    x = rng.normal(size=(3, 2, 7, 5)).astype(np.float32)
+    close(tmath.tv_loss(T(x)), jmath.tv_loss(jnp.asarray(x)))
+    close(tmath.tv_loss(T(x[:, :, :, :1])), jmath.tv_loss(jnp.asarray(x[:, :, :, :1])))
+    aabb = np.array([[-2, -2, -2], [2, 2, 2]], np.float32)
+    for n in (64**3, 101**3, 161**3, 255**3, 640**3, 12345):
+        assert tmath.n_to_reso(n, aabb) == jmath.n_to_reso(n, aabb)
+
+
+# ------------------------------- rays -------------------------------
+
+
+def test_ray_directions_and_rays_with_grads(rng):
+    ids = rng.integers(0, 5 * 40 * 30, 64)
+    col_t, row_t = trays.ids2pixel(40, 30, T(ids))
+    col_j, row_j = jrays.ids2pixel(40, 30, jnp.asarray(ids))
+    np.testing.assert_array_equal(col_t.numpy(), np.asarray(col_j))
+    np.testing.assert_array_equal(row_t.numpy(), np.asarray(row_j))
+    i, j = np.asarray(col_j), np.asarray(row_j)
+    close(trays.get_ray_directions_360(T(i), T(j), 40, 30),
+          jrays.get_ray_directions_360(jnp.asarray(i), jnp.asarray(j), 40, 30))
+
+    c2w = rng.normal(0, 0.3, (64, 3, 4)).astype(np.float32) + np.eye(3, 4, dtype=np.float32)
+
+    def t_fn(focal, center, c2w):
+        d = trays.get_ray_directions_lean(T(i), T(j), focal, center)
+        return torch.cat(trays.get_rays_lean(d, c2w), -1)
+
+    def j_fn(focal, center, c2w):
+        d = jrays.get_ray_directions_lean(jnp.asarray(i), jnp.asarray(j), focal, center)
+        return jnp.concatenate(jrays.get_rays_lean(d, c2w), -1)
+
+    args = (np.float32(35.0), np.array([20.0, 15.0], np.float32), c2w)
+    close(t_fn(*map(T, args)), j_fn(*map(jnp.asarray, args)))
+    for a, b in zip(tgrad(t_fn, *args), jgrad(j_fn, *args)):
+        close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def _jax_stratified_noise(key, n):
+    """JAX's stratified jitter, split exactly as sample_ray_contracted does."""
+    k1, k2 = jax.random.split(key)
+    return (np.asarray(jax.random.uniform(k1, (1, n))), np.asarray(jax.random.uniform(k2, (1, n))))
+
+
+@pytest.mark.parametrize("is_train", [False, True])
+def test_sample_ray_contracted(rng, is_train):
+    o = rng.uniform(-0.5, 0.5, (20, 3)).astype(np.float32)
+    d = rng.normal(size=(20, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(7)
+    n_total = 96
+    noise = tuple(map(T, _jax_stratified_noise(key, n_total // 6))) if is_train else None
+    out_t = trays.sample_ray_contracted(T(o), T(d), n_total, is_train, noise)
+    out_j = jrays.sample_ray_contracted(jnp.asarray(o), jnp.asarray(d), n_total, is_train, key)
+    for a, b in zip(out_t, out_j):
+        close(a, b, atol=1e-5)
+
+
+# ------------------------------- grid -------------------------------
+
+
+def test_unnormalize_nan_and_clamp():
+    c = np.array([np.nan, -3.0, -1.0, 0.0, 0.3, 1.0, 4.0], np.float32)
+    close(tgrid._unnormalize(T(c), 9), jgrid._unnormalize(jnp.asarray(c), 9))
+
+
+def test_quad_tables_and_texels(rng):
+    plane = rng.normal(size=(5, 6, 7)).astype(np.float32)
+    line = rng.normal(size=(5, 9)).astype(np.float32)
+    np.testing.assert_array_equal(
+        tgrid.build_quad_plane(T(plane)).numpy(), np.asarray(jgrid.build_quad_plane(jnp.asarray(plane))))
+    np.testing.assert_array_equal(
+        tgrid.build_quad_line(T(line)).numpy(), np.asarray(jgrid.build_quad_line(jnp.asarray(line))))
+    coords = rng.uniform(-1.2, 1.2, (100, 2)).astype(np.float32)
+    for a, b in zip(tgrid.plane_texel(6, 7, T(coords)), jgrid.plane_texel(6, 7, jnp.asarray(coords))):
+        close(a.float(), b)
+    for a, b in zip(tgrid.line_texel(9, T(coords[:, 0])), jgrid.line_texel(9, jnp.asarray(coords[:, 0]))):
+        close(a.float(), b)
+
+
+def test_quad_lerp_rounds_weights_to_table_dtype(rng):
+    """bf16 tables: the lerp weights are rounded to bf16 before the lerp
+    (grid.py:183-184), so the result is the table-dtype lerp."""
+    rows = rng.normal(size=(64, 16)).astype(np.float32)
+    wx = rng.uniform(0, 1, (64, 1)).astype(np.float32)
+    wy = rng.uniform(0, 1, (64, 1)).astype(np.float32)
+    out = tgrid.quad_lerp_2d(T(rows, torch.bfloat16), T(wx), T(wy), 4)
+    assert out.dtype == torch.bfloat16
+    want = jgrid.quad_lerp_2d(jnp.asarray(rows, jnp.bfloat16), jnp.asarray(wx), jnp.asarray(wy), 4)
+    close(out, np.asarray(want, np.float32), rtol=2e-2, atol=2e-2)
+    wxr = T(wx, torch.bfloat16).float().numpy()
+    wyr = T(wy, torch.bfloat16).float().numpy()
+    rb = T(rows, torch.bfloat16).float().numpy()
+    ref = (rb[:, :4] * (1 - wxr) + rb[:, 4:8] * wxr) * (1 - wyr) + (rb[:, 8:12] * (1 - wxr) + rb[:, 12:] * wxr) * wyr
+    close(out, ref, rtol=2e-2, atol=2e-2)
+    close(tgrid.quad_lerp_1d(T(rows), T(wx), 8), jgrid.quad_lerp_1d(jnp.asarray(rows), jnp.asarray(wx), 8))
+
+
+@pytest.mark.parametrize("binned", [False, True])
+def test_quad_sample_2d_values_and_grads(rng, binned):
+    c, h, w = 32, 12, 10
+    plane = rng.normal(size=(c, h, w)).astype(np.float32)
+    coords = rng.uniform(-1.1, 1.1, (700, 2)).astype(np.float32)
+
+    def t_fn(plane, coords):
+        return tgrid.quad_sample_2d(tgrid.build_quad_plane(plane), h, w, coords, c, binned)
+
+    def j_fn(plane, coords):
+        return jgrid.quad_sample_2d(jgrid.build_quad_plane(plane), h, w, coords, c, binned)
+
+    close(t_fn(T(plane), T(coords)), j_fn(jnp.asarray(plane), jnp.asarray(coords)))
+    for a, b in zip(tgrad(t_fn, plane, coords), jgrad(j_fn, plane, coords)):
+        close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_quad_sample_1d_onehot_grads(rng):
+    c, d = 32, 17
+    line = rng.normal(size=(c, d)).astype(np.float32)
+    coords = rng.uniform(-1.1, 1.1, (500,)).astype(np.float32)
+
+    def t_fn(line, coords):
+        return tgrid.quad_sample_1d(tgrid.build_quad_line(line), d, coords, c)
+
+    def j_fn(line, coords):
+        return jgrid.quad_sample_1d(jgrid.build_quad_line(line), d, coords, c, "onehot")
+
+    close(t_fn(T(line), T(coords)), j_fn(jnp.asarray(line), jnp.asarray(coords)))
+    for a, b in zip(tgrad(t_fn, line, coords), jgrad(j_fn, line, coords)):
+        close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_grid_sample_oracles_and_resize(rng):
+    line = rng.normal(size=(3, 11)).astype(np.float32)
+    plane = rng.normal(size=(3, 8, 9)).astype(np.float32)
+    vol = rng.normal(size=(5, 6, 7)).astype(np.float32)
+    c3 = rng.uniform(-1.1, 1.1, (200, 3)).astype(np.float32)
+    close(tgrid.grid_sample_1d(T(line), T(c3[:, 0])), jgrid.grid_sample_1d(jnp.asarray(line), jnp.asarray(c3[:, 0])))
+    close(tgrid.grid_sample_2d(T(plane), T(c3[:, :2])), jgrid.grid_sample_2d(jnp.asarray(plane), jnp.asarray(c3[:, :2])))
+    close(tgrid.grid_sample_3d(T(vol), T(c3)), jgrid.grid_sample_3d(jnp.asarray(vol), jnp.asarray(c3)))
+    close(tgrid.resize_align_corners_2d(T(plane), 13, 15),
+          jgrid.resize_align_corners_2d(jnp.asarray(plane), 13, 15), atol=1e-5)
+    close(tgrid.resize_align_corners_1d(T(line), 20),
+          jgrid.resize_align_corners_1d(jnp.asarray(line), 20), atol=1e-5)
+
+
+# ----------------------------- occupancy -----------------------------
+
+
+def _blobs(rng, shape):
+    """A binary volume of a few random balls (realistic occupancy)."""
+    zz, yy, xx = np.meshgrid(*[np.linspace(-1, 1, n) for n in shape], indexing="ij")
+    vol = np.zeros(shape, np.float32)
+    for c in rng.uniform(-0.7, 0.7, (3, 3)):
+        vol[(zz - c[0]) ** 2 + (yy - c[1]) ** 2 + (xx - c[2]) ** 2 < 0.15] = 1.0
+    return vol
+
+
+def test_pack_and_occupancy_valid_exact(rng):
+    vol = _blobs(rng, (9, 10, 11))
+    packed_t = tocc.pack_alpha_corners(T(vol))
+    packed_j = jocc.pack_alpha_corners(jnp.asarray(vol))
+    assert packed_t.dtype == torch.uint8
+    np.testing.assert_array_equal(packed_t.numpy(), np.asarray(packed_j))
+    coords = rng.uniform(-1.1, 1.1, (5000, 3)).astype(np.float32)
+    coords[:50] = np.round(coords[:50] * 4) / 4  # exact texel corners
+    v_t = tocc.occupancy_valid(packed_t, vol.shape, T(coords))
+    v_j = jocc.occupancy_valid(packed_j, vol.shape, jnp.asarray(coords))
+    np.testing.assert_array_equal(v_t.numpy(), np.asarray(v_j))
+    assert 0 < int(v_t.sum()) < len(coords)
+
+
+@pytest.mark.parametrize("shape,ds", [((16, 16, 16), 4), ((13, 10, 7), 4), ((9, 9, 9), 2)])
+def test_coarsen_alpha_end_padding_exact(rng, shape, ds):
+    """Ragged ends: JAX pads with -inf at the END only, which the port does
+    with F.pad before F.max_pool3d."""
+    vol = _blobs(rng, shape)
+    np.testing.assert_array_equal(
+        tocc.coarsen_alpha(T(vol), ds).numpy(), np.asarray(jocc.coarsen_alpha(jnp.asarray(vol), ds)))
+
+
+@pytest.mark.parametrize("m", [1, 5, 12])
+def test_compact_valid_samples_exact(rng, m):
+    valid = rng.uniform(0, 1, (40, 12)) < 0.4
+    valid[:, -1] = False
+    sel_t, sv_t = tocc.compact_valid_samples(T(valid), m)
+    sel_j, sv_j = jocc.compact_valid_samples(jnp.asarray(valid), m)
+    np.testing.assert_array_equal(sel_t.numpy(), np.asarray(sel_j))
+    np.testing.assert_array_equal(sv_t.numpy(), np.asarray(sv_j))
+
+
+# ------------------------------ tensorf ------------------------------
+
+GRID = (12, 10, 14)
+
+
+def _cfgs(**kw):
+    jcfg = jtf.TensorfConfig(grid_size=GRID, **kw)
+    tcfg = ttf.TensorfConfig(grid_size=GRID, **kw)
+    return jcfg, tcfg
+
+
+def _field(seed=0, cfg=None, density_scale=1.0):
+    """A random field as a JAX pytree of numpy arrays and as the port's
+    module (shapes from JAX's init_tensorf, values from numpy)."""
+    jcfg = cfg or jtf.TensorfConfig(grid_size=GRID)
+    shapes = jax.eval_shape(lambda k: jtf.init_tensorf(k, jcfg), jax.random.PRNGKey(0))
+    rng = np.random.default_rng(seed)
+
+    def fill(path, s):
+        name = jax.tree_util.keystr(path)
+        scale = 0.1 * (density_scale if "density" in name else 1.0)
+        return (scale * rng.normal(size=s.shape)).astype(np.float32)
+
+    jp = jax.tree_util.tree_map_with_path(fill, shapes)
+    return jp, field_from_jax(jp)
+
+
+def _flat(tree: dict, prefix="") -> dict:
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{k}.") if isinstance(v, dict) else {prefix + k: v})
+    return out
+
+
+def test_init_layout_matches_jax():
+    jcfg, tcfg = _cfgs()
+    shapes = jax.eval_shape(lambda k: jtf.init_tensorf(k, jcfg), jax.random.PRNGKey(0))
+    field = ttf.init_tensorf(tcfg, torch.Generator().manual_seed(0), "cpu")
+    want = {k: tuple(v.shape) for k, v in _flat(shapes).items()}
+    got = {k: tuple(p.shape) for k, p in field.named_parameters()}
+    assert got == want
+    assert field["mlp"]["w1"] is field.mlp.w1
+    assert not field["mlp"]["b3"].detach().any()
+    assert all(p.dtype == torch.float32 for p in field.parameters())
+
+
+def test_config_rejects_unported_options():
+    with pytest.raises(NotImplementedError):
+        ttf.TensorfConfig(grid_size=GRID, fused_march=True)
+    assert ttf.TensorfConfig(grid_size=GRID).n_samples == jtf.TensorfConfig(grid_size=GRID).n_samples
+
+
+def test_normalize_and_combined_views(rng):
+    jcfg, tcfg = _cfgs()
+    pts = rng.uniform(-2.5, 2.5, (50, 3)).astype(np.float32)
+    close(ttf.normalize_coord(T(pts), tcfg), jtf.normalize_coord(jnp.asarray(pts), jcfg))
+    jp, field = _field()
+    jv = jtf.build_combined_quad_views(jp, jcfg)
+    tv = ttf.build_combined_quad_views(field, tcfg)
+    for k in jv:
+        np.testing.assert_array_equal(tv[k].detach().numpy(), np.asarray(jv[k]))
+
+
+def test_density_app_features_and_grads(rng):
+    """Binned plane backward on (min rows lowered) + one-hot line backward."""
+    jcfg, tcfg = _cfgs(binned_min_rows=100)
+    jp, field = _field()
+    pts = rng.uniform(-1.05, 1.05, (600, 3)).astype(np.float32)
+
+    def j_fn(p, x):
+        sig, app = jtf.compute_density_app_features(p, x, jcfg, jtf.build_combined_quad_views(p, jcfg))
+        return jnp.sum(sig * jnp.linspace(0, 1, sig.size)) + jnp.sum(app * jnp.linspace(-1, 1, app.size).reshape(app.shape))
+
+    x_t = T(pts).requires_grad_(True)
+    sig, app = ttf.compute_density_app_features(field, x_t, tcfg, ttf.build_combined_quad_views(field, tcfg))
+    sig_j, app_j = jax.jit(
+        lambda p, x: jtf.compute_density_app_features(p, x, jcfg, jtf.build_combined_quad_views(p, jcfg))
+    )(jp, jnp.asarray(pts))
+    close(sig, sig_j, atol=1e-5)
+    close(app, app_j, atol=1e-5)
+    loss = (sig * torch.linspace(0, 1, sig.numel())).sum() + (app * torch.linspace(-1, 1, app.numel()).reshape(app.shape)).sum()
+    names = [n for n, _ in field.named_parameters()]
+    g_t = dict(zip(names + ["x"], torch.autograd.grad(loss, list(field.parameters()) + [x_t], allow_unused=True)))
+    g_pj, g_xj = jax.jit(jax.grad(j_fn, argnums=(0, 1)))(jp, jnp.asarray(pts))
+    g_j = params_from_jax(jax.device_get(g_pj))
+    for k, v in g_j.items():
+        if k.startswith("mlp."):
+            continue
+        close(g_t[k], v.numpy(), rtol=1e-4, atol=1e-5)
+    close(g_t["x"], g_xj, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_apply_mlp(rng, dt):
+    """f32 at the module tolerance; bf16 (hidden layers in bf16, the last one
+    from bf16 inputs in f32) to bf16 tolerance."""
+    jcfg, tcfg = _cfgs(mlp_dtype=dt, fea_pe=2, view_pe=2)
+    jp, field = _field(cfg=jcfg)
+    feat = rng.normal(size=(300, 27)).astype(np.float32)
+    vd = rng.normal(size=(300, 3)).astype(np.float32)
+    out_t = ttf.apply_mlp(field["mlp"], None, T(vd), T(feat), tcfg, refine=1.0)
+    out_j = jtf.apply_mlp(jp["mlp"], None, jnp.asarray(vd), jnp.asarray(feat), jcfg, refine=1.0)
+    assert out_t.dtype == torch.float32
+    tol = (1e-5, 1e-6) if dt == "float32" else (2e-2, 1e-2)
+    close(out_t, out_j, *tol)
+
+
+def test_feature2density_and_tv(rng):
+    jcfg, tcfg = _cfgs()
+    feat = rng.normal(0, 8, (400,)).astype(np.float32)
+    close(ttf.feature2density(T(feat), tcfg), jtf.feature2density(jnp.asarray(feat), jcfg))
+    jp, field = _field()
+    close(ttf.tv_loss_density(field), jtf.tv_loss_density(jp))
+    close(ttf.tv_loss_app(field), jtf.tv_loss_app(jp))
+
+
+@pytest.mark.parametrize("streamed", [False, True])
+def test_density_l1_dense_and_streamed(monkeypatch, streamed):
+    """The streamed/dense choice is TensorfConfig.l1_stream_min_vox in the
+    port (env vars in JAX); both match JAX's dense sum, values and grads."""
+    grid = (8, 12, 10)
+    jcfg = jtf.TensorfConfig(grid_size=grid)
+    tcfg = ttf.TensorfConfig(grid_size=grid, l1_stream_min_vox=1 if streamed else 10**9)
+    monkeypatch.setattr(ttf, "L1_BLOCK_TARGET", 240)
+    jp, field = _field(cfg=jcfg)
+    val = ttf.density_l1(field, tcfg)
+    val_j, g_pj = jax.jit(jax.value_and_grad(lambda p: jtf.density_l1(p, jcfg)))(jp)
+    close(val, val_j)
+    g_t = dict(zip([n for n, _ in field.named_parameters()],
+                   torch.autograd.grad(val, list(field.parameters()), allow_unused=True)))
+    g_j = params_from_jax(jax.device_get(g_pj))
+    for i in range(3):
+        for k in (f"density_plane_{i}", f"density_line_{i}"):
+            close(g_t[k], g_j[k].numpy(), rtol=1e-4, atol=1e-7)
+
+
+def test_upsample_dense_alpha_and_alpha_volume():
+    jcfg, tcfg = _cfgs(alpha_mask_thres=0.5)
+    jp, field = _field(cfg=jcfg, density_scale=10.0)  # ~half the volume occupied
+    new_t, cfg_t = ttf.upsample_tensorf(field, tcfg, (15, 13, 17))
+    new_j = jax.jit(lambda p: jtf.upsample_tensorf(p, jcfg, (15, 13, 17))[0])(jp)
+    cfg_j = jcfg.with_grid((15, 13, 17))
+    assert cfg_t.grid_size == cfg_j.grid_size
+    for k, v in params_from_jax(jax.device_get(new_j)).items():
+        close(new_t[k] if "." not in k else new_t["mlp"][k[4:]], v.numpy(), atol=1e-5)
+    alpha_j, vol_j = jax.jit(lambda p: (jtf.compute_dense_alpha(p, jcfg, (12, 10, 14)),
+                                        jtf.update_alpha_volume(p, jcfg, (12, 10, 14))))(jp)
+    # alpha = 1 - exp(-sigma * step) of large sigmas: rtol 1e-4
+    close(ttf.compute_dense_alpha(field, tcfg, (12, 10, 14)), alpha_j, rtol=1e-4, atol=1e-6)
+    vol_t = ttf.update_alpha_volume(field, tcfg, (12, 10, 14))
+    np.testing.assert_array_equal(vol_t.numpy(), np.asarray(vol_j))
+    assert 0 < float(vol_t.mean()) < 1
+
+
+# ------------------------------- optim -------------------------------
+
+
+def test_gated_per_frame_adam(rng):
+    p = rng.normal(size=(6, 3, 2)).astype(np.float32)
+    st_t = toptim.adam_init(T(p), 5e-3, per_frame=True)
+    st_j = joptim.adam_init(jnp.asarray(p), 5e-3, per_frame=True)
+    pt, pj = T(p), jnp.asarray(p)
+    for k in range(4):
+        g = rng.normal(size=p.shape).astype(np.float32)
+        gate = rng.uniform(size=6) < 0.6
+        st_t = toptim.scale_lr(st_t, 0.9, T(gate))
+        st_j = joptim.scale_lr(st_j, 0.9, jnp.asarray(gate))
+        pt, st_t = toptim.adam_update(pt, T(g), st_t, T(gate))
+        pj, st_j = joptim.adam_update(pj, jnp.asarray(g), st_j, jnp.asarray(gate))
+    close(pt, pj)
+    np.testing.assert_array_equal(st_t.step.numpy(), np.asarray(st_j.step))
+    close(st_t.lr, st_j.lr)
+    close(st_t.m, st_j.m)
+    close(st_t.v, st_j.v)
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_pytree_adam_in_place(rng, moment_dtype):
+    jp, field = _field()
+    lrs_t = toptim.field_base_lrs(field, 0.02, 1e-3)
+    lrs_j = joptim.field_base_lrs(jp, 0.02, 1e-3)
+    assert lrs_t == _flat(lrs_j)
+    st_t = toptim.pytree_adam_init(field, moment_dtype)
+    st_j = joptim.pytree_adam_init(jp, moment_dtype)
+    pj = jp
+    for k in range(2):
+        g_j = jax.tree.map(lambda x: jnp.asarray(rng.normal(size=x.shape).astype(np.float32)), jp)
+        g_t = params_from_jax(jax.device_get(g_j))
+        field, st_t = toptim.pytree_adam_update(field, g_t, st_t, lrs_t)
+        pj, st_j = jax.jit(joptim.pytree_adam_update)(pj, g_j, st_j, lrs_j)
+        st_t = st_t._replace(lr_scale=st_t.lr_scale * 0.95)
+        st_j = st_j._replace(lr_scale=st_j.lr_scale * 0.95)
+    assert st_t.step == int(st_j.step)
+    tol = (1e-5, 1e-6) if moment_dtype == "float32" else (1e-2, 1e-4)
+    want = params_from_jax(jax.device_get(pj))
+    for k, p in field.named_parameters():
+        close(p, want[k].numpy(), *tol)
+    m_j = params_from_jax(jax.device_get(st_j.m))
+    assert st_t.m["density_plane_0"].dtype == getattr(torch, moment_dtype)
+    close(st_t.m["mlp.w2"].float(), m_j["mlp.w2"].float().numpy(), *tol)
+
+
+# ------------------------------- imports -------------------------------
+
+
+def test_port_imports_no_jax():
+    """No module of the port imports jax (source scan), and importing the
+    port and the slice's modules in a fresh interpreter loads no jax."""
+    pkg = REPO / "localrf_tpu_torch"
+    for path in pkg.rglob("*.py"):
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = []
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.module:
+                names = [node.module]
+            for n in names:
+                assert n.split(".")[0] not in ("jax", "jaxlib"), f"{path}: imports {n}"
+                assert not n.startswith(("localrf_tpu.models", "localrf_tpu.ops", "localrf_tpu.optim")), (
+                    f"{path}: imports {n}")
+    code = (
+        "import sys; pre = 'jax' in sys.modules\n"
+        "import localrf_tpu_torch, localrf_tpu_torch.convert, localrf_tpu_torch.optim\n"
+        "import localrf_tpu_torch.models.local, localrf_tpu_torch.models.render\n"
+        "import localrf_tpu_torch.models.step, localrf_tpu_torch.models.tensorf\n"
+        "import localrf_tpu_torch.ops.kernels.composite, localrf_tpu_torch.ops.kernels.binned_scatter\n"
+        "import localrf_tpu_torch.ops.kernels.segsum, localrf_tpu_torch.data.dataset\n"
+        "import chip_smoke\n"
+        "print(pre, 'jax' in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.split() == ["False", "False"], out.stdout
