@@ -6,14 +6,21 @@
    limit, builds the kernels from localrf_tpu_torch/csrc/ and prints the
    build time.
 2. Checks each hand-written kernel against its plain PyTorch version on the
-   card at the shapes of the training step, and times both (CUDA events).
-3. Trains the default full-width TensoRF-VM model through the port's entry
-   points (LocalTensorfs.optimizer_step on SyntheticDataset batches of 4096
-   rays over 960x540 frames): 5 steps from 64^3 (alpha refresh, dense cull,
+   card at the shapes of the training step, and times both (CUDA events):
+   K1 (compositing weights), K2 (plane segment sum), K3 (line segment sum),
+   K4 (fused march core, forward and backward).
+3. One small training step card vs CPU (32^3, f32) for the default path,
+   the fused march (--fused_march 1) and the segsum lines (--line_bwd
+   segsum).
+4. Trains the full-width TensoRF-VM model through the port's entry points
+   (LocalTensorfs.optimizer_step on SyntheticDataset batches of 4096 rays
+   over 960x540 frames): 5 steps from 64^3 (alpha refresh, dense cull,
    upsample to 101^3), then 3 steps at 640^3 with a 320^3 ball alpha volume
-   (coarse probe + compaction to 332 samples per ray).
-4. After each slice phase: every loss finite, parameters changed, every
-   kernel launched by the step itself (launch counts reset just before).
+   (coarse probe + compaction to 332 samples per ray) for each of the
+   default path, the fused march and the segsum lines.
+5. After each slice phase: every loss finite, parameters changed, and the
+   kernels of that phase's path launched by the step itself while the
+   others were not (launch counts reset just before).
 
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
@@ -32,6 +39,20 @@ import numpy as np
 # cumprod reference, which multiplies in another order on the card
 K1_TOL = {"fwd": (1e-4, 1e-6), "bwd": (1e-3, 1e-5)}
 K2_TOL_F32 = (1e-4, 1e-4)
+# K3: f32 atomic-add order over ~2,000-4,600 points per line row: rtol 1e-4,
+# atol 1e-5 of the largest entry (the rounding of a reordered sum scales
+# with the row's partial sums)
+K3_TOL = (1e-4, 1e-5)
+# K4 against march_core_plain, bf16 tables and MLP: an f32 sum taken in
+# another order (atomics, the MLP dots) can flip a bf16 rounding, which
+# moves a hidden activation by one bf16 ulp: out to atol 1e-2, gradients to
+# 2e-2 of their largest entry (a kernel fault is off by O(1))
+K4_TOL = {"out": 1e-2, "grad": 2e-2}
+# (table rows, points) of the main path: line tables of 64 rows with
+# 4096 x 72 samples at 64^3, 640 rows with 4096 x 332 at 640^3; K3's payload
+# rows are 64 bf16 (2C), K4 runs bf16 tables and MLP
+K3_CASES = ((64, 4096 * 72), (640, 4096 * 332))
+K4_CASES = ((64, 4096 * 72), (640, 4096 * 332))
 
 W, H = 960, 540
 BATCH, N_VIEWS, N_FRAMES = 4096, 16, 8
@@ -174,6 +195,81 @@ def check_kernels(dev) -> list[dict]:
     return rows
 
 
+def march_inputs(g: int, p: int, dtype, gen, dev) -> tuple[list, "torch.Tensor"]:
+    """Random march-core arguments at table size g and P points (the
+    field's init scales), every differentiable one requiring grad, and a
+    cotangent."""
+    import torch
+
+    def leaf(t):
+        return t.requires_grad_(True)
+
+    def uni(shape, bound):
+        return (torch.rand(shape, generator=gen, device=dev) * 2 - 1) * bound
+
+    rows = [leaf((0.1 * torch.randn(p, 128, generator=gen, device=dev)).to(dtype)) for _ in range(3)]
+    args = rows + [
+        leaf(torch.rand(p, 6, generator=gen, device=dev)),
+        leaf(torch.rand(p, 3, generator=gen, device=dev)),
+        torch.randint(0, g, (p, 3), generator=gen, device=dev, dtype=torch.int32),
+        torch.nn.functional.normalize(torch.randn(p, 3, generator=gen, device=dev), dim=-1),
+        leaf((0.1 * torch.randn(3, g, 64, generator=gen, device=dev)).to(dtype)),
+        leaf(uni((72, 27), 72**-0.5)), leaf(uni((27, 128), 27**-0.5)), leaf(uni((128,), 27**-0.5)),
+        leaf(uni((128, 128), 128**-0.5)), leaf(uni((128,), 128**-0.5)),
+        leaf(uni((131, 3), 131**-0.5)), leaf(uni((3,), 0.1)),
+    ]
+    return args, torch.randn(p, 4, generator=gen, device=dev)
+
+
+def check_k3_k4(dev, gen) -> list[dict]:
+    """K3 and K4 against their plain versions at the main path's shapes."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import march as k4
+    from localrf_tpu_torch.ops.kernels import segsum as k3
+
+    rows = []
+    for n_rows, p in K3_CASES:
+        idx = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
+        g = torch.randn(p, 64, generator=gen, device=dev).to(torch.bfloat16)
+        want = k3.segment_sum_small_plain(idx, g, n_rows)
+        err = _close(k3.segment_sum_small(idx, g, n_rows), want,
+                     K3_TOL[0], K3_TOL[1] * float(want.abs().max()))
+        rows.append(dict(
+            name="segment_sum_small", shape=f"n_rows {n_rows}, P {p}, bf16 -> f32", max_abs_err=err,
+            ms=_time_ms(lambda: k3.segment_sum_small(idx, g, n_rows)),
+            plain_ms=_time_ms(lambda: k3.segment_sum_small_plain(idx, g, n_rows)),
+        ))
+
+    for g_rows, p in K4_CASES:
+        args, gout = march_inputs(g_rows, p, torch.bfloat16, gen, dev)
+        leaves = [a for a in args if a.requires_grad]
+        out_k = k4.march_core(*args, "bfloat16")
+        out_p = k4.march_core_plain(*args, "bfloat16")
+        err_f = _close(out_k, out_p, 0.0, K4_TOL["out"])
+        grads_k = torch.autograd.grad(out_k, leaves, gout)
+        grads_p = torch.autograd.grad(out_p, leaves, gout)
+        err_b = 0.0
+        for gk, gp in zip(grads_k, grads_p):
+            if gk.dtype != gp.dtype:
+                raise AssertionError(f"march_bwd: gradient dtype {gk.dtype} vs {gp.dtype}")
+            err_b = max(err_b, _close(gk, gp, 0.0, K4_TOL["grad"] * float(gp.abs().max())))
+        plain = [a.detach() for a in args]
+        shape = f"G {g_rows}, P {p}, bf16"
+        rows.append(dict(
+            name="march_fwd", shape=shape, max_abs_err=err_f,
+            ms=_time_ms(lambda: k4._launch_fwd(plain, "bfloat16"), reps=10),
+            plain_ms=_time_ms(lambda: k4.march_fwd_plain(*plain, "bfloat16"), reps=5),
+        ))
+        rows.append(dict(
+            name="march_bwd", shape=shape, max_abs_err=err_b,
+            ms=_time_ms(lambda: k4._launch_bwd(plain, gout, "bfloat16"), reps=10),
+            plain_ms=_time_ms(lambda: k4.march_bwd_plain(*plain, gout, "bfloat16"), reps=5),
+        ))
+        del args, grads_k, grads_p, plain
+    return rows
+
+
 KERNELS = {
     # name -> (source, pallas_call site of the TPU kernel it replaces)
     "fused_weights_fwd": ("localrf_tpu_torch/csrc/composite.cu",
@@ -182,19 +278,32 @@ KERNELS = {
                           "localrf_tpu/ops/pallas/composite.py:120"),
     "segment_sum": ("localrf_tpu_torch/csrc/segment_sum.cu",
                     "localrf_tpu/ops/pallas/binned_scatter.py:191"),
+    "segment_sum_small": ("localrf_tpu_torch/csrc/segsum_small.cu",
+                          "localrf_tpu/ops/pallas/segsum.py:68"),
+    "march_fwd": ("localrf_tpu_torch/csrc/march.cu", "localrf_tpu/ops/pallas/march.py:318"),
+    "march_bwd": ("localrf_tpu_torch/csrc/march.cu", "localrf_tpu/ops/pallas/march.py:380"),
 }
+# the kernels each training path launches (and no other)
+PATH_KERNELS = {
+    "default": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum"},
+    "fused_march": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "march_fwd", "march_bwd"},
+    "segsum": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "segment_sum_small"},
+}
+PATH_TF = {"default": {}, "fused_march": {"fused_march": True}, "segsum": {"line_bwd": "segsum"}}
+
+
+def _counters() -> list[dict]:
+    from localrf_tpu_torch.ops.kernels import binned_scatter, composite, march, segsum
+
+    return [composite.LAUNCHES, binned_scatter.LAUNCHES, segsum.LAUNCHES, march.LAUNCHES]
 
 
 def _launch_counts() -> dict:
-    from localrf_tpu_torch.ops.kernels import binned_scatter, composite
-
-    return {**composite.LAUNCHES, **binned_scatter.LAUNCHES}
+    return {k: v for counts in _counters() for k, v in counts.items()}
 
 
 def _reset_launch_counts() -> None:
-    from localrf_tpu_torch.ops.kernels import binned_scatter, composite
-
-    for counts in (composite.LAUNCHES, binned_scatter.LAUNCHES):
+    for counts in _counters():
         for k in counts:
             counts[k] = 0
 
@@ -214,15 +323,16 @@ def make_dataset(w: int, h: int, n_frames: int, seed: int = 0):
     )
 
 
-def full_width_config(grid: int, **local_kw):
+def full_width_config(grid: int, path: str = "default", **local_kw):
     """The default TensoRF-VM model at full width (train.py's defaults: the
-    compositing kernel on, bf16 gather tables and MLP, f32 Adam moments)."""
+    compositing kernel on, bf16 gather tables and MLP, f32 Adam moments),
+    with the TensorfConfig flags of `path` (PATH_TF)."""
     from localrf_tpu_torch.models.local import LocalConfig
     from localrf_tpu_torch.models.tensorf import TensorfConfig
 
     tf = TensorfConfig(
         grid_size=(grid, grid, grid), pallas_composite=True,
-        gather_dtype="bfloat16", mlp_dtype="bfloat16",
+        gather_dtype="bfloat16", mlp_dtype="bfloat16", **PATH_TF[path],
     )
     return LocalConfig(WH=(W, H), n_init_frames=N_FRAMES, n_views=N_VIEWS,
                        batch_size=BATCH, tensorf=tf, **local_kw)
@@ -239,8 +349,9 @@ def _snapshot(model) -> dict:
     }
 
 
-def run_slice(label: str, model, ds, n_steps: int) -> dict:
-    """Drive n_steps optimizer_steps; check losses, updates and launches."""
+def run_slice(label: str, model, ds, n_steps: int, path: str = "default") -> dict:
+    """Drive n_steps optimizer_steps; check losses, updates, and that the
+    kernels of `path` (PATH_KERNELS) launched and no other did."""
     import torch
 
     before = _snapshot(model)
@@ -267,8 +378,10 @@ def run_slice(label: str, model, ds, n_steps: int) -> dict:
         if torch.equal(before[k], after[k]):
             raise AssertionError(f"{label}: {k} did not change")
     for k, n in launches.items():
-        if n <= 0:
+        if k in PATH_KERNELS[path] and n <= 0:
             raise AssertionError(f"{label}: kernel {k} was not launched by the training step")
+        if k not in PATH_KERNELS[path] and n != 0:
+            raise AssertionError(f"{label}: kernel {k} is off this path but launched {n} times")
     f = model.fields[-1]
     ms = float(np.median(times))
     print(f"slice {label}: grid {f['cfg'].grid_size} occ_m {f['cfg'].occ_m} "
@@ -279,12 +392,13 @@ def run_slice(label: str, model, ds, n_steps: int) -> dict:
     return {"ms": ms, "peak": peak, "launches": launches}
 
 
-def check_small_step_against_cpu(dev) -> None:
+def check_small_step_against_cpu(dev, path: str = "default") -> None:
     """Losses and gradients of one training step on a small field, on the
     card (kernels) and on the CPU (plain versions), from the same weights,
     batch and noise: without an alpha volume (dense march) and with a ball
-    alpha volume (coarse probe + compaction). f32 tables and MLP; gradients
-    agree to 1e-3 of their largest entry (atomic-add order on the card)."""
+    alpha volume (coarse probe + compaction), with the flags of `path`.
+    f32 tables and MLP; gradients agree to 1e-3 of their largest entry
+    (atomic-add order on the card)."""
     import torch
 
     from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
@@ -293,8 +407,10 @@ def check_small_step_against_cpu(dev) -> None:
 
     w, h = 96, 64
     ds = make_dataset(w, h, 4, seed=1)
-    tf = TensorfConfig(grid_size=(32, 32, 32), pallas_composite=True, binned_min_rows=500)
+    tf = TensorfConfig(grid_size=(32, 32, 32), pallas_composite=True, binned_min_rows=500,
+                       **PATH_TF[path])
     cfg = LocalConfig(WH=(w, h), n_init_frames=4, n_views=4, batch_size=512, occ_min=8, tensorf=tf)
+    _reset_launch_counts()
     gpu = LocalTensorfs(cfg, device=dev)
     cpu = LocalTensorfs(cfg, device="cpu")
     cpu.fields[-1]["params"] = TensorfField(
@@ -331,49 +447,22 @@ def check_small_step_against_cpu(dev) -> None:
             worst = max(worst, rel)
             if rel > 1e-3:
                 raise AssertionError(f"small step {label}: grad {k} off by {rel:.2e} of max")
-        print(f"small step card vs cpu ({label}, occ_m {gpu.fields[-1]['cfg'].occ_m}):"
+        print(f"small step card vs cpu ({path}, {label}, occ_m {gpu.fields[-1]['cfg'].occ_m}):"
               f" total_loss {m_gpu['total_loss']:.6f} vs {m_cpu['total_loss']:.6f},"
               f" worst grad err {worst:.2e} of max")
+    missing = [k for k, n in _launch_counts().items() if k in PATH_KERNELS[path] and n <= 0]
+    if missing:
+        raise AssertionError(f"small step ({path}): kernels {missing} did not launch on the card")
 
 
-def main() -> None:
-    torch = _require_cuda()
+def slice_640(ds, dev, path: str) -> dict:
+    """3 steps at 640^3 with a ~8% ball alpha volume at 320^3 (coarse probe
+    + compaction to 332 samples per ray), the flags of `path`."""
+    import torch
+
     from localrf_tpu_torch.models.local import LocalTensorfs
-    from localrf_tpu_torch.ops.kernels import _build
 
-    dev = torch.device("cuda", 0)
-    print(_gpu_line())
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
-    t0 = time.perf_counter()
-    _build.library()
-    print(f"kernel build: {time.perf_counter() - t0:.1f} s ({_build.build_info['path']})")
-    for ln in _build.build_info["log"].splitlines():
-        if "registers" in ln:
-            print(f"  ptxas: {ln.strip()}")
-
-    # phase 2: kernels against their plain versions
-    rows = check_kernels(dev)
-    for row in rows:
-        print(f"kernel {row['name']:18s} {row['shape']:38s} err {row['max_abs_err']:.3e}"
-              f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms")
-    check_small_step_against_cpu(dev)
-
-    # phase 3: the slice at 64^3 — dense march, alpha refresh after the 2nd
-    # step, dense cull, upsample to 101^3 after the 3rd
-    ds = make_dataset(W, H, N_FRAMES)
-    model = LocalTensorfs(
-        full_width_config(64, update_AlphaMask_list=[3], N_voxel_list={4: 101**3}), device=dev
-    )
-    model.is_refining = True
-    model.rf_iter[-1] = 2  # past the schedule rescale at rf_iter 1
-    s64 = run_slice("64^3", model, ds, 5)
-    f = model.fields[-1]
-    if f["cfg"].grid_size != (101, 101, 101) or f["alpha_volume"] is None:
-        raise AssertionError("64^3 slice: the upsample / alpha refresh did not happen")
-    del model, f
-
-    # phase 4: the slice at 640^3 with a ~8% ball alpha volume at 320^3
-    model = LocalTensorfs(full_width_config(640), device=dev)
+    model = LocalTensorfs(full_width_config(640, path), device=dev)
     model.is_refining = True
     model.rf_iter[-1] = 10
     model.lr_factor = 0.999
@@ -384,22 +473,70 @@ def main() -> None:
     f["cfg"] = dataclasses.replace(f["cfg"], occ_m=model._occ_m(f["cfg"], True))
     if f["cfg"].occ_m != 332:
         raise AssertionError(f"640^3 slice: occ_m {f['cfg'].occ_m}, expected 332")
-    s640 = run_slice("640^3", model, ds, 3)
+    del xx, yy, zz, f
+    return run_slice(f"640^3 {path}", model, ds, 3, path)
+
+
+def main() -> None:
+    torch = _require_cuda()
+    from localrf_tpu_torch.models.local import LocalTensorfs
+    from localrf_tpu_torch.ops.kernels import _build
+
+    # f32 products in full f32 (the plain versions' reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    print(_gpu_line())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    _build.library()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s ({_build.build_info['path']})")
+    for ln in _build.build_info["log"].splitlines():
+        if "registers" in ln or "spill" in ln:
+            print(f"  ptxas: {ln.strip()}")
+
+    # phase 2: kernels against their plain versions
+    rows = check_kernels(dev) + check_k3_k4(dev, torch.Generator(device=dev).manual_seed(1))
+    for row in rows:
+        print(f"kernel {row['name']:18s} {row['shape']:38s} err {row['max_abs_err']:.3e}"
+              f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms")
+    torch.cuda.empty_cache()
+    for path in PATH_TF:
+        check_small_step_against_cpu(dev, path)
+
+    # phase 4: the slice at 64^3 — dense march, alpha refresh after the 2nd
+    # step, dense cull, upsample to 101^3 after the 3rd
+    ds = make_dataset(W, H, N_FRAMES)
+    model = LocalTensorfs(
+        full_width_config(64, update_AlphaMask_list=[3], N_voxel_list={4: 101**3}), device=dev
+    )
+    model.is_refining = True
+    model.rf_iter[-1] = 2  # past the schedule rescale at rf_iter 1
+    phases = {"64^3": run_slice("64^3", model, ds, 5)}
+    f = model.fields[-1]
+    if f["cfg"].grid_size != (101, 101, 101) or f["alpha_volume"] is None:
+        raise AssertionError("64^3 slice: the upsample / alpha refresh did not happen")
+    del model, f
+
+    # phase 5: 640^3 for each path, the previous model freed first
+    for path, label in (("default", "640^3"), ("fused_march", "640^3 fused_march"),
+                        ("segsum", "640^3 segsum")):
+        torch.cuda.empty_cache()
+        phases[label] = slice_640(ds, dev, path)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": s64["launches"][name] + s640["launches"][name],
+            "launches": sum(ph["launches"][name] for ph in phases.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": mine[-1]["ms"], "plain_ms": mine[-1]["plain_ms"],
             "shape": mine[-1]["shape"],
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"slice": {
-        "64^3": {"ms_per_step": s64["ms"], "peak_bytes": s64["peak"]},
-        "640^3": {"ms_per_step": s640["ms"], "peak_bytes": s640["peak"]}}}))
+        label: {"ms_per_step": ph["ms"], "peak_bytes": ph["peak"]} for label, ph in phases.items()}}))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(json.dumps({"ok": True, "device": {

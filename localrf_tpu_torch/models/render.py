@@ -3,7 +3,8 @@
 Contracted stratified sampling, occupancy culling (coarse probe + exact
 compaction, or a dense cull), factored-grid density, softplus, the
 compositing scan (the K1 kernel when cfg.pallas_composite), shading of
-every (compacted) sample from the shared gather, white background. Static
+every (compacted) sample from the shared gather or in the fused march core
+(the K4 kernel when cfg.fused_march), white background. Static
 shapes: masked samples are zeroed, not dropped, which gives the same
 composited outputs as the reference's ragged gathers.
 """
@@ -11,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.kernels.march import fused_march_features, fused_march_supported
 from ..ops.math import alpha2weights, contract
 from ..ops.occupancy import (
     coarsen_alpha,
@@ -145,7 +147,13 @@ def render_rays(
         s = cfg.occ_m
 
     flat = pts_norm.reshape(-1, 3)
-    sigma_feat, app_feat_all = compute_density_app_features(params, flat, cfg, quad)
+    vd = viewdirs.detach()[:, None, :].expand(r, s, 3).reshape(-1, 3)
+    rgb_all = app_feat_all = None
+    if cfg.fused_march and fused_march_supported(cfg):
+        # the fused march core (K4) shades every (compacted) sample itself
+        sigma_feat, rgb_all = fused_march_features(params, quad, flat, vd, cfg)
+    else:
+        sigma_feat, app_feat_all = compute_density_app_features(params, flat, cfg, quad)
     sigma = feature2density(sigma_feat.reshape(r, s), cfg)
 
     if compact:
@@ -171,12 +179,13 @@ def render_rays(
     acc_map = torch.sum(weight, dim=-1)
     depth_map = torch.sum(weight * z_vals, dim=-1) / viewdirs_norm[..., 0]
 
-    # shade every (compacted) sample from the shared gather; zero samples
-    # below the weight threshold (the reference's masked ragged gather)
+    # shade every (compacted) sample (in the fused core, or from the shared
+    # gather); zero samples below the weight threshold (the reference's
+    # masked ragged gather)
     app_mask = weight > cfg.ray_march_weight_thres
-    vd = viewdirs.detach()[:, None, :].expand(r, s, 3).reshape(-1, 3)
-    rgb = apply_mlp(params["mlp"], flat, vd, app_feat_all, cfg, refine).reshape(r, s, 3)
-    rgb = torch.where(app_mask[..., None], rgb, 0.0)
+    if rgb_all is None:
+        rgb_all = apply_mlp(params["mlp"], flat, vd, app_feat_all, cfg, refine)
+    rgb = torch.where(app_mask[..., None], rgb_all.reshape(r, s, 3), 0.0)
     rgb_map = torch.sum(weight[..., None] * rgb, dim=-2)
 
     # white background, or randomly flipped white background in training

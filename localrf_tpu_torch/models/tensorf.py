@@ -61,6 +61,8 @@ class TensorfConfig:
     mlp_dtype: str = "float32"
     # hand-written compositing kernel (ops/kernels/composite.py)
     pallas_composite: bool = False
+    # line-gather backward: "onehot" (f32 index_add_), "segsum" (the K3
+    # kernel, ops/kernels/segsum.py) or "gather" (autograd's scatter)
     line_bwd: str = "onehot"
     matmul_segsum: bool = False
     # plane-table backward through the segment-sum kernel
@@ -73,6 +75,8 @@ class TensorfConfig:
     occ_m: int = 0
     occ_probe_ds: int = 4
     occ_refine: bool = True
+    # the fused march core, K4 (ops/kernels/march.py), where
+    # fused_march_supported(cfg); the unfused path otherwise, as in JAX
     fused_march: bool = False
     step_ratio: float = 0.5
     n_samples_cap: int = int(1e6)
@@ -88,14 +92,12 @@ class TensorfConfig:
     l1_stream_min_vox: int = 4 * 2**20
 
     def __post_init__(self):
+        # the XLA gather-emitter workarounds are not ported (ROADMAP.md)
         unported = {
             "fast_gather": (self.fast_gather, True),
-            "line_bwd": (self.line_bwd, "onehot"),
-            "matmul_segsum": (self.matmul_segsum, False),
             "fused_plane_gather": (self.fused_plane_gather, False),
             "fused_fwd_gather": (self.fused_fwd_gather, 0),
             "fused_line_gather": (self.fused_line_gather, False),
-            "fused_march": (self.fused_march, False),
             "shading_mode": (self.shading_mode, "MLP_Fea_late_view"),
         }
         for name, (value, default) in unported.items():
@@ -103,6 +105,13 @@ class TensorfConfig:
                 raise NotImplementedError(
                     f"TensorfConfig.{name}={value!r}: only {default!r} is ported"
                 )
+        if self.line_bwd not in ("gather", "segsum", "onehot"):
+            raise ValueError(f"TensorfConfig.line_bwd={self.line_bwd!r}")
+
+    @property
+    def line_mode(self) -> str:
+        """Effective line-gather backward mode (the legacy flag wins)."""
+        return "segsum" if self.matmul_segsum else self.line_bwd
 
     @property
     def aabb(self) -> np.ndarray:
@@ -216,14 +225,17 @@ def build_combined_quad_views(params, cfg: TensorfConfig) -> dict:
     """Quad views with density and appearance factors fused per orientation:
     [8+24]-channel planes quad-pack to rows of 4*32 = 128 values, so ONE
     gather (and one backward segment sum) per orientation serves both
-    features. Tables are cast to `cfg.gather_dtype`."""
+    features. Tables are cast to `cfg.gather_dtype`, except the line tables
+    in the "segsum" line mode: K3 takes them in f32 and rounds the gathered
+    rows (ops/kernels/segsum.py `take_rows`)."""
     dt = _DTYPES[cfg.gather_dtype]
+    line_dt = torch.float32 if cfg.line_mode == "segsum" else dt
     views = {}
     for i in range(3):
         plane = torch.cat([params[f"density_plane_{i}"], params[f"app_plane_{i}"]], dim=0)
         line = torch.cat([params[f"density_line_{i}"], params[f"app_line_{i}"]], dim=0)
         views[f"comb_plane_{i}"] = build_quad_plane(plane.to(dt))
-        views[f"comb_line_{i}"] = build_quad_line(line.to(dt))
+        views[f"comb_line_{i}"] = build_quad_line(line.to(line_dt))
     return views
 
 
@@ -233,6 +245,7 @@ def compute_density_app_features(params, pts: torch.Tensor, cfg: TensorfConfig, 
     sigma = 0.0
     prods = []
     g = cfg.grid_size
+    dt = _DTYPES[cfg.gather_dtype]
     for i in range(3):
         m0, m1 = MAT_MODE[i]
         v = VEC_MODE[i]
@@ -241,7 +254,7 @@ def compute_density_app_features(params, pts: torch.Tensor, cfg: TensorfConfig, 
         table = quad[f"comb_plane_{i}"]
         binned = cfg.binned_scatter and table.shape[0] >= cfg.binned_min_rows
         pf = quad_sample_2d(table, g[m1], g[m0], pts[:, (m0, m1)], c, binned)
-        lf = quad_sample_1d(quad[f"comb_line_{i}"], g[v], pts[:, v], c)
+        lf = quad_sample_1d(quad[f"comb_line_{i}"], g[v], pts[:, v], c, cfg.line_mode, dt)
         prod = pf * lf  # [P, cd+ca]
         sigma = sigma + torch.sum(prod[:, :cd].to(torch.float32), dim=-1)
         prods.append(prod[:, cd:])

@@ -159,7 +159,9 @@ def quad_sample_2d(
 
 
 def line_texel(d: int, coords: torch.Tensor):
-    """coords [P] in [-1, 1] -> (row index x0 [P] int64, lerp weight w1 [P, 1])."""
+    """coords [P] in [-1, 1] -> (row index x0 [P] int64, lerp weight w1 [P, 1]).
+    The clamp keeps x0 <= d - 1, and the quad line's last row duplicates
+    the border, so x0 always indexes a whole row pair."""
     x = _unnormalize(coords, d)
     x0 = torch.floor(x).long()
     w1 = (x - x0.to(x.dtype))[:, None]
@@ -172,14 +174,32 @@ def quad_lerp_1d(rows: torch.Tensor, w1: torch.Tensor, c: int) -> torch.Tensor:
     return rows[:, :c] * (1.0 - w1) + rows[:, c : 2 * c] * w1
 
 
-def quad_sample_1d(quad: torch.Tensor, d: int, coords: torch.Tensor, c: int) -> torch.Tensor:
-    """Linear sample from a quad-packed line, coords [P] in [-1, 1]. The row
-    gather's backward is the one-hot segment sum (JAX's default "onehot"
-    line mode): f32 accumulation, cast to the table dtype."""
-    from .kernels.segsum import take_rows_onehot
+def quad_sample_1d(
+    quad: torch.Tensor, d: int, coords: torch.Tensor, c: int, mode: str = "gather",
+    dtype: torch.dtype | None = None,
+) -> torch.Tensor:
+    """Linear sample from a quad-packed line, coords [P] in [-1, 1].
+
+    `mode` selects the backward of the row gather:
+      - "gather": autograd's `index_select` backward (a scatter-add);
+      - "segsum": the K3 kernel (ops/kernels/segsum.py `take_rows`): `quad`
+        is the f32 table, the rows are rounded to `dtype`, the gradient
+        stays f32 as in JAX;
+      - "onehot": an f32 `index_add_` cast to the table dtype (JAX's pure-XLA
+        one-hot matmul).
+    """
+    from .kernels.segsum import take_rows, take_rows_onehot
 
     x0, w1 = line_texel(d, coords)
-    return quad_lerp_1d(take_rows_onehot(quad, x0), w1, c)
+    if mode == "segsum":
+        rows = take_rows(quad, x0, dtype)
+    elif mode == "onehot":
+        rows = take_rows_onehot(quad, x0)
+    elif mode == "gather":
+        rows = quad.index_select(0, x0)
+    else:
+        raise ValueError(f"unknown line mode {mode!r}")
+    return quad_lerp_1d(rows, w1, c)
 
 
 def resize_align_corners_2d(plane: torch.Tensor, new_h: int, new_w: int) -> torch.Tensor:

@@ -44,6 +44,17 @@ SIGNATURES = {
     "lrf_segment_sum": (_P, _P, _I, _P, _L, _I, _L, _P),
     # src (f32), dst (bf16), n, stream
     "lrf_cast_f32_bf16": (_P, _P, _L, _P),
+    # idx (int64), g, g_is_bf16, out (f32), P, C, n_rows, stream
+    "lrf_segsum_small": (_P, _P, _I, _P, _L, _I, _L, _P),
+    # rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3,
+    # b3, out, P, G, t_bf16, m_bf16, n_blocks, stream
+    "lrf_march_fwd": (_P,) * 16 + (_L, _I, _I, _I, _I, _P),
+    # the 15 inputs above, gout, drows0, drows1, drows2, d_wxy, d_w1l,
+    # dlines (f32), d_app (scratch), partials (scratch), dparams, P, G,
+    # t_bf16, m_bf16, n_blocks, stream
+    "lrf_march_bwd": (_P,) * 25 + (_L, _I, _I, _I, _I, _P),
+    # -> length of the march backward's packed parameter gradient
+    "lrf_march_n_params": (),
 }
 
 _lock = threading.Lock()
@@ -79,27 +90,46 @@ def source_hash() -> str:
 
 def build() -> Path:
     """Compile csrc/*.cu into build/kernels/liblocalrf_kernels_<hash>.so unless
-    that file already exists; raises with nvcc's output if the build fails."""
+    that file already exists; raises with nvcc's output if the build fails.
+    Each source compiles to an object in its own nvcc process, all started
+    together, then one nvcc links the library."""
     out = BUILD_DIR / f"liblocalrf_kernels_{source_hash()}.so"
     if out.is_file():
         build_info.update(path=str(out), seconds=0.0, log="(cached)")
         return out
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sources() if p.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *cu]
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+    cu = [p for p in sources() if p.suffix == ".cu"]
+    compile_flags = tuple(f for f in NVCC_FLAGS if f != "-shared")
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    procs = [
+        (src, subprocess.Popen(
+            [nvcc, *compile_flags, "-c", "-o", str(work / f"{src.stem}.o"), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ))
+        for src in cu
+    ]
+    logs, failed = [], []
+    for src, proc in procs:
+        text = proc.communicate()[0]
+        logs.append(f"== {src.name}\n{text}")
+        if proc.returncode != 0:
+            failed.append(src.name)
+    tmp = work / "lib.so"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), *(str(work / f"{s.stem}.o") for s in cu)]
+    if not failed:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        logs.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append("link")
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{log}"
-        )
+    log = "\n".join(logs)
+    if failed:
+        shutil.rmtree(work, ignore_errors=True)
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}): {' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
+    shutil.rmtree(work, ignore_errors=True)
     (BUILD_DIR / f"{out.stem}.log").write_text(log)
     build_info.update(path=str(out), seconds=seconds, log=log)
     return out

@@ -1,16 +1,99 @@
-"""Row gather for the small line tables (port of
-localrf_tpu/ops/pallas/segsum.py `take_rows_onehot`).
+"""Row gathers for the small line tables.
 
-In JAX this is pure XLA (a one-hot matmul backward), not Pallas, so here it
-is plain PyTorch: an `index_select` whose backward is an f32 `index_add_`
-cast to the table dtype. Accumulating in f32 keeps JAX's numerics: a bf16
-index_add would round every partial sum of the ~2000 points per line row.
+K3: `segment_sum_small` launches the CUDA kernel in csrc/segsum_small.cu
+(an f32 segment sum whose output tile stays in shared memory; see the note
+there for what bounds it on the card), replacing the Pallas TPU kernel
+localrf_tpu/ops/pallas/segsum.py `segment_sum_matmul`. `take_rows` is the
+row gather whose backward is that segment sum (`--line_bwd segsum`);
+`segment_sum_small_plain` (an f32 `index_add_`) is the CPU path and the
+on-card reference. The atomic adds run in no fixed order: against the plain
+version the result agrees to rtol 1e-4 / atol 1e-5 of its largest entry
+(thousands of points sum into each line row).
+
+JAX's K3 returns an f32 gradient even for a bf16 table, where PyTorch's
+autograd would cast a Function's gradient to its input's dtype. So
+`take_rows` takes the f32 table and rounds the gathered rows to `dtype`:
+the same values as gathering from the rounded table, with the gradient
+kept in f32 up to the f32 master line.
+
+`take_rows_onehot` ports the default line mode (`take_rows_onehot`, pure
+XLA in JAX, not Pallas): an `index_select` whose backward is an f32
+`index_add_` cast to the table dtype. Accumulating in f32 keeps JAX's
+numerics: a bf16 index_add would round every partial sum of the ~2000
+points per line row.
 """
 from __future__ import annotations
 
 import torch
 
+from . import _build
 from .binned_scatter import segment_sum_plain
+
+LAUNCHES = {"segment_sum_small": 0}
+MAX_C = 64  # the kernel's payload width (csrc/segsum_small.cu kMaxC): a quad line row
+_PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def segment_sum_small_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """out[n_rows, C] f32 = sum_{p: idx_p == r} g_p, accumulated in f32."""
+    return segment_sum_plain(idx, g, n_rows, torch.float32)
+
+
+def _segment_sum_small_cuda(idx, g, n_rows: int) -> torch.Tensor:
+    if idx.dim() != 1 or g.dim() != 2 or idx.shape[0] != g.shape[0]:
+        raise ValueError(f"idx [P] and g [P, C] expected, got {list(idx.shape)}, {list(g.shape)}")
+    if idx.dtype != torch.int64:
+        raise TypeError(f"idx must be int64, got {idx.dtype}")
+    if g.dtype not in _PAYLOAD_DTYPES:
+        raise TypeError(f"segment_sum_small supports float32/bfloat16 payloads, got {g.dtype}")
+    if idx.device != g.device:
+        raise ValueError("idx and g must be on the same device")
+    if g.shape[1] > MAX_C:
+        raise ValueError(f"segment_sum_small takes rows of at most {MAX_C} values, got {g.shape[1]}")
+    idx, g = idx.contiguous(), g.contiguous()
+    p, c = g.shape
+    out = torch.zeros((n_rows, c), dtype=torch.float32, device=g.device)
+    if p and n_rows and c:
+        with torch.cuda.device(g.device):
+            _build.launch(
+                "lrf_segsum_small", idx.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
+                out.data_ptr(), p, c, n_rows, _build.stream_ptr(g.device),
+            )
+        LAUNCHES["segment_sum_small"] += 1
+    return out
+
+
+def segment_sum_small(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """out[n_rows, C] f32 = sum_{p: idx_p == r} g_p. CPU tensors take
+    `segment_sum_small_plain`; CUDA tensors launch the kernel."""
+    if g.device.type == "cpu":
+        return segment_sum_small_plain(idx, g, n_rows)
+    if g.device.type != "cuda":
+        raise ValueError(f"segment_sum_small: no kernel for device {g.device}")
+    return _segment_sum_small_cuda(idx, g, n_rows)
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, table, idx, dtype):
+        ctx.save_for_backward(idx)
+        ctx.n_rows = table.shape[0]
+        return table.index_select(0, idx).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        if not ctx.needs_input_grad[0]:
+            return None, None, None
+        return segment_sum_small(idx, g, ctx.n_rows), None, None
+
+
+def take_rows(table: torch.Tensor, idx: torch.Tensor, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """table[idx] rounded to `dtype` (default: the table's), whose backward is
+    K3: an f32 segment sum, returned to the table unrounded."""
+    if table.dtype != torch.float32:
+        raise TypeError(f"take_rows takes the f32 table (got {table.dtype}); pass the gather dtype")
+    return _TakeRows.apply(table, idx, dtype or table.dtype)
 
 
 class _TakeRowsOnehot(torch.autograd.Function):

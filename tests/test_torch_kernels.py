@@ -1,14 +1,22 @@
-"""Port kernels: the plain PyTorch versions of K1 (compositing weights) and
-K2 (segment sum) against the Pallas kernels they replace, run in interpret
-mode on the CPU, at the shapes of tests/test_pallas_composite.py and
-tests/test_binned_scatter.py; the CPU dispatch of the wrappers; and the
+"""Port kernels: the plain PyTorch versions of K1 (compositing weights), K2
+(segment sum), K3 (small-table segment sum) and K4 (fused march core)
+against the Pallas kernels they replace, run in interpret mode on the CPU,
+at the shapes of tests/test_pallas_composite.py, tests/test_binned_scatter.py
+and tests/test_fused_march.py; the CPU dispatch of the wrappers; and the
 build helper. The CUDA kernels themselves are tested on a card by
 tests/test_torch_gpu.py.
 
 Tolerances: K1 forward rtol 1e-5 / atol 1e-6, its gradient rtol 1e-4 /
 atol 1e-5 (the Pallas suffix scan and torch.cumprod's autograd associate
-differently); K2 rtol 1e-4 / atol 1e-4 in f32 (summation order), and one
-bf16 ulp after a bf16 cast.
+differently); K2 and K3 rtol 1e-4 / atol 1e-4 in f32 (summation order), and
+one bf16 ulp after a bf16 cast; K3's gradient on a bf16 table equals JAX's
+f32 one to rtol 1e-5 / atol 1e-6 (f32 rounding, far inside one bf16 ulp).
+K4 in f32: out rtol 1e-5 / atol 1e-6, every gradient to 1e-5 of its largest
+entry (measured ~5e-7: only f32 summation orders differ); in bf16 the JAX
+package's own tolerances for this kernel, 2e-2 forward and 6e-2 of the
+largest entry for gradients (XLA may keep excess precision between bf16
+ops; measured: out 6e-8, d(wx, wy, w1) 5e-3 of max from bf16 sums, the
+rest to f32 rounding).
 """
 import jax
 import jax.numpy as jnp
@@ -18,10 +26,14 @@ import torch
 
 from localrf_tpu.ops.pallas import binned_scatter as jbs
 from localrf_tpu.ops.pallas import composite as jcomp
+from localrf_tpu.ops.pallas import march as jmarch
+from localrf_tpu.ops.pallas import segsum as jsegsum
 from localrf_tpu.ops.pallas.segsum import take_rows_onehot as j_take_onehot
 from localrf_tpu_torch.ops.kernels import _build
 from localrf_tpu_torch.ops.kernels import binned_scatter as k2
 from localrf_tpu_torch.ops.kernels import composite as k1
+from localrf_tpu_torch.ops.kernels import march as k4
+from localrf_tpu_torch.ops.kernels import segsum as k3
 from localrf_tpu_torch.ops.kernels.segsum import take_rows_onehot
 
 SCALE = 25.0
@@ -185,6 +197,165 @@ def test_segment_sum_cpu_dispatch_and_no_fallback(rng):
         k2.segment_sum(idx.to("meta"), g.to("meta"), 10)
 
 
+# ------------------------------- K3 -------------------------------
+
+
+@pytest.mark.parametrize(
+    "n_rows,p,payload",
+    [
+        (640, 5000, "float32"),
+        (64, 3000, "float32"),
+        (700, 2500, "float32"),  # neither n_rows % 512 nor P % 1024 is 0
+        (1030, 1500, "float32"),  # three of the Pallas kernel's row tiles
+        (640, 4100, "bfloat16"),
+    ],
+)
+def test_segment_sum_small_plain_matches_pallas(rng, n_rows, p, payload):
+    idx = rng.integers(0, n_rows, size=p)
+    g = rng.standard_normal((p, 64)).astype(np.float32)
+    if payload == "bfloat16":
+        g = np.asarray(jnp.asarray(g, jnp.bfloat16)).astype(np.float32)
+    jdt = jnp.float32 if payload == "float32" else jnp.bfloat16
+    want = jsegsum.segment_sum_matmul(jnp.asarray(idx, jnp.int32), jnp.asarray(g, jdt), n_rows)
+    got = k3.segment_sum_small(T(idx), T(g, getattr(torch, payload)), n_rows)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), _oracle(idx, g, n_rows), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_take_rows_grad_is_jax_f32_segsum(rng, dtype):
+    """K3's gradient stays f32 for a bf16 table, as JAX's does: the port's
+    take_rows gathers from the f32 table and rounds the rows, so the
+    gradient reaches the table unrounded (a bf16 result would be one bf16
+    ulp off, far outside this tolerance)."""
+    t, c, p = 640, 64, 5000
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    tab = np.asarray(jnp.asarray(rng.normal(size=(t, c)), jdt)).astype(np.float32)
+    idx = rng.integers(0, t, p)
+    co = rng.normal(size=(p, c)).astype(np.float32)
+    rows_j, vjp = jax.vjp(lambda x: jsegsum.take_rows(x, jnp.asarray(idx, jnp.int32)), jnp.asarray(tab, jdt))
+    (g_j,) = vjp(jnp.asarray(co, jdt))
+    assert g_j.dtype == jnp.float32
+    x = T(tab).requires_grad_(True)
+    rows = k3.take_rows(x, T(idx), dtype)
+    assert rows.dtype == dtype
+    np.testing.assert_array_equal(rows.detach().float().numpy(), np.asarray(rows_j, np.float32))
+    rows.backward(T(co, dtype))
+    assert x.grad.dtype == torch.float32
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_j), rtol=1e-5, atol=1e-6)
+    if dtype == torch.bfloat16:
+        rounded = x.grad.to(torch.bfloat16).float()
+        assert not torch.equal(rounded, x.grad)
+    with pytest.raises(TypeError, match="f32 table"):
+        k3.take_rows(x.detach().to(torch.bfloat16), T(idx))
+
+
+def test_segment_sum_small_cpu_dispatch_and_no_fallback(rng):
+    idx = T(rng.integers(0, 10, 50))
+    g = T(rng.normal(size=(50, 4)).astype(np.float32))
+    before = dict(k3.LAUNCHES)
+    k3.segment_sum_small(idx, g, 10)
+    assert k3.LAUNCHES == before
+    with pytest.raises(ValueError, match="no kernel"):
+        k3.segment_sum_small(idx.to("meta"), g.to("meta"), 10)
+
+
+# ------------------------------- K4 -------------------------------
+
+
+def _march_inputs(rng, p=777, g=24):
+    """Inputs of one march core call as numpy (JAX's layouts and the port's)."""
+    f = np.float32
+    d = {
+        "rows": [rng.normal(0, 0.3, (p, 128)).astype(f) for _ in range(3)],
+        "wxy": rng.uniform(0, 1, (p, 6)).astype(f),
+        "w1l": rng.uniform(0, 1, (p, 3)).astype(f),
+        "x0": rng.integers(0, g, (p, 3)).astype(np.int32),
+        "vd": rng.normal(size=(p, 3)).astype(f),
+        "lines": rng.normal(0, 0.3, (3, g, 64)).astype(f),
+        "basis": rng.uniform(-0.12, 0.12, (72, 27)).astype(f),
+        "w1": rng.uniform(-0.19, 0.19, (27, 128)).astype(f),
+        "b1": rng.uniform(-0.19, 0.19, 128).astype(f),
+        "w2": rng.uniform(-0.09, 0.09, (128, 128)).astype(f),
+        "b2": rng.uniform(-0.09, 0.09, 128).astype(f),
+        "w3": rng.uniform(-0.09, 0.09, (131, 3)).astype(f),
+        "b3": rng.uniform(-0.1, 0.1, 3).astype(f),
+        "gout": rng.normal(size=(p, 4)).astype(f),
+    }
+    return d
+
+
+def _torch_march_args(d, tdt):
+    """The port's march_core arguments; every differentiable one requires grad."""
+    def leaf(x, dt=torch.float32):
+        return T(x, dt).requires_grad_(True)
+
+    return ([leaf(r, tdt) for r in d["rows"]]
+            + [leaf(d["wxy"]), leaf(d["w1l"]), torch.from_numpy(d["x0"]), T(d["vd"]), leaf(d["lines"], tdt)]
+            + [leaf(d[k]) for k in ("basis", "w1", "b1", "w2", "b2", "w3", "b3")])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_march_core_plain_matches_pallas(rng, dtype):
+    """out [P, 4] and all eleven gradient groups (three d_rows, d_aux as
+    d(wx, wy) and d(w1), dlines, dbasis, dw1, db1, dw2, db2, dw3 | db3)."""
+    d = _march_inputs(rng)
+    p = d["wxy"].shape[0]
+    jdt = jnp.float32 if dtype == "float32" else jnp.bfloat16
+    aux = np.concatenate([d["wxy"], d["w1l"], d["x0"].astype(np.float32), d["vd"], np.zeros((p, 1), np.float32)], -1)
+    jargs = [jnp.asarray(r, jdt) for r in d["rows"]] + [
+        jnp.asarray(aux), jnp.asarray(d["lines"], jdt), jnp.asarray(d["basis"]), jnp.asarray(d["w1"]),
+        jnp.asarray(d["b1"][None]), jnp.asarray(d["w2"]), jnp.asarray(d["b2"][None]),
+        jnp.asarray(np.concatenate([d["w3"], d["b3"][None]])),
+    ]
+    out_j, vjp = jax.vjp(lambda *a: jmarch.march_core(*a, dtype), *jargs)
+    gj = [np.asarray(g, np.float32) for g in vjp(jnp.asarray(np.concatenate([d["gout"], np.zeros((p, 4), np.float32)], -1)))]
+    want = gj[:3] + [gj[3][:, :6], gj[3][:, 6:9], gj[4], gj[5], gj[6], gj[7][0], gj[8], gj[9][0], gj[10][:-1], gj[10][-1]]
+    assert not gj[3][:, 9:].any()  # no gradient to x0 or vd
+
+    tdt = getattr(torch, dtype)
+    args = _torch_march_args(d, tdt)
+    out = k4.march_core(*args, dtype)
+    leaves = [a for a in args if a.requires_grad]
+    grads = torch.autograd.grad(out, leaves, T(d["gout"]))
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(out_j)[:, :4],
+                               rtol=1e-5 if f32 else 2e-2, atol=1e-6 if f32 else 2e-2)
+    names = "rows0 rows1 rows2 wxy w1l lines basis w1 b1 w2 b2 w3 b3".split()
+    for name, leaf, got, w in zip(names, leaves, grads, want):
+        assert got.dtype == leaf.dtype, name
+        scale = float(np.abs(w).max())
+        err = float(np.abs(got.float().numpy() - w).max())
+        assert err <= (1e-5 if f32 else 6e-2) * scale, f"{name}: {err:.2e} of max {scale:.2e}"
+
+
+def test_march_plain_backward_matches_autograd(rng):
+    """The hand-written VJP against autograd through the same forward (f32,
+    independent of JAX)."""
+    d = _march_inputs(rng, p=300, g=16)
+    args = _torch_march_args(d, torch.float32)
+    leaves = [a for a in args if a.requires_grad]
+    sigma, rgb, *_ = k4._forward(args[:3], *args[3:], torch.float32)
+    auto = torch.autograd.grad(torch.cat([sigma[:, None], rgb], -1), leaves, T(d["gout"]))
+    hand = k4.march_bwd_plain(*args, T(d["gout"]), "float32")
+    for name, a, h in zip("rows0 rows1 rows2 wxy w1l lines basis w1 b1 w2 b2 w3 b3".split(), auto, hand):
+        assert h.shape == a.shape, name
+        torch.testing.assert_close(h, a, rtol=1e-5, atol=1e-5 * float(a.abs().max()), msg=name)
+
+
+def test_march_core_cpu_dispatch_and_no_fallback(rng):
+    d = _march_inputs(rng, p=40, g=8)
+    args = _torch_march_args(d, torch.float32)
+    before = dict(k4.LAUNCHES)
+    out = k4.march_core(*args)
+    out.sum().backward()
+    assert out.shape == (40, 4) and k4.LAUNCHES == before
+    assert args[5].grad is None  # x0: indices
+    with pytest.raises(ValueError, match="no kernel"):
+        k4.march_core(*(a.detach().to("meta") for a in args))
+
+
 # ------------------------------- build -------------------------------
 
 
@@ -195,7 +366,8 @@ def test_build_is_keyed_by_sources_and_fails_loudly(monkeypatch, tmp_path):
     assert h == _build.source_hash() and len(h) == 16
     monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ("-lineinfo",))
     assert _build.source_hash() != h
-    assert {p.name for p in _build.sources()} >= {"composite.cu", "segment_sum.cu"}
+    assert {p.name for p in _build.sources()} >= {
+        "composite.cu", "segment_sum.cu", "segsum_small.cu", "march.cu"}
     for src in _build.sources():
         text = src.read_text()
         assert "--use_fast_math" not in text and "localrf_tpu/ops/pallas/" in text

@@ -254,7 +254,7 @@ def test_quad_sample_1d_onehot_grads(rng):
     coords = rng.uniform(-1.1, 1.1, (500,)).astype(np.float32)
 
     def t_fn(line, coords):
-        return tgrid.quad_sample_1d(tgrid.build_quad_line(line), d, coords, c)
+        return tgrid.quad_sample_1d(tgrid.build_quad_line(line), d, coords, c, "onehot")
 
     def j_fn(line, coords):
         return jgrid.quad_sample_1d(jgrid.build_quad_line(line), d, coords, c, "onehot")
@@ -262,6 +262,27 @@ def test_quad_sample_1d_onehot_grads(rng):
     close(t_fn(T(line), T(coords)), j_fn(jnp.asarray(line), jnp.asarray(coords)))
     for a, b in zip(tgrad(t_fn, line, coords), jgrad(j_fn, line, coords)):
         close(a, b, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["gather", "segsum", "onehot"])
+def test_quad_sample_1d_modes_values_and_grads(rng, mode):
+    """All three line modes against JAX's same mode (f32; segsum runs the
+    K3 plain version here and JAX's Pallas kernel in interpret mode)."""
+    c, d = 32, 23
+    line = rng.normal(size=(c, d)).astype(np.float32)
+    coords = rng.uniform(-1.1, 1.1, (700,)).astype(np.float32)
+
+    def t_fn(line, coords):
+        return tgrid.quad_sample_1d(tgrid.build_quad_line(line), d, coords, c, mode)
+
+    def j_fn(line, coords):
+        return jgrid.quad_sample_1d(jgrid.build_quad_line(line), d, coords, c, mode)
+
+    close(t_fn(T(line), T(coords)), j_fn(jnp.asarray(line), jnp.asarray(coords)))
+    for a, b in zip(tgrad(t_fn, line, coords), jgrad(j_fn, line, coords)):
+        close(a, b, rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="line mode"):
+        tgrid.quad_sample_1d(tgrid.build_quad_line(T(line)), d, T(coords), c, "scatter")
 
 
 def test_grid_sample_oracles_and_resize(rng):
@@ -370,8 +391,17 @@ def test_init_layout_matches_jax():
 
 
 def test_config_rejects_unported_options():
-    with pytest.raises(NotImplementedError):
-        ttf.TensorfConfig(grid_size=GRID, fused_march=True)
+    """The gather-emitter workarounds stay unported; the fused march and the
+    three line modes construct, with JAX's line_mode (legacy flag wins)."""
+    for kw in (dict(fused_plane_gather=True), dict(fused_fwd_gather=1), dict(fused_line_gather=True)):
+        with pytest.raises(NotImplementedError):
+            ttf.TensorfConfig(grid_size=GRID, **kw)
+    with pytest.raises(ValueError):
+        ttf.TensorfConfig(grid_size=GRID, line_bwd="scatter")
+    assert ttf.TensorfConfig(grid_size=GRID, fused_march=True).fused_march
+    for kw in (dict(), dict(line_bwd="segsum"), dict(line_bwd="gather"), dict(matmul_segsum=True),
+               dict(line_bwd="gather", matmul_segsum=True)):
+        assert ttf.TensorfConfig(grid_size=GRID, **kw).line_mode == jtf.TensorfConfig(grid_size=GRID, **kw).line_mode
     assert ttf.TensorfConfig(grid_size=GRID).n_samples == jtf.TensorfConfig(grid_size=GRID).n_samples
 
 
@@ -413,6 +443,77 @@ def test_density_app_features_and_grads(rng):
             continue
         close(g_t[k], v.numpy(), rtol=1e-4, atol=1e-5)
     close(g_t["x"], g_xj, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("line_bwd", ["segsum", "gather"])
+def test_density_app_features_line_modes(rng, line_bwd):
+    """The segsum (K3) and gather line backwards inside the shared-gather
+    features, f32 values and gradients against JAX."""
+    jcfg, tcfg = _cfgs(binned_min_rows=100, line_bwd=line_bwd)
+    jp, field = _field()
+    pts = rng.uniform(-1.05, 1.05, (500, 3)).astype(np.float32)
+    w_app = np.linspace(-1, 1, 500 * 27, dtype=np.float32).reshape(500, 27)
+
+    def j_fn(p, x):
+        sig, app = jtf.compute_density_app_features(p, x, jcfg, jtf.build_combined_quad_views(p, jcfg))
+        return jnp.sum(sig * jnp.linspace(0, 1, sig.size)) + jnp.sum(app * w_app)
+
+    x_t = T(pts).requires_grad_(True)
+    sig, app = ttf.compute_density_app_features(field, x_t, tcfg, ttf.build_combined_quad_views(field, tcfg))
+    loss = (sig * torch.linspace(0, 1, sig.numel())).sum() + (app * T(w_app)).sum()
+    close(loss, jax.jit(j_fn)(jp, jnp.asarray(pts)), rtol=1e-5, atol=1e-4)
+    names = [n for n, _ in field.named_parameters()]
+    g_t = dict(zip(names + ["x"], torch.autograd.grad(loss, list(field.parameters()) + [x_t], allow_unused=True)))
+    g_pj, g_xj = jax.jit(jax.grad(j_fn, argnums=(0, 1)))(jp, jnp.asarray(pts))
+    for k, v in params_from_jax(jax.device_get(g_pj)).items():
+        if not k.startswith("mlp."):
+            close(g_t[k], v.numpy(), rtol=1e-4, atol=1e-5)
+    close(g_t["x"], g_xj, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_fused_march_features_matches_jax(rng, dt):
+    """fused_march_features (K4 plain, K2 plain behind the plane rows) vs
+    JAX's (the Pallas kernels in interpret mode): sigma, rgb, and the
+    gradients to every parameter and to the points (the pose path). f32 at
+    rtol 1e-4 and 1e-4 of each gradient's largest entry; bf16 at the
+    kernel's own bf16 tolerances, 2e-2 and 6e-2 of max."""
+    from localrf_tpu.ops.pallas import march as jmarch
+    from localrf_tpu_torch.ops.kernels import march as tmarch
+
+    grid = (16, 16, 16)
+    kw = dict(grid_size=grid, fused_march=True, binned_min_rows=100, gather_dtype=dt, mlp_dtype=dt)
+    jcfg, tcfg = jtf.TensorfConfig(**kw), ttf.TensorfConfig(**kw)
+    assert tmarch.fused_march_supported(tcfg) and jmarch.fused_march_supported(jcfg)
+    assert not tmarch.fused_march_supported(ttf.TensorfConfig(grid_size=(16, 16, 12)))
+    jp, field = _field(cfg=jcfg)
+    pts = rng.uniform(-1.05, 1.05, (600, 3)).astype(np.float32)
+    vd = rng.normal(size=(600, 3)).astype(np.float32)
+    # random cotangents: a symmetric ramp would cancel the MLP gradients'
+    # sums down to their f32 rounding
+    w_sig = rng.normal(size=600).astype(np.float32)
+    w_rgb = rng.normal(size=(600, 3)).astype(np.float32)
+
+    def j_fn(p, x):
+        sig, rgb = jmarch.fused_march_features(p, jtf.build_combined_quad_views(p, jcfg), x, jnp.asarray(vd), jcfg)
+        return jnp.sum(sig * w_sig) + jnp.sum(rgb * w_rgb), (sig, rgb)
+
+    x_t = T(pts).requires_grad_(True)
+    sig, rgb = tmarch.fused_march_features(field, ttf.build_combined_quad_views(field, tcfg), x_t, T(vd), tcfg)
+    (_, (sig_j, rgb_j)), (g_pj, g_xj) = jax.jit(jax.value_and_grad(j_fn, argnums=(0, 1), has_aux=True))(
+        jp, jnp.asarray(pts))
+    f32 = dt == "float32"
+    close(sig, sig_j, *((1e-4, 1e-5) if f32 else (2e-2, 2e-2)))
+    close(rgb, rgb_j, *((1e-4, 1e-5) if f32 else (2e-2, 2e-2)))
+    loss = (sig * T(w_sig)).sum() + (rgb * T(w_rgb)).sum()
+    names = [n for n, _ in field.named_parameters()]
+    g_t = dict(zip(names + ["x"], torch.autograd.grad(loss, list(field.parameters()) + [x_t], allow_unused=True)))
+    want = {**params_from_jax(jax.device_get(g_pj)), "x": T(g_xj)}
+    for k, v in want.items():
+        got = g_t[k].detach().float().numpy()
+        scale = float(v.float().abs().max())
+        err = float(np.abs(got - v.float().numpy()).max())
+        assert err <= (1e-4 if f32 else 6e-2) * scale, f"{k}: {err:.2e} of max {scale:.2e}"
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
@@ -549,7 +650,8 @@ def test_port_imports_no_jax():
         "import localrf_tpu_torch.models.local, localrf_tpu_torch.models.render\n"
         "import localrf_tpu_torch.models.step, localrf_tpu_torch.models.tensorf\n"
         "import localrf_tpu_torch.ops.kernels.composite, localrf_tpu_torch.ops.kernels.binned_scatter\n"
-        "import localrf_tpu_torch.ops.kernels.segsum, localrf_tpu_torch.data.dataset\n"
+        "import localrf_tpu_torch.ops.kernels.segsum, localrf_tpu_torch.ops.kernels.march\n"
+        "import localrf_tpu_torch.data.dataset\n"
         "import chip_smoke\n"
         "print(pre, 'jax' in sys.modules)\n"
     )

@@ -1,9 +1,10 @@
 """Port parity of the training-step slice: render_rays, one train_step and
 two LocalTensorfs.optimizer_steps against the JAX package on the CPU, on
 weights carried across with params_from_jax and the stratified noise JAX
-draws from its key. A small grid with binned_min_rows lowered, so both the
-compositing kernel (K1) and the segment sum (K2) run (their plain versions
-here, the Pallas kernels in interpret mode on the JAX side).
+draws from its key. A small grid with binned_min_rows lowered, so the
+compositing kernel (K1) and the segment sum (K2) run, and with
+fused_march (K4) or line_bwd="segsum" (K3) where a case says so (their
+plain versions here, the Pallas kernels in interpret mode on the JAX side).
 
 Tolerances: rgb/depth and losses rtol 1e-4 (depth also atol 1e-4, it
 reaches the far plane); gradients to 1e-4 of each tensor's largest entry
@@ -78,6 +79,10 @@ RENDER_CASES = {
     "eval-dense-cull": (False, True, True, {}),
     "eval-no-alpha-bf16": (False, True, False, BF16),
     "train-probe-compact-bf16": (True, True, True, dict(occ_m=12, **BF16)),
+    "eval-fused-march-no-alpha": (False, True, False, dict(fused_march=True)),
+    "train-fused-march-probe-compact-bf16": (True, True, True, dict(occ_m=12, fused_march=True, **BF16)),
+    "train-segsum-lines-probe-compact": (True, False, True, dict(occ_m=12, line_bwd="segsum")),
+    "eval-segsum-lines-bf16": (False, True, False, dict(line_bwd="segsum", **BF16)),
 }
 
 
@@ -139,11 +144,12 @@ def _dataset(seed=0):
     )
 
 
-def _models(**local_kw):
+def _models(tf_kw=None, **local_kw):
     """A JAX LocalTensorfs and the port's, the port's field carried across."""
     common = dict(WH=(W, H), n_init_frames=N_FRAMES, n_views=N_VIEWS, batch_size=BATCH, **local_kw)
-    jm = jlocal.LocalTensorfs(jlocal.LocalConfig(tensorf=jtf.TensorfConfig(**TF_KW), **common))
-    tm = tlocal.LocalTensorfs(tlocal.LocalConfig(tensorf=ttf.TensorfConfig(**TF_KW), **common))
+    tf = dict(TF_KW, **(tf_kw or {}))
+    jm = jlocal.LocalTensorfs(jlocal.LocalConfig(tensorf=jtf.TensorfConfig(**tf), **common))
+    tm = tlocal.LocalTensorfs(tlocal.LocalConfig(tensorf=ttf.TensorfConfig(**tf), **common))
     field = field_from_jax(jax.device_get(jm.fields[-1]["params"]))
     tm.fields[-1]["params"] = field
     tm.fields[-1]["opt"] = pytree_adam_init(field)
@@ -153,9 +159,17 @@ def _models(**local_kw):
     return jm, tm
 
 
-def test_train_step_matches_jax():
+TRAIN_CONFIGS = {
+    "default": {},
+    "fused-march": dict(fused_march=True),  # K4 (+ K1, K2)
+    "segsum-lines": dict(line_bwd="segsum"),  # K3 (+ K1, K2)
+}
+
+
+@pytest.mark.parametrize("config", list(TRAIN_CONFIGS))
+def test_train_step_matches_jax(config):
     """One train_step: losses, field/pose/exposure gradients, new params."""
-    jm, tm = _models()
+    jm, tm = _models(TRAIN_CONFIGS[config])
     batch = _dataset().sample(BATCH, True, True, n_views=N_VIEWS)
     key = jax.random.PRNGKey(5)
     f = jm.fields[-1]
@@ -208,12 +222,13 @@ def test_train_step_matches_jax():
     assert new_field.opt.step == int(new_f.opt.step)
 
 
-def test_local_tensorfs_two_steps_with_alpha_refresh():
+@pytest.mark.parametrize("config", list(TRAIN_CONFIGS))
+def test_local_tensorfs_two_steps_with_alpha_refresh(config):
     """Two optimizer_steps; an occupancy refresh after the first, so the
     second marches against the alpha volume (coarse probe + compaction).
     The second step starts from parameters a first Adam step may have moved
     apart (see the module docstring), so its losses get rtol 1e-3."""
-    jm, tm = _models(update_AlphaMask_list=[2], occ_min=4)
+    jm, tm = _models(TRAIN_CONFIGS[config], update_AlphaMask_list=[2], occ_min=4)
     ds = _dataset(1)
     for step in range(2):
         batch = ds.sample(BATCH, True, True, n_views=N_VIEWS)
