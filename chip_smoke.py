@@ -8,27 +8,50 @@
 2. Checks each hand-written kernel against its plain PyTorch version on the
    card at the shapes of the training step, and times both (CUDA events):
    K1 (compositing weights), K2 (plane segment sum), K3 (line segment sum),
-   K4 (fused march core, forward and backward).
+   K4 (fused march core, forward and backward), and K5 (the merged segment
+   sum: no training path calls it, as none does in the JAX package; it is
+   also checked bit for bit against a second launch and timed beside K2 on
+   the same inputs).
 3. One small training step card vs CPU (32^3, f32) for the default path,
    the fused march (--fused_march 1) and the segsum lines (--line_bwd
    segsum).
-4. Trains the full-width TensoRF-VM model through the port's entry points
-   (LocalTensorfs.optimizer_step on SyntheticDataset batches of 4096 rays
-   over 960x540 frames): 5 steps from 64^3 (alpha refresh, dense cull,
-   upsample to 101^3), then 3 steps at 640^3 with a 320^3 ball alpha volume
-   (coarse probe + compaction to 332 samples per ray) for each of the
-   default path, the fused march and the segsum lines.
-5. After each slice phase: every loss finite, parameters changed, and the
-   kernels of that phase's path launched by the step itself while the
-   others were not (launch counts reset just before).
+4. Eager steps: trains the full-width TensoRF-VM model through the port's
+   entry points (LocalTensorfs.optimizer_step on SyntheticDataset batches
+   of 4096 rays over 960x540 frames): 5 steps from 64^3 (alpha refresh,
+   dense cull, upsample to 101^3), then 3 steps at 640^3 with a 320^3 ball
+   alpha volume (coarse probe + compaction to 332 samples per ray) for each
+   of the default path, the fused march and the segsum lines.
+5. Chunks (the JAX package's default --scan_chunk 16 --pixel_pool 1): a
+   DevicePixelPool of train.py's default capacity (146 frame slots of
+   960x540) is attached and LocalTensorfs.plan_chunk / run_chunk train
+   chunks of 16 steps, every step a replay of a captured CUDA graph: at
+   64^3 (ending in an alpha refresh, which drops the graphs, and one chunk
+   captured again after it), and at 640^3 on the default and the fused
+   march paths. The 64^3 and 640^3 default phases first train a chunk with
+   every sum in a fixed order (torch's deterministic algorithms, the plane
+   VJP through K5) and hold it bit for bit against the same 16 steps taken
+   eagerly by a twin model from the same state (not the fused march, whose
+   K4-bwd adds the line gradient atomically). Then, on the path as it runs: the first chunk
+   against a twin's eager steps (tolerances at CHUNK_TOL; the chunk's launch
+   counts are read before the twin runs), 3 chunks timed, one traced with
+   torch.profiler, which must show one graph launch per step whose replays
+   ran the path's kernels, and none of them outside a replay (the launch
+   counters count at capture, not at replay, and must not move in a chunk
+   of replays).
+6. After each training phase: every loss finite, parameters changed, and the
+   kernels of that phase's path launched while the others were not (launch
+   counts reset just before).
 
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -53,6 +76,28 @@ K4_TOL = {"out": 1e-2, "grad": 2e-2}
 # rows are 64 bf16 (2C), K4 runs bf16 tables and MLP
 K3_CASES = ((64, 4096 * 72), (640, 4096 * 332))
 K4_CASES = ((64, 4096 * 72), (640, 4096 * 332))
+
+# K5 against its plain version (sort + f32 index_add_, whose atomic adds
+# run in another order): f32 out as K2, bf16 out within one bf16 ulp
+K5_TOL_F32 = (1e-4, 1e-4)
+# the chunk path: train.py's --scan_chunk default, and its pixel-pool
+# capacity n_max_frames + n_overlap + 16 at the defaults (100, 30)
+CHUNK = 16
+POOL_SLOTS = 100 + 30 + 16
+# A captured chunk against the same steps taken eagerly from the same
+# state. With every sum in a fixed order (deterministic_sums) the two are
+# equal bit for bit (chunk_bit_exact). On the path as it runs, K2's and
+# index_add_'s atomic adds reorder f32 gradient sums, and 16 steps of
+# training amplify that: on an H100 two eager runs and two graph runs
+# drift as far apart as graph and eager (rgb_loss up to 3.2e-6, flow loss
+# up to 7.7e-3 at 64^3 and 9.8e-4 at 640^3 by step 15; 1.4e-2 in one
+# earlier graph-vs-eager run), while a graph that drops the pose window's
+# copy-back between steps is off by 0.25-0.73 in the flow loss on every
+# step after the first. So: every loss to rtol 1e-5 on the first step,
+# rgb_loss to 1e-4 (a wrong batch moves it by ~1e-2), the others to 5e-2
+CHUNK_TOL = {"rgb": 1e-4, "first": 1e-5, "other": 5e-2}
+# chunks timed per chunk phase
+N_TIMED = 3
 
 W, H = 960, 540
 BATCH, N_VIEWS, N_FRAMES = 4096, 16, 8
@@ -186,13 +231,42 @@ def check_kernels(dev) -> list[dict]:
             k2.segment_sum(idx, g, n_rows, torch.bfloat16),
             k2.segment_sum_plain(idx, g, n_rows, torch.bfloat16),
         )
+        shape = f"n_rows {n_rows}, P {p}, bf16 -> bf16"
+        k2_ms = _time_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
         rows.append(dict(
-            name="segment_sum", shape=f"n_rows {n_rows}, P {p}, bf16 -> bf16",
-            max_abs_err=max(err32, err16),
-            ms=_time_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16)),
+            name="segment_sum", shape=shape, max_abs_err=max(err32, err16), ms=k2_ms,
             plain_ms=_time_ms(lambda: k2.segment_sum_plain(idx, g, n_rows, torch.bfloat16)),
         ))
+        rows.append(check_k5(idx, g, n_rows, shape, k2_ms))
     return rows
+
+
+def check_k5(idx, g, n_rows: int, shape: str, k2_ms: float) -> dict:
+    """K5 against its plain version on K2's inputs, in f32 and bf16 out, bit
+    for bit against a second launch; timed whole (sort, payload gather, tile
+    bounds, kernel) and as the kernel alone on a prepared schedule."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+
+    out32 = k2.binned_segment_sum_merged(idx, g, n_rows, torch.float32)
+    err32 = _close(out32, k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.float32),
+                   *K5_TOL_F32)
+    out16 = k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)
+    err16 = _within_one_bf16_ulp(out16, k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16))
+    for out, dt in ((out32, torch.float32), (out16, torch.bfloat16)):
+        if not torch.equal(out, k2.binned_segment_sum_merged(idx, g, n_rows, dt)):
+            raise AssertionError(f"segment_sum_merged ({dt}) differs between two launches")
+    sidx, order, starts, tile_rows = k2.merged_schedule(idx, n_rows)
+    g_sorted = g.index_select(0, order)
+    return dict(
+        name="segment_sum_merged", shape=shape, max_abs_err=max(err32, err16),
+        ms=_time_ms(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)),
+        kernel_ms=_time_ms(
+            lambda: k2._launch_merged(sidx, g_sorted, starts, tile_rows, n_rows, torch.bfloat16)),
+        plain_ms=_time_ms(lambda: k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16)),
+        k2_ms=k2_ms, tile_rows=tile_rows, n_tiles=starts.shape[0] - 1,
+    )
 
 
 def march_inputs(g: int, p: int, dtype, gen, dev) -> tuple[list, "torch.Tensor"]:
@@ -282,6 +356,20 @@ KERNELS = {
                           "localrf_tpu/ops/pallas/segsum.py:68"),
     "march_fwd": ("localrf_tpu_torch/csrc/march.cu", "localrf_tpu/ops/pallas/march.py:318"),
     "march_bwd": ("localrf_tpu_torch/csrc/march.cu", "localrf_tpu/ops/pallas/march.py:380"),
+    "segment_sum_merged": ("localrf_tpu_torch/csrc/segment_sum_merged.cu",
+                           "localrf_tpu/ops/pallas/binned_scatter.py:365"),
+}
+# kernels that no training path calls (checked and timed in phase 2 only)
+OFF_PATH = {"segment_sum_merged"}
+# each launch counter's kernel symbol, as a profiler trace names it
+SYMBOLS = {
+    "fused_weights_fwd": "composite_fwd_kernel",
+    "fused_weights_bwd": "composite_bwd_kernel",
+    "segment_sum": "segment_sum_kernel",
+    "segment_sum_small": "segsum_small_kernel",
+    "march_fwd": "march_fwd_kernel",
+    "march_bwd": "march_bwd_mlp_kernel",
+    "segment_sum_merged": "segment_sum_merged_kernel",
 }
 # the kernels each training path launches (and no other)
 PATH_KERNELS = {
@@ -290,6 +378,9 @@ PATH_KERNELS = {
     "segsum": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "segment_sum_small"},
 }
 PATH_TF = {"default": {}, "fused_march": {"fused_march": True}, "segsum": {"line_bwd": "segsum"}}
+# paths with a sum that deterministic_sums leaves in no fixed order: no
+# bit-for-bit chunk check there
+UNORDERED_SUMS = {"fused_march": "K4-bwd adds the line-table gradient atomically"}
 
 
 def _counters() -> list[dict]:
@@ -349,6 +440,28 @@ def _snapshot(model) -> dict:
     }
 
 
+def _check_losses_and_updates(label: str, losses: list[dict], before: dict, model) -> None:
+    """Every loss finite; the field, poses and exposures moved."""
+    import torch
+
+    for i, m in enumerate(losses):
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"{label}: step {i} has a non-finite loss: {m}")
+    after = _snapshot(model)
+    for k in before:
+        if torch.equal(before[k], after[k]):
+            raise AssertionError(f"{label}: {k} did not change")
+
+
+def _check_launches(label: str, launches: dict, path: str) -> None:
+    """The kernels of `path` launched (count > 0), no other did."""
+    for k, n in launches.items():
+        if k in PATH_KERNELS[path] and n <= 0:
+            raise AssertionError(f"{label}: kernel {k} was not launched by the training step")
+        if k not in PATH_KERNELS[path] and n != 0:
+            raise AssertionError(f"{label}: kernel {k} is off this path but launched {n} times")
+
+
 def run_slice(label: str, model, ds, n_steps: int, path: str = "default") -> dict:
     """Drive n_steps optimizer_steps; check losses, updates, and that the
     kernels of `path` (PATH_KERNELS) launched and no other did."""
@@ -369,19 +482,8 @@ def run_slice(label: str, model, ds, n_steps: int, path: str = "default") -> dic
         losses.append(dict(model.last_metrics))
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
-
-    for i, m in enumerate(losses):
-        if not all(np.isfinite(v) for v in m.values()):
-            raise AssertionError(f"{label}: step {i} has a non-finite loss: {m}")
-    after = _snapshot(model)
-    for k in before:
-        if torch.equal(before[k], after[k]):
-            raise AssertionError(f"{label}: {k} did not change")
-    for k, n in launches.items():
-        if k in PATH_KERNELS[path] and n <= 0:
-            raise AssertionError(f"{label}: kernel {k} was not launched by the training step")
-        if k not in PATH_KERNELS[path] and n != 0:
-            raise AssertionError(f"{label}: kernel {k} is off this path but launched {n} times")
+    _check_losses_and_updates(label, losses, before, model)
+    _check_launches(label, launches, path)
     f = model.fields[-1]
     ms = float(np.median(times))
     print(f"slice {label}: grid {f['cfg'].grid_size} occ_m {f['cfg'].occ_m} "
@@ -455,14 +557,15 @@ def check_small_step_against_cpu(dev, path: str = "default") -> None:
         raise AssertionError(f"small step ({path}): kernels {missing} did not launch on the card")
 
 
-def slice_640(ds, dev, path: str) -> dict:
-    """3 steps at 640^3 with a ~8% ball alpha volume at 320^3 (coarse probe
-    + compaction to 332 samples per ray), the flags of `path`."""
+def model_640(dev, path: str, **local_kw):
+    """The full-width model at 640^3 with a ~8% ball alpha volume at 320^3
+    (coarse probe + compaction to 332 samples per ray), the flags of
+    `path`, past the schedule's rescale (rf_iter 10)."""
     import torch
 
     from localrf_tpu_torch.models.local import LocalTensorfs
 
-    model = LocalTensorfs(full_width_config(640, path), device=dev)
+    model = LocalTensorfs(full_width_config(640, path, **local_kw), device=dev)
     model.is_refining = True
     model.rf_iter[-1] = 10
     model.lr_factor = 0.999
@@ -473,11 +576,367 @@ def slice_640(ds, dev, path: str) -> dict:
     f["cfg"] = dataclasses.replace(f["cfg"], occ_m=model._occ_m(f["cfg"], True))
     if f["cfg"].occ_m != 332:
         raise AssertionError(f"640^3 slice: occ_m {f['cfg'].occ_m}, expected 332")
-    del xx, yy, zz, f
-    return run_slice(f"640^3 {path}", model, ds, 3, path)
+    return model
+
+
+def slice_640(ds, dev, path: str) -> dict:
+    """3 eager steps at 640^3 (model_640)."""
+    return run_slice(f"640^3 {path}", model_640(dev, path), ds, 3, path)
+
+
+def _run_chunk(model, batches) -> float:
+    """One run_chunk; host ms, ending after the card has finished."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.run_chunk(batches, optimize_poses=True)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _step_losses(model) -> list[dict]:
+    m = model.chunk_metrics
+    return [{k: float(v[i]) for k, v in m.items()} for i in range(len(m["total_loss"]))]
+
+
+@contextlib.contextmanager
+def deterministic_sums():
+    """Every sum of the training step in a fixed order: torch's
+    deterministic algorithms (index_add_ and index_put_ by sort) and the
+    plane gathers' VJP through K5 (K2's function, sorted, no atomics) in
+    place of K2's atomic adds."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+
+    prev = torch.are_deterministic_algorithms_enabled(), torch.is_deterministic_algorithms_warn_only_enabled()
+    segment_sum = k2.segment_sum
+    k2.segment_sum = k2.binned_segment_sum_merged
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        k2.segment_sum = segment_sum
+        torch.use_deterministic_algorithms(prev[0], warn_only=prev[1])
+
+
+def _state(model) -> dict:
+    """The model's trained state: field parameters and Adam state, pose
+    window with its Adam state."""
+    f = model.fields[-1]
+    out = dict(f["params"].named_parameters())
+    opt = f["opt"]
+    out.update({f"m.{k}": v for k, v in opt.m.items()})
+    out.update({f"v.{k}": v for k, v in opt.v.items()})
+    out.update(step=opt.step, lr_scale=opt.lr_scale)
+    for name, val in model._pose_dev._asdict().items():
+        if isinstance(val, tuple):
+            out.update({f"{name}.{i}": x for i, x in enumerate(val)})
+        else:
+            out[name] = val
+    return out
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit, NaN included (the pose window's padding rows are
+    never read and turn NaN, as in the JAX package: their gradient through
+    sixD_to_mtx of zeros is NaN, and a gate of 0 times NaN stays NaN)."""
+    import torch
+
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        as_int = {4: torch.int32, 2: torch.int16}[a.element_size()]
+        a, b = a.reshape(-1).view(as_int), b.reshape(-1).view(as_int)
+    return torch.equal(a, b)
+
+
+def _plan(ds, model) -> tuple[list, dict]:
+    """The model's next chunk plan (CHUNK joint steps) and the state of the
+    dataset's draws before it."""
+    state = ds._rng.bit_generator.state
+    batches = model.plan_chunk(ds, True, CHUNK)
+    if len(batches) != CHUNK or any(b["train_test_poses"] for b in batches):
+        raise AssertionError(f"expected {CHUNK} joint steps in the chunk, got {len(batches)}")
+    return batches, state
+
+
+def _replan(ds, state: dict, twin, batches: list) -> list:
+    """The twin's plan from the same draws as `batches` (with pixel values
+    when the twin has no pool)."""
+    after = ds._rng.bit_generator.state
+    ds._rng.bit_generator.state = state
+    twin_batches = twin.plan_chunk(ds, True, CHUNK)
+    ds._rng.bit_generator.state = after
+    for b, tb in zip(batches, twin_batches, strict=True):
+        np.testing.assert_array_equal(b["idx"], tb["idx"])
+    return twin_batches
+
+
+def chunk_bit_exact(label: str, make, ds) -> int:
+    """Under deterministic_sums, a pooled chunk of CHUNK replayed graphs of
+    a model from make(True) equals the same steps taken eagerly by a twin
+    from make(False), bit for bit: every loss of every step, then every
+    tensor of _state. Returns the number of tensors compared."""
+    import torch
+
+    with deterministic_sums():
+        model, twin = make(True), make(False)
+        batches, state = _plan(ds, model)
+        twin_batches = _replan(ds, state, twin, batches)
+        _run_chunk(model, batches)
+        got = model.chunk_metrics
+        for i, b in enumerate(twin_batches):
+            twin.optimizer_step(b, optimize_poses=True)
+            for k, v in twin.last_metrics.items():
+                if float(got[k][i]) != v:
+                    raise AssertionError(f"{label} (fixed-order sums): step {i} {k}:"
+                                         f" graph {float(got[k][i])!r} vs eager {v!r}")
+        mine, theirs = _state(model), _state(twin)
+        differ = [k for k in theirs if not _bits_equal(mine[k], theirs[k])]
+        if differ or mine.keys() != theirs.keys():
+            raise AssertionError(f"{label} (fixed-order sums): graph and eager state differ in {differ}")
+        model.drop_graphs()  # captured with K5 in the step
+    del model, twin
+    torch.cuda.empty_cache()
+    return len(mine)
+
+
+def chunk_against_eager(label: str, model, make_twin, ds, path: str) -> dict:
+    """The model's next chunk (its graphs captured in it) against the same
+    batches as eager optimizer_steps of a twin made by make_twin() from the
+    same initial state (same config and seed), to CHUNK_TOL. The launch
+    counts of the chunk (warm-up and capture; replays call no wrapper) and
+    of the twin's steps are read apart, each right after its own run, and
+    the twin's are checked against `path`. Returns the chunk's host ms and
+    peak allocated bytes, the worst relative rgb_loss difference and the
+    chunk's launch counts."""
+    import torch
+
+    batches, state = _plan(ds, model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    ms = _run_chunk(model, batches)
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    got = _step_losses(model)
+    twin = make_twin()
+    twin_batches = _replan(ds, state, twin, batches)
+    _reset_launch_counts()
+    worst = 0.0
+    for i, b in enumerate(twin_batches):
+        twin.optimizer_step(b, optimize_poses=True)
+        for k, v in twin.last_metrics.items():
+            rtol = CHUNK_TOL["first" if i == 0 else "rgb" if k == "rgb_loss" else "other"]
+            err = abs(got[i][k] - v)
+            if k == "rgb_loss":
+                worst = max(worst, err / (abs(v) + 1e-7))
+            if not err <= rtol * abs(v) + 1e-7:
+                raise AssertionError(f"{label}: step {i} {k}: graph {got[i][k]} vs eager {v}")
+    _check_launches(f"{label} eager twin", _launch_counts(), path)
+    del twin
+    torch.cuda.empty_cache()
+    return {"capture_ms": ms, "peak": peak, "worst_rel": worst, "launches": launches}
+
+
+def profile_chunk(model, batches) -> dict:
+    """One chunk under torch.profiler: the kernels each step's graph launch
+    ran (a kernel of a graph carries its cudaGraphLaunch's correlation id),
+    the card's busy time (the union of its kernel and copy intervals), and
+    the chunk's host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall_ms = _run_chunk(model, batches)
+    events = prof.profiler.kineto_results.events()
+    launches = sorted((e for e in events if e.name() == "cudaGraphLaunch"), key=lambda e: e.start_ns())
+    step_of = {e.correlation_id(): k for k, e in enumerate(launches)}
+    per_step = [collections.Counter() for _ in launches]
+    outside = collections.Counter()
+    ns_by_name = collections.Counter()
+    spans = []
+    for e in events:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        spans.append((e.start_ns(), e.end_ns()))
+        ns_by_name[e.name()] += e.duration_ns()
+        k = step_of.get(e.correlation_id())
+        (outside if k is None else per_step[k])[e.name()] += 1
+    busy, end = 0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    span_ns = max(b for _, b in spans) - min(a for a, _ in spans) if spans else 0
+    return {"wall_ms": wall_ms, "busy_ms": busy / 1e6, "device_span_ms": span_ns / 1e6,
+            "per_step": per_step, "outside": outside, "ns_by_name": ns_by_name}
+
+
+def _kernels_in(counter, key: str) -> int:
+    return sum(n for name, n in counter.items() if SYMBOLS[key] in name)
+
+
+def check_replay_trace(label: str, trace: dict, path: str, n_steps: int) -> dict:
+    """The traced chunk made one graph launch per step; its replays ran
+    every kernel of `path` and no kernel of another path, and no kernel of
+    ours ran outside a replay. Every replay of one graph runs the same
+    kernels, so a step whose trace holds fewer kernels than the fullest one
+    lost records in the profiler (seen on the card: a few hundred of ~3,000
+    in some steps); each complete step must hold every kernel of `path`.
+    Returns {kernel: count in the trace's replays}."""
+    per_step = trace["per_step"]
+    if len(per_step) != n_steps:
+        raise AssertionError(f"{label}: {len(per_step)} graph launches for {n_steps} steps")
+    total = sum(per_step, collections.Counter())
+    for key in SYMBOLS:
+        n = _kernels_in(total, key)
+        if key in PATH_KERNELS[path] and n < 1:
+            raise AssertionError(f"{label}: the replays ran no {SYMBOLS[key]}")
+        if key not in PATH_KERNELS[path] and n != 0:
+            raise AssertionError(f"{label}: the replays ran {SYMBOLS[key]}, off this path")
+        if _kernels_in(trace["outside"], key):
+            raise AssertionError(f"{label}: {SYMBOLS[key]} ran outside a graph replay")
+    sizes = [sum(c.values()) for c in per_step]
+    complete = [k for k, n in enumerate(sizes) if n == max(sizes)]
+    for k in complete:
+        missing = [SYMBOLS[key] for key in PATH_KERNELS[path] if not _kernels_in(per_step[k], key)]
+        if missing:
+            raise AssertionError(f"{label}: step {k}'s replay ran no {missing}")
+    trace["complete_steps"] = len(complete)
+    return {key: _kernels_in(total, key) for key in SYMBOLS}
+
+
+def run_chunks(label: str, make, ds, path: str) -> tuple[dict, object]:
+    """The chunk path on `path`, models from make(with_pool): a chunk held
+    bit for bit against eager steps under fixed-order sums
+    (chunk_bit_exact; not on UNORDERED_SUMS paths); then, on the path as it runs, a pooled model's first
+    chunk (captures) against a twin's eager steps (chunk_against_eager),
+    N_TIMED timed chunks and one chunk under the profiler. Checks losses,
+    updates, the first chunk's launch counts, and that no chunk after the
+    first captured or called a kernel wrapper (every step a replay).
+    Returns (results, the pooled model)."""
+    import torch
+
+    n_exact = 0 if path in UNORDERED_SUMS else chunk_bit_exact(label, make, ds)
+    model = make(True)
+    graphs = model._graphs
+    before = _snapshot(model)
+    first = chunk_against_eager(label, model, lambda: make(False), ds, path)
+    launches = first["launches"]
+    n_graphs = len(graphs)
+    losses = _step_losses(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    captures = graphs.captures
+    _reset_launch_counts()
+    times = []
+    for _ in range(N_TIMED):
+        times.append(_run_chunk(model, model.plan_chunk(ds, True, CHUNK)) / CHUNK)
+        losses += _step_losses(model)
+    batches = model.plan_chunk(ds, True, CHUNK)
+    trace = profile_chunk(model, batches)
+    losses += _step_losses(model)
+    peak = max(first["peak"], torch.cuda.max_memory_allocated())
+    reserved = torch.cuda.memory_reserved()
+    if graphs.captures != captures or any(_launch_counts().values()):
+        raise AssertionError(f"{label}: a chunk after the first captured or launched eagerly "
+                             f"({graphs.captures - captures} captures, {_launch_counts()})")
+    _check_launches(label, launches, path)
+    _check_losses_and_updates(label, losses, before, model)
+    replayed = check_replay_trace(label, trace, path, len(batches))
+    ms = float(np.median(times))
+    idle = 1.0 - trace["busy_ms"] / trace["wall_ms"]
+    gaps = 1.0 - trace["busy_ms"] / trace["device_span_ms"]
+    step0 = {SYMBOLS[k]: _kernels_in(trace["per_step"][0], k) for k in SYMBOLS
+             if _kernels_in(trace["per_step"][0], k)}
+    n_kernels = [sum(c.values()) for c in trace["per_step"]]
+    f = model.fields[-1]
+    print(f"chunk {label}: not compared bit for bit ({UNORDERED_SUMS[path]})" if path in UNORDERED_SUMS
+          else f"chunk {label}: with fixed-order sums, graph and eager equal bit for bit over"
+               f" {CHUNK} steps (every loss, {n_exact} state tensors)")
+    print(f"chunk {label}: grid {f['cfg'].grid_size} occ_m {f['cfg'].occ_m}, {n_graphs} graph(s)"
+          f" captured in the first chunk ({first['capture_ms']:.1f} ms for {CHUNK} steps, warm-up and"
+          f" capture included; launches {launches}); graph vs eager: worst relative rgb_loss"
+          f" difference {first['worst_rel']:.3e}")
+    print(f"chunk {label}: ms/step of {N_TIMED} timed chunks {[round(t, 3) for t in times]} median"
+          f" {ms:.3f} (spread {max(times) - min(times):.3f}); profiled chunk"
+          f" {trace['wall_ms'] / CHUNK:.3f} ms/step host, {trace['busy_ms'] / CHUNK:.3f} busy on the"
+          f" card: idle share {idle:.3f} ({gaps:.3f} inside the card's span)")
+    print(f"chunk {label}: replayed step 0 ran {n_kernels[0]} kernels, ours {step0}; kernels per"
+          f" step {min(n_kernels)}..{max(n_kernels)} ({trace['complete_steps']} of {CHUNK} steps"
+          f" with all {max(n_kernels)} in the trace); peak allocated {peak / 2**30:.3f} GiB,"
+          f" reserved {reserved / 2**30:.3f} GiB")
+    top = "; ".join(f"{name.removeprefix('void ')[:100]} {ns / 1e6 / CHUNK:.3f}"
+                    for name, ns in trace["ns_by_name"].most_common(8))
+    print(f"chunk {label}: card ms/step by kernel, largest first: {top}")
+    print(f"chunk {label}: last losses {losses[-1]}")
+    return {"ms": ms, "ms_all": times, "idle": idle, "device_gaps": gaps, "peak": peak,
+            "reserved": reserved, "graphs": n_graphs, "captures": graphs.captures,
+            "launches": launches, "replayed": replayed, "capture_ms": first["capture_ms"],
+            "worst_rel": first["worst_rel"], "bit_exact_tensors": n_exact}, model
+
+
+def chunk_64(ds, dev, pool) -> dict:
+    """The chunk path at 64^3 (dense march): run_chunks, then a chunk that
+    ends in an alpha refresh (the graphs are dropped) and one captured again
+    after it (the probe + compaction key)."""
+    from localrf_tpu_torch.models.local import LocalTensorfs
+
+    # from rf_iter 2 in chunks of 16: run_chunks trains N_TIMED + 2 chunks,
+    # the refresh follows the last step of the chunk after those
+    cfg = full_width_config(64, update_AlphaMask_list=[2 + (N_TIMED + 3) * CHUNK - 1])
+
+    def make(with_pool: bool):
+        m = LocalTensorfs(cfg, device=dev)
+        m.is_refining = True
+        m.rf_iter[-1] = 2  # past the schedule rescale at rf_iter 1
+        if with_pool:
+            m.attach_pool(pool)
+        return m
+
+    out, model = run_chunks("64^3", make, ds, "default")
+    _reset_launch_counts()
+    _run_chunk(model, model.plan_chunk(ds, True, CHUNK))
+    f = model.fields[-1]
+    if f["alpha_volume"] is None or len(model._graphs):
+        raise AssertionError("64^3 chunks: the alpha refresh did not happen or kept the graphs")
+    captures = model._graphs.captures
+    _run_chunk(model, model.plan_chunk(ds, True, CHUNK))
+    if model._graphs.captures <= captures or not np.isfinite(model.chunk_metrics["total_loss"]).all():
+        raise AssertionError("64^3 chunks: no capture, or a non-finite loss, after the refresh")
+    _check_launches("64^3 chunks after the refresh", _launch_counts(), "default")
+    print(f"chunk 64^3: after the alpha refresh occ_m {f['cfg'].occ_m}, {len(model._graphs)}"
+          f" graph(s), last losses {_step_losses(model)[-1]}")
+    out["captures"] = model._graphs.captures
+    return out
+
+
+def chunk_640(ds, dev, pool, path: str) -> dict:
+    """The chunk path at 640^3 (model_640) on `path`."""
+
+    def make(with_pool: bool):
+        m = model_640(dev, path)
+        if with_pool:
+            m.attach_pool(pool)
+        return m
+
+    out, model = run_chunks(f"640^3 {path}", make, ds, path)
+    del model
+    return out
 
 
 def main() -> None:
+    # the H100's default cuBLAS workspace (8 x 4 MiB), named so that cuBLAS
+    # calls raise no warning under deterministic_sums
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch = _require_cuda()
     from localrf_tpu_torch.models.local import LocalTensorfs
     from localrf_tpu_torch.ops.kernels import _build
@@ -498,8 +957,9 @@ def main() -> None:
     # phase 2: kernels against their plain versions
     rows = check_kernels(dev) + check_k3_k4(dev, torch.Generator(device=dev).manual_seed(1))
     for row in rows:
+        extra = f"  kernel alone {row['kernel_ms']:.4f} ms  K2 {row['k2_ms']:.4f} ms" if "k2_ms" in row else ""
         print(f"kernel {row['name']:18s} {row['shape']:38s} err {row['max_abs_err']:.3e}"
-              f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms")
+              f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms{extra}")
     torch.cuda.empty_cache()
     for path in PATH_TF:
         check_small_step_against_cpu(dev, path)
@@ -524,19 +984,40 @@ def main() -> None:
         torch.cuda.empty_cache()
         phases[label] = slice_640(ds, dev, path)
 
+    # phase 6: the chunk path over the default-capacity pixel pool
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+
+    torch.cuda.empty_cache()
+    pool = DevicePixelPool(ds, capacity=POOL_SLOTS, device=dev)
+    pool_bytes = sum(a.numel() * a.element_size() for a in pool.arrays.values())
+    print(f"pixel pool: {POOL_SLOTS} slots of {pool.n_px} px, {pool_bytes / 2**30:.3f} GiB")
+    chunks = {"64^3": chunk_64(ds, dev, pool)}
+    for path in ("default", "fused_march"):
+        torch.cuda.empty_cache()
+        chunks[f"640^3 {path}"] = chunk_640(ds, dev, pool, path)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(ph["launches"][name] for ph in phases.values()),
+            "launches": sum(ph["launches"][name] for ph in (*phases.values(), *chunks.values())),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": mine[-1]["ms"], "plain_ms": mine[-1]["plain_ms"],
             "shape": mine[-1]["shape"],
-        })
-    print(json.dumps({"kernels": kernels}))
+            "replayed": sum(ph["replayed"][name] for ph in chunks.values()),
+        }
+        if name in OFF_PATH:
+            entry.update(on_main_path=False, kernel_ms=mine[-1]["kernel_ms"], k2_ms=mine[-1]["k2_ms"])
+        kernels.append(entry)
     print(json.dumps({"slice": {
         label: {"ms_per_step": ph["ms"], "peak_bytes": ph["peak"]} for label, ph in phases.items()}}))
+    print(json.dumps({"chunk": {
+        label: {k: ph[k] for k in ("ms", "ms_all", "idle", "device_gaps", "peak", "reserved",
+                                   "captures", "capture_ms", "worst_rel", "bit_exact_tensors")}
+        for label, ph in chunks.items()}}))
+    print(_gpu_line())
+    print(json.dumps({"kernels": kernels}))
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ field. The host keeps the full per-frame history and the schedule (lr
 decay, refine/regularize flags, gates, upsampling, occupancy refresh).
 
 Ported so far: construction, frame append, the first field, the pose
-window, and `optimizer_step`. Spawning further fields, sliding the window,
-fused chunks and evaluation are still to come (ROADMAP.md).
+window, `optimizer_step` / `optimizer_step_poses_only` (one eager step),
+and the chunk path `plan_chunk` -> `run_chunk` (the default `--scan_chunk
+16 --pixel_pool 1` of the JAX package), whose steps replay captured CUDA
+graphs on a card (models/graph.py) and loop on the CPU. Spawning further
+fields, sliding the window and evaluation are still to come (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -20,8 +23,22 @@ import torch
 
 from ..ops.math import mtx_to_sixD, n_to_reso, sixD_to_mtx
 from ..optim import AdamState, pytree_adam_init
+from .graph import ChunkGraphs
 from .render import draw_noise
-from .step import FieldState, IntrState, PoseState, StepStatics, train_step
+from .step import (
+    FieldState,
+    IntrState,
+    PoseState,
+    StepBranches,
+    StepStatics,
+    row,
+    stack_noise,
+    stack_scalars,
+    train_chunk,
+    train_chunk_pooled,
+    train_step,
+    train_step_poses_only,
+)
 from .tensorf import TensorfConfig, init_tensorf, update_alpha_volume, upsample_tensorf
 
 
@@ -119,6 +136,11 @@ class LocalTensorfs:
         self._wc = 64  # capacity; grows in steps of 32
         self._pose_dev: PoseState | None = None
 
+        # --- optional device-resident pixel pool (attach_pool) ---
+        self.pool = None
+        # --- the chunk path's captured step graphs (CUDA only) ---
+        self._graphs = ChunkGraphs(self.device) if self.device.type == "cuda" else None
+
         for _ in range(cfg.n_init_frames):
             self.append_frame()
         self.append_rf()
@@ -170,9 +192,16 @@ class LocalTensorfs:
             o[f"{name}_step"][s : s + l] = host(st.step)
             o[f"{name}_lr"][s : s + l] = host(st.lr)
 
+    def drop_graphs(self):
+        """Release the chunk path's captured graphs (a schedule event: they
+        are captured again at the next chunk)."""
+        if self._graphs is not None:
+            self._graphs.drop()
+
     def _build_window(self):
         """(Re)build the device pose window [win_start, n_frames) padded to
         capacity."""
+        self.drop_graphs()
         s, l = self.win_start, self.win_len
         while l > self._wc:
             self._wc += 32
@@ -334,6 +363,10 @@ class LocalTensorfs:
                 out[k] = np.asarray(batch[k], np.float32).reshape(-1)
         return out
 
+    def _scalar_row(self, scal: dict) -> dict:
+        """One step's host scalars as device tensors (three copies)."""
+        return row(stack_scalars([scal], self.device), 0)
+
     def _device_batch(self, batch: dict) -> dict:
         out = {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
@@ -370,10 +403,16 @@ class LocalTensorfs:
         m = min(s, max(self.cfg.occ_min, int(s * self.cfg.occ_ratio)))
         return 0 if m > 0.85 * s else int(m)
 
+    def _has_post_step_event(self, rf_iter: int) -> bool:
+        return rf_iter in self.N_voxel_list or rf_iter in self.update_AlphaMask_list
+
     def _apply_post_step_events(self):
-        """Upsample / occupancy refresh keyed on the pre-increment rf_iter."""
+        """Upsample / occupancy refresh keyed on the pre-increment rf_iter;
+        either one drops the captured graphs (new tensors)."""
         c = self.cfg
         f = self.fields[-1]
+        if self._has_post_step_event(self.rf_iter[-1]):
+            self.drop_graphs()
         if self.rf_iter[-1] in self.N_voxel_list:
             reso = n_to_reso(self.N_voxel_list[self.rf_iter[-1]], f["cfg"].aabb)
             lr_scale = f["opt"].lr_scale
@@ -389,19 +428,21 @@ class LocalTensorfs:
         )
 
     def optimizer_step(self, batch: dict, optimize_poses: bool) -> bool:
-        """One joint step; returns can_add_rf."""
+        """One eager joint step; returns can_add_rf."""
         self._schedule_entry()
         f = self.fields[-1]
         statics = self._statics(optimize_poses)
+        scal = self._scalars_py()
         new_field, new_pose, new_intr, metrics = train_step(
             FieldState(f["params"], f["opt"]),
             self._pose_dev,
             self.intr,
             self._device_batch(batch),
-            self._scalars_py(),
+            self._scalar_row(scal),
             statics,
             self._next_noise(statics.cfg),
             f["alpha_volume"],
+            StepBranches.of(scal),
         )
         f["params"], f["opt"] = new_field.params, new_field.opt
         self._pose_dev = new_pose
@@ -411,4 +452,140 @@ class LocalTensorfs:
         self._apply_post_step_events()
         if self.is_refining:
             self.rf_iter[-1] += 1
+        return self.rf_iter[-1] >= self.n_iters - 1
+
+    def optimizer_step_poses_only(self, batch: dict):
+        """One eager test-pose photometric refinement step: only the pose
+        window changes (no schedule entry, no rf_iter advance)."""
+        f = self.fields[-1]
+        statics = self._statics(optimize_poses=True)
+        scal = self._scalars_py(pose_only=True)
+        _, new_pose, _, metrics = train_step_poses_only(
+            FieldState(f["params"], f["opt"]),
+            self._pose_dev,
+            self.intr,
+            self._device_batch(batch),
+            self._scalar_row(scal),
+            statics,
+            self._next_noise(statics.cfg),
+            f["alpha_volume"],
+            StepBranches.of(scal),
+        )
+        self._pose_dev = new_pose
+        self.last_metrics = {k: float(v) for k, v in metrics.items()}
+
+    # ------------------------------------------------------------------
+    # chunk execution: K steps, replayed as captured graphs on a card
+    # ------------------------------------------------------------------
+
+    def plan_chunk(self, dataset, optimize_poses: bool, max_len: int) -> list[dict]:
+        """Sample up to max_len batches such that no schedule event (upsample,
+        occupancy refresh, can_add_rf, the rescale at rf_iter 1) falls
+        strictly inside the chunk; the same host schedule replays in
+        run_chunk. Index-only batches when a pixel pool is attached."""
+        c = self.cfg
+        batches = []
+        sim_rf_iter = self.rf_iter[-1]
+        sim_n_iters = self.n_iters
+        # replicate the entry branch the first joint step would run
+        if sim_rf_iter == 0:
+            sim_n_iters = c.n_iters_per_frame
+        elif sim_rf_iter == 1:
+            n_tf = int((self.blending_weights[:, -1] > 0).sum())
+            sim_n_iters = int(c.n_iters_per_frame * n_tf)
+        while len(batches) < max_len:
+            batch = dataset.sample(
+                c.batch_size, self.is_refining, optimize_poses,
+                n_views=c.n_views, values=self.pool is None,
+            )
+            batches.append(batch)
+            if batch["train_test_poses"]:
+                continue
+            if self._has_post_step_event(sim_rf_iter):
+                break  # device-side event right after this step
+            if self.is_refining:
+                sim_rf_iter += 1
+            if sim_rf_iter >= sim_n_iters - 1:
+                break  # can_add_rf
+            if sim_rf_iter == 1:
+                break  # schedule rescale changes lists; re-plan
+        return batches
+
+    def attach_pool(self, pool) -> None:
+        """Use a DevicePixelPool (data/pool.py) on this model's device:
+        batches become index streams and the pixel values are gathered on
+        the device inside each step."""
+        if pool.device != self.device:
+            raise ValueError(f"pool on {pool.device}, model on {self.device}")
+        self.pool = pool
+
+    def run_chunk(self, batches: list[dict], optimize_poses: bool) -> bool:
+        """Execute pre-planned batches as one chunk: the same schedule
+        bookkeeping as a sequence of optimizer_step /
+        optimizer_step_poses_only calls (test-pose batches are pose-only
+        steps), the same noise stream, one read-back of the metrics. Returns
+        can_add_rf after the last step."""
+        if not batches:
+            return False
+        k = len(batches)
+        scal_seq: list[dict] = []
+        host_batches: list[dict] = []
+        rf_iter_pre_last = self.rf_iter[-1]
+        use_pool = self.pool is not None
+        if use_pool:
+            self.pool.sync()
+
+        for b in batches:
+            pose_only = bool(b["train_test_poses"])
+            if not pose_only:
+                self._schedule_entry()
+                rf_iter_pre_last = self.rf_iter[-1]
+            scal_seq.append(self._scalars_py(pose_only))
+            if use_pool:
+                hb = {
+                    "px": np.asarray(b["idx"], np.int64) % self.pool.n_px,
+                    "slots": self.pool.slots_for(b["view_ids"]),
+                    "view_ids": np.asarray(b["view_ids"], np.int64) - self.win_start,
+                }
+            else:
+                hb = self._host_batch(b)
+            hb["gate"] = self._gate()
+            host_batches.append(hb)
+            if not pose_only and self.is_refining:
+                self.rf_iter[-1] += 1
+
+        stacked = {
+            key: torch.from_numpy(np.stack([hb[key] for hb in host_batches])).to(self.device)
+            for key in host_batches[0]
+        }
+        scalars = stack_scalars(scal_seq, self.device)
+        branches = [StepBranches.of(sc) for sc in scal_seq]
+        f = self.fields[-1]
+        statics = self._statics(optimize_poses)
+        # the noise stream of k sequential optimizer_step calls, in step order
+        noise = stack_noise([self._next_noise(statics.cfg) for _ in range(k)])
+        field_state = FieldState(f["params"], f["opt"])
+        if use_pool:
+            out = train_chunk_pooled(
+                field_state, self._pose_dev, self.intr, self.pool.arrays, stacked, scalars, statics,
+                noise, k, self.pool.n_px, f["alpha_volume"], branches_seq=branches, graphs=self._graphs,
+            )
+        else:
+            out = train_chunk(
+                field_state, self._pose_dev, self.intr, stacked, scalars, statics, noise, k,
+                f["alpha_volume"], branches_seq=branches, graphs=self._graphs,
+            )
+        new_field, self._pose_dev, self.intr, metrics = out
+        f["params"], f["opt"] = new_field.params, new_field.opt
+        # one read-back per chunk
+        names = list(metrics)
+        values = torch.stack([metrics[n] for n in names], dim=1).cpu().numpy()
+        self.chunk_metrics = {n: values[:, i] for i, n in enumerate(names)}
+        self.last_metrics = {n: float(values[-1, i]) for i, n in enumerate(names)}
+
+        # device-side events keyed on the last joint step's pre-increment iter
+        rf_iter_saved = self.rf_iter[-1]
+        self.rf_iter[-1] = rf_iter_pre_last
+        self._apply_post_step_events()
+        self.rf_iter[-1] = rf_iter_saved
         return self.rf_iter[-1] >= self.n_iters - 1

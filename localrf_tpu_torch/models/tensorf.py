@@ -27,6 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.grid import (
     build_quad_line,
     build_quad_plane,
+    plane_coords,
     quad_sample_1d,
     quad_sample_2d,
     resize_align_corners_1d,
@@ -204,10 +205,28 @@ def init_tensorf(cfg: TensorfConfig, generator: torch.Generator, device) -> Tens
     return TensorfField(t)
 
 
+# (aabb_lo, aabb_hi, device) -> (aabb_lo, 2 / aabb_size) on that device
+_AABB_CONSTS: dict = {}
+
+
+def _filled(values, device) -> torch.Tensor:
+    """A float32 vector filled on the device from Python numbers: no
+    host-to-device copy, which would synchronise a card."""
+    return torch.stack([torch.full((), float(v), dtype=torch.float32, device=device) for v in values])
+
+
+def _aabb_consts(cfg: TensorfConfig, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The aabb's lower corner and 2 / size as device tensors, made once per
+    device and cached (a captured step reads the cached ones)."""
+    key = (cfg.aabb_lo, cfg.aabb_hi, str(device))
+    if key not in _AABB_CONSTS:
+        _AABB_CONSTS[key] = (_filled(cfg.aabb_lo, device), 2.0 / _filled(cfg.aabb_size, device))
+    return _AABB_CONSTS[key]
+
+
 def normalize_coord(pts: torch.Tensor, cfg: TensorfConfig) -> torch.Tensor:
     """World (contracted) coords -> [-1, 1] grid coords."""
-    aabb_lo = torch.tensor(cfg.aabb_lo, dtype=torch.float32, device=pts.device)
-    inv = 2.0 / torch.tensor(cfg.aabb_size, dtype=torch.float32, device=pts.device)
+    aabb_lo, inv = _aabb_consts(cfg, pts.device)
     return (pts - aabb_lo) * inv - 1.0
 
 
@@ -253,7 +272,7 @@ def compute_density_app_features(params, pts: torch.Tensor, cfg: TensorfConfig, 
         c = cd + params[f"app_plane_{i}"].shape[0]
         table = quad[f"comb_plane_{i}"]
         binned = cfg.binned_scatter and table.shape[0] >= cfg.binned_min_rows
-        pf = quad_sample_2d(table, g[m1], g[m0], pts[:, (m0, m1)], c, binned)
+        pf = quad_sample_2d(table, g[m1], g[m0], plane_coords(pts, m0, m1), c, binned)
         lf = quad_sample_1d(quad[f"comb_line_{i}"], g[v], pts[:, v], c, cfg.line_mode, dt)
         prod = pf * lf  # [P, cd+ca]
         sigma = sigma + torch.sum(prod[:, :cd].to(torch.float32), dim=-1)
@@ -274,7 +293,7 @@ def compute_density_feature(params, pts: torch.Tensor, cfg: TensorfConfig, quad:
         m0, m1 = MAT_MODE[i]
         v = VEC_MODE[i]
         c = params[f"density_plane_{i}"].shape[0]
-        pf = quad_sample_2d(quad[f"density_plane_{i}"], g[m1], g[m0], pts[:, (m0, m1)], c)
+        pf = quad_sample_2d(quad[f"density_plane_{i}"], g[m1], g[m0], plane_coords(pts, m0, m1), c)
         lf = quad_sample_1d(quad[f"density_line_{i}"], g[v], pts[:, v], c)
         out = out + torch.sum(pf * lf, dim=-1)
     return out
@@ -382,7 +401,9 @@ def density_l1(params, cfg: TensorfConfig) -> torch.Tensor:
     acc = 0.0
     for b in range(n_vox // blk):
         sl = [p[:, b * r : (b + 1) * r] for p, r in zip(planes, rows)]
-        acc = acc + checkpoint(_l1_block, cfg, *sl, *lines, use_reentrant=False)
+        # no RNG in a block: without the RNG stash the step stays capturable
+        acc = acc + checkpoint(_l1_block, cfg, *sl, *lines, use_reentrant=False,
+                               preserve_rng_state=False)
     return acc / n_vox
 
 

@@ -17,6 +17,12 @@ from __future__ import annotations
 import torch
 
 
+def plane_coords(pts: torch.Tensor, m0: int, m1: int) -> torch.Tensor:
+    """pts[:, (m0, m1)] -> [P, 2], without the index tensor that tuple
+    indexing copies from the host (a sync, refused in a captured step)."""
+    return torch.stack([pts[:, m0], pts[:, m1]], dim=-1)
+
+
 def _unnormalize(coord: torch.Tensor, size: int) -> torch.Tensor:
     """[-1, 1] -> [0, size-1] texel space, clamped (border padding).
 

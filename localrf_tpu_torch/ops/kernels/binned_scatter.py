@@ -1,4 +1,5 @@
-"""K2: the segment sum behind every plane-table row gather.
+"""K2: the segment sum behind every plane-table row gather, and K5, the
+same function as a sorted segmented reduction.
 
 `segment_sum` launches the CUDA kernels in csrc/segment_sum.cu (f32 atomic
 adds into a zeroed staging table, then a cast; see the note there for what
@@ -10,6 +11,18 @@ and the on-card reference.
 
 The atomic adds run in no fixed order: against the plain version the f32
 result agrees to rtol 1e-4 / atol 1e-4, and a bf16 result to one bf16 ulp.
+
+K5: `binned_segment_sum_merged` launches the CUDA kernel in
+csrc/segment_sum_merged.cu, replacing the Pallas TPU kernel
+`binned_segment_sum_merged` (the merged-split v2 of the same file): the
+indices are sorted (stable) and the payload put in sorted order here, as
+the JAX wrapper does, then one block per tile of output rows sums its
+sorted range in order and writes every row once in the out dtype. No
+training path calls it (none does in the JAX package either); it is K2's
+function with a fixed summation order, so it is deterministic.
+`binned_segment_sum_merged_plain` (the same sort, an f32 `index_add_` and
+a cast) is the CPU path and the on-card reference; on the CPU it sums in
+the kernel's order.
 """
 from __future__ import annotations
 
@@ -17,7 +30,7 @@ import torch
 
 from . import _build
 
-LAUNCHES = {"segment_sum": 0}
+LAUNCHES = {"segment_sum": 0, "segment_sum_merged": 0}
 _PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -65,6 +78,74 @@ def segment_sum(idx: torch.Tensor, g: torch.Tensor, n_rows: int, out_dtype=torch
     if g.device.type != "cuda":
         raise ValueError(f"segment_sum: no kernel for device {g.device}")
     return _segment_sum_cuda(idx, g, n_rows, out_dtype)
+
+
+# K5 sizes its tiles to about this many sorted points: each block walks its
+# tile's points in order, so a tile must be short enough that the blocks
+# fill the card and long enough to amortise the block's start
+MERGED_POINTS_PER_TILE = 256
+MERGED_MAX_TILE_ROWS = 1024
+
+
+def merged_schedule(idx: torch.Tensor, n_rows: int):
+    """K5's schedule: (sorted idx int64, order, starts int64 [n_tiles + 1],
+    tile_rows). Tile t holds rows [t * tile_rows, (t + 1) * tile_rows) and
+    the sorted points starts[t] <= p < starts[t + 1]; indices outside
+    [0, n_rows) fall outside every tile."""
+    p = idx.shape[0]
+    tile_rows = max(1, min(MERGED_MAX_TILE_ROWS, MERGED_POINTS_PER_TILE * n_rows // max(p, 1)))
+    sorted_idx, order = torch.sort(idx.to(torch.int64), stable=True)
+    n_tiles = -(-n_rows // tile_rows)
+    bounds = torch.clamp(
+        torch.arange(n_tiles + 1, dtype=torch.int64, device=idx.device) * tile_rows, max=n_rows
+    )
+    return sorted_idx, order, torch.searchsorted(sorted_idx, bounds), tile_rows
+
+
+def binned_segment_sum_merged_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
+                                    out_dtype=torch.float32) -> torch.Tensor:
+    """K5's function in plain PyTorch: the stable sort, the payload in sorted
+    order, an f32 `index_add_` and one cast. idx int32/int64 in [0, n_rows)."""
+    sorted_idx, order = torch.sort(idx.to(torch.int64), stable=True)
+    return segment_sum_plain(sorted_idx, g.index_select(0, order), n_rows, out_dtype)
+
+
+def _launch_merged(sorted_idx, g_sorted, starts, tile_rows: int, n_rows: int, out_dtype):
+    """The K5 kernel on a schedule from `merged_schedule`."""
+    c = g_sorted.shape[1]
+    out = torch.empty((n_rows, c), dtype=out_dtype, device=g_sorted.device)
+    if n_rows and c:
+        with torch.cuda.device(g_sorted.device):
+            _build.launch(
+                "lrf_segment_sum_merged", sorted_idx.data_ptr(), g_sorted.data_ptr(),
+                int(g_sorted.dtype == torch.bfloat16), starts.data_ptr(), out.data_ptr(),
+                int(out_dtype == torch.bfloat16), c, n_rows, tile_rows, starts.shape[0] - 1,
+                _build.stream_ptr(g_sorted.device),
+            )
+        LAUNCHES["segment_sum_merged"] += 1
+    return out
+
+
+def binned_segment_sum_merged(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """out[n_rows, C] = sum_{p: idx_p == r} g_p, accumulated in f32 and written
+    once in `out_dtype` (float32 or bfloat16), in a fixed order. CPU tensors
+    take `binned_segment_sum_merged_plain`; CUDA tensors launch K5."""
+    if g.device.type == "cpu":
+        return binned_segment_sum_merged_plain(idx, g, n_rows, out_dtype)
+    if g.device.type != "cuda":
+        raise ValueError(f"binned_segment_sum_merged: no kernel for device {g.device}")
+    if idx.dim() != 1 or g.dim() != 2 or idx.shape[0] != g.shape[0]:
+        raise ValueError(f"idx [P] and g [P, C] expected, got {list(idx.shape)}, {list(g.shape)}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"idx must be int32 or int64, got {idx.dtype}")
+    if g.dtype not in _PAYLOAD_DTYPES or out_dtype not in _PAYLOAD_DTYPES:
+        raise TypeError(f"binned_segment_sum_merged supports float32/bfloat16, got {g.dtype} -> {out_dtype}")
+    if idx.device != g.device:
+        raise ValueError("idx and g must be on the same device")
+    sorted_idx, order, starts, tile_rows = merged_schedule(idx, n_rows)
+    g_sorted = g.index_select(0, order).contiguous()
+    return _launch_merged(sorted_idx, g_sorted, starts, tile_rows, n_rows, out_dtype)
 
 
 class _TakeRowsBinned(torch.autograd.Function):

@@ -302,14 +302,14 @@ def fused_march_features(params, quad, pts, viewdirs, cfg):
     pts [P, 3] normalized coords; viewdirs [P, 3] (no gradient).
     Returns (sigma_feat [P] f32, rgb [P, 3] f32)."""
     from ...models.tensorf import MAT_MODE, VEC_MODE
-    from ..grid import line_texel, plane_texel
+    from ..grid import line_texel, plane_coords, plane_texel
     from .binned_scatter import take_rows_binned
 
     g = cfg.grid_size
     rows, wxy, w1s, x0s = [], [], [], []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
-        idx, wx, wy = plane_texel(g[m1], g[m0], pts[:, (m0, m1)])
+        idx, wx, wy = plane_texel(g[m1], g[m0], plane_coords(pts, m0, m1))
         table = quad[f"comb_plane_{i}"]
         if cfg.binned_scatter and table.shape[0] >= cfg.binned_min_rows:
             rows.append(take_rows_binned(table, idx))

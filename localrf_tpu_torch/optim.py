@@ -7,8 +7,12 @@ independent Adam instances), and the field optimizer's learning rates share
 one decaying `lr_scale`. Bias correction matches torch.optim.Adam
 (betas=(0.9, 0.99), eps=1e-8).
 
-The field update (`pytree_adam_update`) writes parameters and moments in
-place, which keeps one copy of the factor grids and moments on the card.
+The field update (`pytree_adam_update`) writes parameters, moments, the
+step count and (in train_core) the lr scale in place: that keeps one copy
+of the factor grids and moments on the card, and stable addresses are what
+let a captured CUDA graph of the step be replayed. The step count and lr
+scale are 0-d device tensors and the gate a 0-d bool tensor, as in JAX, so
+no value is read back to the host.
 """
 from __future__ import annotations
 
@@ -77,8 +81,8 @@ def scale_lr(state: AdamState, factor: float, gate: torch.Tensor | None = None) 
 class PyTreeAdamState(NamedTuple):
     m: dict
     v: dict
-    step: int
-    lr_scale: float  # multiplicative decay applied to every group lr
+    step: torch.Tensor  # [] int32
+    lr_scale: torch.Tensor  # [] float32: multiplicative decay applied to every group lr
 
 
 def _named(params) -> dict[str, torch.Tensor]:
@@ -94,38 +98,45 @@ def pytree_adam_init(params, moment_dtype: str | None = None) -> PyTreeAdamState
         return torch.zeros(p.shape, dtype=dt or p.dtype, device=p.device)
 
     named = _named(params)
+    dev = next(iter(named.values())).device
     return PyTreeAdamState(
         m={k: zeros(p) for k, p in named.items()},
         v={k: zeros(p) for k, p in named.items()},
-        step=0,
-        lr_scale=1.0,
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        lr_scale=torch.ones((), dtype=torch.float32, device=dev),
     )
 
 
 @torch.no_grad()
 def pytree_adam_update(
-    params, grads: dict, state: PyTreeAdamState, base_lrs: dict, gate: bool = True
+    params, grads: dict, state: PyTreeAdamState, base_lrs: dict, gate: torch.Tensor | None = None
 ) -> tuple[object, PyTreeAdamState]:
-    """Adam over named parameters with per-name base lrs, all scaled by
-    `lr_scale`, updating params and moments IN PLACE. gate=False leaves
-    params, moments and step untouched."""
-    if not gate:
-        return params, state
-    step = state.step + 1
-    bc1 = 1.0 - B1**step
-    bc2 = 1.0 - B2**step
+    """Adam over named parameters with per-name base lrs (numbers or 0-d
+    tensors), all scaled by `lr_scale`, updating params, moments and the step
+    IN PLACE. `gate` (0-d bool tensor) freezes all three where off: the
+    update is multiplied by it, as JAX's `g_on`; without a gate the step is
+    taken and nothing is multiplied."""
+    g_on = None if gate is None else gate.to(torch.float32)
+
+    def gated(x):
+        return x if g_on is None else g_on * x
+
+    state.step.add_(1 if g_on is None else g_on.to(state.step.dtype))
+    step_f = torch.clamp(state.step, min=1).to(torch.float32)
+    bc1 = 1.0 - B1**step_f
+    bc2 = 1.0 - B2**step_f
     for name, p in _named(params).items():
         g = grads[name].to(torch.float32)
         m_s, v_s = state.m[name], state.v[name]
         m = m_s.to(torch.float32)
         v = v_s.to(torch.float32)
-        m = m + (1 - B1) * (g - m)
-        v = v + (1 - B2) * (g**2 - v)
+        m = m + gated((1 - B1) * (g - m))
+        v = v + gated((1 - B2) * (g**2 - v))
         lr = base_lrs[name] * state.lr_scale
-        p.sub_(lr * (m / bc1) / (torch.sqrt(v / bc2) + EPS))
+        p.sub_(gated(lr) * (m / bc1) / (torch.sqrt(v / bc2) + EPS))
         m_s.copy_(m)
         v_s.copy_(v)
-    return params, state._replace(step=step)
+    return params, state
 
 
 def field_base_lrs(params, lr_spatial: float, lr_net: float) -> dict[str, float]:

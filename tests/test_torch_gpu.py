@@ -13,7 +13,14 @@ the f32 rounding of a reordered sum scales with the row's partial sums). K4 agai
 rtol 1e-4 / atol 1e-5 and gradients 1e-4 of their largest entry (sums in
 another order, fused multiply-adds); with bf16 tables and MLP, out atol
 1e-2 and gradients 2e-2 of their largest entry (a reordered f32 sum can
-flip one bf16 rounding of a hidden activation).
+flip one bf16 rounding of a hidden activation). K5 against its plain
+version: rtol 1e-4 / atol 1e-4 in f32 (the plain index_add_ adds atomically
+in another order), one bf16 ulp in bf16, and bit for bit against itself
+(its order is fixed). A captured chunk against the same steps taken
+eagerly from the same state: losses rtol 1e-6 on the first step (the
+forward has no atomics) and 1e-3 after (K2's atomic adds reorder f32 sums
+in the gradients, which Adam's first ~lr*sign(g) steps amplify); with
+every sum in a fixed order, bit for bit.
 """
 import numpy as np
 import pytest
@@ -141,3 +148,149 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, g_rows, p, dtype):
         assert err <= (1e-4 if f32 else 2e-2) * scale, f"{name}: {err:.3e} of max {scale:.3e}"
     with pytest.raises(ValueError):
         k4.march_core(args[0][:-1], *args[1:], dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,p,hot", [(4096, 4096 * 72, False), (409_600, 4096 * 332, False),
+                                          (2048, 100_000, True)])
+def test_k5_kernel_matches_plain_and_is_deterministic(cuda_device, n_rows, p, hot):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    hi = 60 if hot else n_rows
+    idx = torch.randint(0, hi, (p,), generator=gen, device=cuda_device)
+    g = torch.randn(p, 128, generator=gen, device=cuda_device).to(torch.bfloat16)
+    n0 = k2.LAUNCHES["segment_sum_merged"]
+    got = k2.binned_segment_sum_merged(idx, g, n_rows)
+    assert k2.LAUNCHES["segment_sum_merged"] == n0 + 1
+    torch.testing.assert_close(got, k2.binned_segment_sum_merged_plain(idx, g, n_rows),
+                               rtol=1e-4, atol=1e-4)
+    got16 = k2.binned_segment_sum_merged(idx.to(torch.int32), g, n_rows, torch.bfloat16)
+    want16 = k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16)
+    gf, wf = got16.float().cpu().numpy(), want16.float().cpu().numpy()
+    assert (np.abs(gf - wf) <= bf16_ulp(np.maximum(np.abs(gf), np.abs(wf)))).all()
+    assert torch.equal(k2.binned_segment_sum_merged(idx, g, n_rows), got)
+    assert torch.equal(k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16), got16)
+
+
+def _chunk_models(dev, n: int):
+    from localrf_tpu_torch.data.dataset import SyntheticDataset
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import TensorfConfig
+
+    w, h = 96, 64
+    rng = np.random.default_rng(1)
+    shape = (6, h, w)
+    arrays = dict(
+        rgbs=rng.random((*shape, 3), dtype=np.float32),
+        invdepths=0.1 + 0.9 * rng.random(shape, dtype=np.float32),
+        fwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32), fwd_mask=np.ones(shape, np.float32),
+        bwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32), bwd_mask=np.ones(shape, np.float32),
+    )
+    tf = TensorfConfig(grid_size=(32, 32, 32), pallas_composite=True, binned_min_rows=500)
+    cfg = LocalConfig(WH=(w, h), n_init_frames=6, n_views=4, batch_size=512, occ_min=8, tensorf=tf)
+    out = []
+    for i in range(n):
+        ds = SyntheticDataset(arrays["rgbs"], "train", **{k: v for k, v in arrays.items() if k != "rgbs"},
+                              n_init_frames=6, test_frame_every=3)
+        m = LocalTensorfs(cfg, device=dev)
+        m.is_refining = True
+        m.rf_iter[-1] = 2
+        m.n_iters_reg = 4  # the L1 branch turns off inside the first chunk
+        if i == 0:
+            m.attach_pool(DevicePixelPool(ds, capacity=8, device=dev))
+        out.append((m, ds))
+    return out
+
+
+@pytest.mark.gpu
+def test_captured_chunk_matches_eager_steps_on_card(cuda_device):
+    """Two chunks through captured graphs (pooled; test-pose steps and an
+    L1 flip make several keys) against the same batches as eager steps from
+    the same initial state. A key is captured once, when first seen, and
+    the launch counters move only then (a replay calls no wrapper)."""
+    from localrf_tpu_torch.ops.kernels import composite
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    (mg, dsg), (me, dse) = _chunk_models(cuda_device, 2)
+    for chunk in range(2):
+        bg = mg.plan_chunk(dsg, True, max_len=8)
+        be = me.plan_chunk(dse, True, max_len=8)
+        assert len(bg) == len(be) == 8
+        n0 = dict(composite.LAUNCHES)
+        captures, keys = mg._graphs.captures, set(mg._graphs.graphs)
+        mg.run_chunk(bg, optimize_poses=True)
+        n1 = dict(composite.LAUNCHES)
+        new_keys = set(mg._graphs.graphs) - keys
+        eager = []
+        for b in be:
+            if b["train_test_poses"]:
+                me.optimizer_step_poses_only(b)
+            else:
+                me.optimizer_step(b, optimize_poses=True)
+            eager.append(dict(me.last_metrics))
+        for i, m in enumerate(eager):
+            for k, v in m.items():
+                got = float(mg.chunk_metrics[k][i])
+                assert np.isfinite(got)
+                rtol = 1e-6 if chunk == 0 and i == 0 else 1e-3
+                assert abs(got - v) <= rtol * abs(v) + 1e-7, (chunk, i, k, got, v)
+        assert mg._graphs.captures == captures + len(new_keys)
+        assert (n1 != n0) == bool(new_keys)
+        if chunk == 0:
+            assert len(new_keys) >= 2
+    assert mg.rf_iter == me.rf_iter
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A float tensor's bits as integers (NaN compares equal to itself)."""
+    if not t.dtype.is_floating_point:
+        return t
+    return t.reshape(-1).view({4: torch.int32, 2: torch.int16}[t.element_size()])
+
+
+def _trained_state(m) -> dict:
+    f = m.fields[-1]
+    out = dict(f["params"].named_parameters())
+    out.update({f"m.{k}": v for k, v in f["opt"].m.items()})
+    out.update({f"v.{k}": v for k, v in f["opt"].v.items()})
+    out.update(step=f["opt"].step, lr_scale=f["opt"].lr_scale)
+    p = m._pose_dev
+    for name in ("r", "t", "exposure"):
+        out[name] = getattr(p, name)
+        for i, x in enumerate(getattr(p, name[0] + "_opt")):
+            out[f"{name}_opt.{i}"] = x
+    return out
+
+
+@pytest.mark.gpu
+def test_captured_chunk_bit_exact_with_fixed_order_sums(cuda_device, monkeypatch):
+    """With every sum of the step in a fixed order (torch's deterministic
+    algorithms; the plane gathers' VJP through K5, K2's function without
+    atomics), a pooled chunk of captured graphs with test-pose steps and an
+    L1 flip equals the same steps taken eagerly, bit for bit: every loss,
+    the field and its Adam state, the pose window and its Adam state (the
+    window's padding rows hold NaN, as in JAX, and compare by their bits)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(k2, "segment_sum", k2.binned_segment_sum_merged)
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        (mg, dsg), (me, dse) = _chunk_models(cuda_device, 2)
+        bg = mg.plan_chunk(dsg, True, max_len=8)
+        be = me.plan_chunk(dse, True, max_len=8)
+        assert any(b["train_test_poses"] for b in be)
+        mg.run_chunk(bg, optimize_poses=True)
+        assert len(mg._graphs) >= 2
+        for i, b in enumerate(be):
+            if b["train_test_poses"]:
+                me.optimizer_step_poses_only(b)
+            else:
+                me.optimizer_step(b, optimize_poses=True)
+            for k, v in me.last_metrics.items():
+                assert float(mg.chunk_metrics[k][i]) == v, (i, k)
+        got, want = _trained_state(mg), _trained_state(me)
+        assert got.keys() == want.keys()
+        for k in want:
+            assert torch.equal(_bits(got[k]), _bits(want[k])), k
+    finally:
+        torch.use_deterministic_algorithms(prev)

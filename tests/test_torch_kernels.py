@@ -1,5 +1,6 @@
 """Port kernels: the plain PyTorch versions of K1 (compositing weights), K2
-(segment sum), K3 (small-table segment sum) and K4 (fused march core)
+(segment sum), K3 (small-table segment sum), K4 (fused march core) and K5
+(merged segment sum, and its schedule and walk written out in numpy)
 against the Pallas kernels they replace, run in interpret mode on the CPU,
 at the shapes of tests/test_pallas_composite.py, tests/test_binned_scatter.py
 and tests/test_fused_march.py; the CPU dispatch of the wrappers; and the
@@ -8,7 +9,7 @@ tests/test_torch_gpu.py.
 
 Tolerances: K1 forward rtol 1e-5 / atol 1e-6, its gradient rtol 1e-4 /
 atol 1e-5 (the Pallas suffix scan and torch.cumprod's autograd associate
-differently); K2 and K3 rtol 1e-4 / atol 1e-4 in f32 (summation order), and
+differently); K2, K3 and K5 rtol 1e-4 / atol 1e-4 in f32 (summation order), and
 one bf16 ulp after a bf16 cast; K3's gradient on a bf16 table equals JAX's
 f32 one to rtol 1e-5 / atol 1e-6 (f32 rounding, far inside one bf16 ulp).
 K4 in f32: out rtol 1e-5 / atol 1e-6, every gradient to 1e-5 of its largest
@@ -163,6 +164,107 @@ def test_take_rows_binned_bf16_table_grad_dtype(rng):
         jnp.asarray(table.detach().float().numpy(), jnp.bfloat16))
     assert g_j.dtype == jnp.bfloat16
     np.testing.assert_array_equal(table.grad.float().numpy(), np.asarray(g_j, np.float32))
+
+
+# ------------------------------- K5 -------------------------------
+
+K5_CASES = [
+    (1000, 4096, "uniform"),  # rows not a tile multiple
+    (512, 999, "uniform"),  # points not a chunk multiple
+    (2048, 4096, "hot"),  # everything in a few rows
+    (2048, 4096, "sparse"),  # most tiles empty
+    (130, 64, "uniform"),  # fewer points than one chunk
+]
+
+
+def _k5_idx(rng, n_rows, p, dist):
+    if dist == "uniform":
+        return rng.integers(0, n_rows, size=p)
+    if dist == "hot":
+        return rng.integers(5, 60, size=p)
+    return rng.choice([3, n_rows - 1, n_rows // 2], size=p)
+
+
+@pytest.mark.parametrize("n_rows,p,dist", K5_CASES)
+def test_segment_sum_merged_plain_matches_pallas(rng, n_rows, p, dist):
+    idx = _k5_idx(rng, n_rows, p, dist)
+    g = rng.standard_normal((p, 128), dtype=np.float32)
+    want = jbs.binned_segment_sum_merged(jnp.asarray(idx, jnp.int32), jnp.asarray(g), n_rows,
+                                         tile_rows=128, chunk=256)
+    got = k2.binned_segment_sum_merged(T(idx).to(torch.int32), T(g), n_rows)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got.numpy(), _oracle(idx, g, n_rows), rtol=1e-4, atol=1e-4)
+
+
+def test_segment_sum_merged_multi_split_schedule(rng, monkeypatch):
+    """JAX's schedule with several cliff splits interleaved per tile (tiny
+    SPLIT_MAX_BYTES): the same sums as the port's single sorted stream."""
+    monkeypatch.setattr(jbs, "SPLIT_MAX_BYTES", 256 * 128 * 4)  # 256-row splits
+    p, n_rows = 2000, 777
+    idx = rng.integers(0, n_rows, size=p)
+    g = rng.standard_normal((p, 128), dtype=np.float32)
+    want = jbs.binned_segment_sum_merged(jnp.asarray(idx, jnp.int32), jnp.asarray(g), n_rows,
+                                         tile_rows=64, chunk=128)
+    got = k2.binned_segment_sum_merged(T(idx), T(g), n_rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_segment_sum_merged_bf16_out(rng):
+    """bf16 payload, bf16 out: within one bf16 ulp of the f32-accumulated
+    oracle, and of JAX's bf16 result."""
+    p, n_rows = 999, 300
+    idx = rng.integers(0, n_rows, size=p)
+    g = np.asarray(jnp.asarray(rng.standard_normal((p, 128), dtype=np.float32), jnp.bfloat16))
+    want16 = np.asarray(jbs.binned_segment_sum_merged(
+        jnp.asarray(idx, jnp.int32), jnp.asarray(g), n_rows, tile_rows=64, chunk=128,
+        out_dtype=jnp.bfloat16)).astype(np.float32)
+    got = k2.binned_segment_sum_merged(T(idx), T(g.astype(np.float32), torch.bfloat16), n_rows,
+                                       torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    got = got.float().numpy()
+    for want in (_oracle(idx, g.astype(np.float32), n_rows), want16):
+        assert (np.abs(got - want) <= bf16_ulp(np.maximum(np.abs(got), np.abs(want)))).all()
+
+
+@pytest.mark.parametrize("n_rows,p,dist", K5_CASES + [(300, 5000, "out-of-range")])
+def test_segment_sum_merged_schedule_walk(rng, n_rows, p, dist):
+    """K5's schedule (merged_schedule) and the kernel's walk, written out in
+    numpy: every tile's sorted points lie in its rows, each tile writes all
+    its rows (zeros where no point lands), indices outside [0, n_rows) are
+    skipped, and the f32 sums equal the plain version bit for bit (both add
+    in sorted order)."""
+    if dist == "out-of-range":
+        idx = rng.integers(-20, n_rows + 20, size=p)
+    else:
+        idx = _k5_idx(rng, n_rows, p, dist)
+    g = rng.standard_normal((p, 128), dtype=np.float32)
+    sidx, order, starts, tile_rows = k2.merged_schedule(T(idx), n_rows)
+    sidx, order, starts = sidx.numpy(), order.numpy(), starts.numpy()
+    gs = g[order]
+    out = np.full((n_rows, 128), np.nan, np.float32)
+    for t in range(len(starts) - 1):
+        lo, hi = t * tile_rows, min((t + 1) * tile_rows, n_rows)
+        seg = sidx[starts[t] : starts[t + 1]]
+        assert ((seg >= lo) & (seg < hi)).all()
+        out[lo:hi] = 0.0
+        for q in range(starts[t], starts[t + 1]):
+            out[sidx[q]] = out[sidx[q]] + gs[q]
+    keep = (idx >= 0) & (idx < n_rows)
+    assert starts[-1] - starts[0] == keep.sum()
+    want = k2.binned_segment_sum_merged_plain(T(idx[keep]), T(g[keep]), n_rows)
+    np.testing.assert_array_equal(out, want.numpy())
+
+
+def test_segment_sum_merged_cpu_dispatch(rng):
+    """A CPU tensor takes the plain version (no launch); a device without a
+    kernel raises."""
+    idx, g = T(rng.integers(0, 50, 200)), T(rng.standard_normal((200, 8), dtype=np.float32))
+    before = dict(k2.LAUNCHES)
+    k2.binned_segment_sum_merged(idx, g, 50)
+    assert k2.LAUNCHES == before
+    with pytest.raises(ValueError, match="no kernel"):
+        k2.binned_segment_sum_merged(idx.to("meta"), g.to("meta"), 50)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

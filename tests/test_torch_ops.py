@@ -600,6 +600,34 @@ def test_gated_per_frame_adam(rng):
     close(st_t.v, st_j.v)
 
 
+def test_pytree_adam_tensor_gate_matches_jax(rng):
+    """The gate is a 0-d bool tensor, as JAX's: off, it freezes parameters,
+    moments and the step count (a tensor updated in place), so a replayed
+    graph can run gated steps. Gates on, off, on against JAX's jitted
+    update: rtol 1e-5 / atol 1e-6 (f32 rounding)."""
+    jp, field = _field()
+    lrs_t = toptim.field_base_lrs(field, 0.02, 1e-3)
+    lrs_j = joptim.field_base_lrs(jp, 0.02, 1e-3)
+    st_t = toptim.pytree_adam_init(field)
+    st_j = joptim.pytree_adam_init(jp)
+    step_t = st_t.step
+    pj = jp
+    for on in (True, False, True):
+        g_j = jax.tree.map(lambda x: jnp.asarray(rng.normal(size=x.shape).astype(np.float32)), jp)
+        before = {k: p.detach().clone() for k, p in field.named_parameters()}
+        field, st_t = toptim.pytree_adam_update(field, params_from_jax(jax.device_get(g_j)), st_t,
+                                                lrs_t, gate=torch.tensor(on))
+        pj, st_j = jax.jit(joptim.pytree_adam_update)(pj, g_j, st_j, lrs_j, jnp.asarray(on))
+        if not on:
+            for k, p in field.named_parameters():
+                assert torch.equal(p, before[k]), k
+        assert st_t.step is step_t and int(st_t.step) == int(st_j.step)
+    assert int(st_t.step) == 2
+    want = params_from_jax(jax.device_get(pj))
+    for k, p in field.named_parameters():
+        close(p, want[k].numpy(), 1e-5, 1e-6)
+
+
 @pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
 def test_pytree_adam_in_place(rng, moment_dtype):
     jp, field = _field()
@@ -616,7 +644,7 @@ def test_pytree_adam_in_place(rng, moment_dtype):
         pj, st_j = jax.jit(joptim.pytree_adam_update)(pj, g_j, st_j, lrs_j)
         st_t = st_t._replace(lr_scale=st_t.lr_scale * 0.95)
         st_j = st_j._replace(lr_scale=st_j.lr_scale * 0.95)
-    assert st_t.step == int(st_j.step)
+    assert st_t.step.shape == () and int(st_t.step) == int(st_j.step)
     tol = (1e-5, 1e-6) if moment_dtype == "float32" else (1e-2, 1e-4)
     want = params_from_jax(jax.device_get(pj))
     for k, p in field.named_parameters():

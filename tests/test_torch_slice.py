@@ -219,7 +219,7 @@ def test_train_step_matches_jax(config):
                                    getattr(want_pose, name).numpy()[:N_FRAMES],
                                    rtol=1e-5, atol=1e-6, err_msg=name)
     np.testing.assert_array_equal(new_pose.r_opt.step.numpy(), want_pose.r_opt.step.numpy())
-    assert new_field.opt.step == int(new_f.opt.step)
+    assert new_field.opt.step.shape == () and int(new_field.opt.step) == int(new_f.opt.step)
 
 
 @pytest.mark.parametrize("config", list(TRAIN_CONFIGS))
