@@ -6,12 +6,18 @@
    limit, builds the kernels from localrf_tpu_torch/csrc/ and prints the
    build time.
 2. Checks each hand-written kernel against its plain PyTorch version on the
-   card at the shapes of the training step, and times both (CUDA events):
-   K1 (compositing weights), K2 (plane segment sum), K3 (line segment sum),
-   K4 (fused march core, forward and backward), and K5 (the merged segment
-   sum: no training path calls it, as none does in the JAX package; it is
-   also checked bit for bit against a second launch and timed beside K2 on
-   the same inputs).
+   card at the shapes of the training step, and times both (a captured
+   CUDA graph of 20 calls, replayed; CUDA events), beside its bound (bytes over the card's memory rate or operations over
+   its peak rate, whichever is larger) and, where one PyTorch call computes
+   the same function, that call (index_add_ for the segment sums):
+   K1 (compositing weights; also on near-opaque samples), K2 (plane
+   segment sum; on uniform indices and on the plane indices of a real step
+   at 64^3 and 640^3, its bin schedule against tile_bins_plain, with
+   indices out of range and with P = 0), K3 (line segment sum), K4 (fused
+   march core, forward and backward), and K5 (the merged segment sum: no
+   training path calls it, as none does in the JAX package; it is also
+   checked bit for bit against a second launch and timed beside K2 on the
+   same inputs).
 3. One small training step card vs CPU (32^3, f32) for the default path,
    the fused march (--fused_march 1) and the segsum lines (--line_bwd
    segsum).
@@ -62,6 +68,12 @@ import numpy as np
 # cumprod reference, which multiplies in another order on the card
 K1_TOL = {"fwd": (1e-4, 1e-6), "bwd": (1e-3, 1e-5)}
 K2_TOL_F32 = (1e-4, 1e-4)
+# K2 in bf16 out: one bf16 ulp. Where hundreds of signed terms land on one
+# row (a real step's rows, ~72 points a row at 64^3 and more in the ball),
+# a sum that cancels to near 0 moves by more than one bf16 ulp of itself
+# with the order of the f32 adds (the plain index_add_'s own atomics
+# included); sums of non-negative terms stay within one ulp in any order.
+# So bf16 out is checked on |g| except on uniform indices, as before.
 # K3: f32 atomic-add order over ~2,000-4,600 points per line row: rtol 1e-4,
 # atol 1e-5 of the largest entry (the rounding of a reordered sum scales
 # with the row's partial sums)
@@ -120,18 +132,41 @@ def _gpu_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _time_ms(fn, reps: int = 20) -> float:
+def _time_ms(fn, reps: int = 20, eager: bool = False) -> float:
+    """Device ms per call of fn: `reps` calls captured in one CUDA graph (as
+    a captured training step launches them, so no host launch time), the
+    graph replayed three times after a warm-up call and one replay. With
+    `eager`, for a function that waits on the host and so cannot be
+    captured: CUDA events around `reps` eager calls after a warm-up."""
     import torch
 
-    fn()
-    torch.cuda.synchronize()
+    if eager:
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for _ in range(3):
+        graph.replay()
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / (3 * reps)
 
 
 def _close(got, ref, rtol: float, atol: float) -> float:
@@ -167,29 +202,58 @@ def _within_one_bf16_ulp(got, ref) -> float:
     return float(err.max())
 
 
-def check_kernels(dev) -> list[dict]:
-    """Each kernel against its plain version at the training step's shapes."""
+# the least time of a kernel (bound_ms): the larger of its bytes (each
+# input read once, each output written once) over the card's memory rate
+# and its operations over the peak rate for their type (H100 SXM, NVIDIA's
+# data sheet: 3.35 TB/s of HBM, 989 TFLOP/s dense bf16)
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOP_PER_S = 989e12
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _bound(n_bytes: int, n_flop: float = 0.0) -> dict:
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flop / BF16_FLOP_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_bytes=n_bytes, bound_flop=n_flop)
+
+
+def _index_add_ms(idx, g, n_rows: int) -> float:
+    """The library call for a segment sum: index_add_ of an f32 payload into
+    a zeroed f32 table (the payload cast to f32 beforehand, not timed)."""
     import torch
 
-    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+    g32 = g.float()
+    return _time_ms(lambda: torch.zeros((n_rows, g.shape[1]), dtype=torch.float32,
+                                        device=g.device).index_add_(0, idx, g32))
+
+
+def check_k1(dev, gen) -> list[dict]:
+    """K1 forward and backward against fused_weights_plain at the main
+    path's shapes (64^3: [4096, 72], the shared [1, 72] dist row; 640^3:
+    [4096, 332], per-ray dists) and on near-opaque samples (1 in 20 with
+    sigma 1e3, so 1 - a rounds to 0 and T runs into the 1e-10 clamp and
+    underflows), checked, not timed."""
+    import torch
+
     from localrf_tpu_torch.ops.kernels import composite as k1
     from localrf_tpu_torch.ops.rays import sample_ray_contracted
 
-    gen = torch.Generator(device=dev).manual_seed(0)
-    rows = []
-    k1_cases = []
-    # 64^3 no-alpha march: S = 72 samples, the shared [1, S] dist row of the
-    # sampler; 640^3 compacted march: 332 samples, per-ray dists
     o = torch.zeros(1, 3, device=dev)
     d = torch.tensor([[0.0, 0.0, -1.0]], device=dev)
     _, _, dists72 = sample_ray_contracted(o, d, 219, False)
-    k1_cases.append(("64^3 [4096,72], dists [1,72]", 4096, 72, dists72))
-    k1_cases.append((
-        "640^3 [4096,332], dists [4096,332]", 4096, 332,
-        0.01 + 0.49 * torch.rand(4096, 332, generator=gen, device=dev),
-    ))
-    for label, r, s, dists in k1_cases:
+    dists332 = 0.01 + 0.49 * torch.rand(4096, 332, generator=gen, device=dev)
+    cases = [("64^3 [4096,72], dists [1,72]", 4096, 72, dists72, False),
+             ("640^3 [4096,332] near-opaque", 4096, 332, dists332, False),
+             ("640^3 [4096,332], dists [4096,332]", 4096, 332, dists332, True)]
+    rows = []
+    for label, r, s, dists, main in cases:
         sigma = 2.0 * torch.rand(r, s, generator=gen, device=dev)
+        if "opaque" in label:
+            sigma = torch.where(torch.rand(r, s, generator=gen, device=dev) < 0.05, 1e3, sigma)
         cot = torch.randn(r, s, generator=gen, device=dev)
         sig_k = sigma.clone().requires_grad_(True)
         sig_p = sigma.clone().requires_grad_(True)
@@ -199,8 +263,11 @@ def check_kernels(dev) -> list[dict]:
         (g_p,) = torch.autograd.grad(w_p, sig_p, cot)
         err_f = _close(w_k, w_p, *K1_TOL["fwd"])
         err_b = _close(g_k, g_p, K1_TOL["bwd"][0], K1_TOL["bwd"][1] * float(g_p.abs().max()))
-        fwd_ms = _time_ms(lambda: k1._launch_fwd(sigma, dists, 25.0))
-        fwd_plain = _time_ms(lambda: k1.fused_weights_plain(sigma, dists, 25.0))
+        if "opaque" in label:
+            if not (w_p == 0).any():
+                raise AssertionError("near-opaque K1 case: T never underflowed")
+            print(f"kernel fused_weights      {label:38s} err fwd {err_f:.3e} bwd {err_b:.3e}")
+            continue
 
         def bwd_plain():
             x = sigma.clone().requires_grad_(True)
@@ -210,38 +277,152 @@ def check_kernels(dev) -> list[dict]:
             x = sigma.clone().requires_grad_(True)
             k1.fused_weights_plain(x, dists, 25.0)
 
-        bwd_ms = _time_ms(lambda: k1._launch_bwd(sigma, dists, cot, 25.0))
-        # the plain backward alone: autograd (fwd + bwd) less its forward
-        bwd_plain_ms = _time_ms(bwd_plain) - _time_ms(bwd_plain_fwd)
-        rows.append(dict(name="fused_weights_fwd", shape=label, max_abs_err=err_f,
-                         ms=fwd_ms, plain_ms=fwd_plain))
-        rows.append(dict(name="fused_weights_bwd", shape=label, max_abs_err=err_b,
-                         ms=bwd_ms, plain_ms=bwd_plain_ms))
-
-    # plane tables: 64^2 = 4096 rows with 4096 x 72 points; 640^2 = 409,600
-    # rows with 4096 x 332 points; payload rows of 128 bf16
-    for n_rows, p in ((4096, 4096 * 72), (409_600, 4096 * 332)):
-        idx = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
-        g = torch.randn(p, 128, generator=gen, device=dev).to(torch.bfloat16)
-        err32 = _close(
-            k2.segment_sum(idx, g, n_rows, torch.float32),
-            k2.segment_sum_plain(idx, g, n_rows, torch.float32), *K2_TOL_F32,
-        )
-        err16 = _within_one_bf16_ulp(
-            k2.segment_sum(idx, g, n_rows, torch.bfloat16),
-            k2.segment_sum_plain(idx, g, n_rows, torch.bfloat16),
-        )
-        shape = f"n_rows {n_rows}, P {p}, bf16 -> bf16"
-        k2_ms = _time_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
         rows.append(dict(
-            name="segment_sum", shape=shape, max_abs_err=max(err32, err16), ms=k2_ms,
-            plain_ms=_time_ms(lambda: k2.segment_sum_plain(idx, g, n_rows, torch.bfloat16)),
+            name="fused_weights_fwd", shape=label, main=main, max_abs_err=err_f,
+            ms=_time_ms(lambda: k1._launch_fwd(sigma, dists, 25.0)),
+            plain_ms=_time_ms(lambda: k1.fused_weights_plain(sigma, dists, 25.0)), library_ms=None,
+            **_bound(_nbytes(sigma, dists, w_k)),
         ))
-        rows.append(check_k5(idx, g, n_rows, shape, k2_ms))
+        rows.append(dict(
+            name="fused_weights_bwd", shape=label, main=main, max_abs_err=err_b,
+            ms=_time_ms(lambda: k1._launch_bwd(sigma, dists, cot, 25.0)),
+            # the plain backward alone: autograd (fwd + bwd) less its forward,
+            # eager (torch.cumprod's backward checks its input for zeros on
+            # the host, so it cannot be captured)
+            plain_ms=_time_ms(bwd_plain, eager=True) - _time_ms(bwd_plain_fwd, eager=True),
+            library_ms=None,
+            **_bound(_nbytes(sigma, dists, cot, g_k)),
+        ))
     return rows
 
 
-def check_k5(idx, g, n_rows: int, shape: str, k2_ms: float) -> dict:
+def record_plane_sums(model, ds) -> list:
+    """(idx, n_rows) of every plane segment sum (K2) in one eager step of
+    `model` (its three plane gathers' backward)."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+
+    seen, segment_sum = [], k2.segment_sum
+
+    def spy(idx, g, n_rows, out_dtype=torch.float32):
+        seen.append((idx.clone(), n_rows))
+        return segment_sum(idx, g, n_rows, out_dtype)
+
+    k2.segment_sum = spy
+    try:
+        model.optimizer_step(ds.sample(BATCH, model.is_refining, True, n_views=N_VIEWS), optimize_poses=True)
+    finally:
+        k2.segment_sum = segment_sum
+    return seen
+
+
+def real_plane_indices(dev, ds) -> dict:
+    """The first plane segment sum's indices of one step at each main-path
+    shape: the full-width model at 64^3 (dense march, 4096 x 72 points on a
+    4,096-row plane) and model_640 (default path, the ball's 4096 x 332
+    compacted points on a 409,600-row plane)."""
+    import torch
+
+    from localrf_tpu_torch.models.local import LocalTensorfs
+
+    m64 = LocalTensorfs(full_width_config(64), device=dev)
+    m64.is_refining = True
+    m64.rf_iter[-1] = 2
+    out = {"64^3": record_plane_sums(m64, ds)[0]}
+    del m64
+    m640 = model_640(dev, "default")
+    out["640^3"] = record_plane_sums(m640, ds)[0]
+    del m640
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_k2_bins(idx, n_rows: int) -> None:
+    """K2's bin kernels against tile_bins_plain: the same counts, starts,
+    partial slots, work list and empty tiles, and every tile's bin holds the
+    same points at the same rows (in any order within the tile)."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+
+    plan = k2.tile_plan(idx.shape[0], 128, n_rows)
+    with torch.cuda.device(idx.device):
+        got = k2._bin_cuda(idx, n_rows, plan)
+    want = k2.tile_bins_plain(idx, n_rows, plan)
+    n_items, n_empty = got["totals"].tolist()
+    for key in ("counts", "starts", "slot_base"):
+        if not torch.equal(got[key].long(), want[key]):
+            raise AssertionError(f"segment_sum bins: {key} differ from tile_bins_plain")
+    if (n_items != want["items"].shape[0] or not torch.equal(got["items"][:n_items].long(), want["items"])
+            or not torch.equal(got["empty"][:n_empty].long(), want["empty"])):
+        raise AssertionError("segment_sum bins: the work list or the empty tiles differ from tile_bins_plain")
+    n = int(want["starts"][-1])
+    tile = torch.repeat_interleave(torch.arange(plan.n_tiles, device=idx.device), want["counts"])
+    key_got = (tile * plan.tile_rows + got["bin_row"][:n].long()) * (idx.shape[0] + 1) + got["bin_pt"][:n].long()
+    key_want = (tile * plan.tile_rows + want["bin_row"]) * (idx.shape[0] + 1) + want["bin_pt"]
+    if not torch.equal(torch.sort(key_got).values, torch.sort(key_want).values):
+        raise AssertionError("segment_sum bins: a tile's bin holds other points than tile_bins_plain's")
+
+
+def check_k2(dev, gen, real: dict) -> list[dict]:
+    """K2 against segment_sum_plain (f32 out to K2_TOL_F32, bf16 out to one
+    bf16 ulp) at the main path's two plane shapes, on uniform random
+    indices and on the recorded indices of a real step (`real`), with a
+    random bf16 payload of 128 channels; its bin kernels against
+    tile_bins_plain; timed bf16 -> bf16 beside the plain version and
+    index_add_. Also checked, not timed: indices out of range, and P = 0.
+    K5 runs on each shape's uniform inputs (check_k5)."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+
+    rows = []
+    for label, n_rows, p in (("64^3", 4096, 4096 * 72), ("640^3", 409_600, 4096 * 332)):
+        r_idx, r_rows = real[label]
+        if r_idx.shape[0] != p or r_rows != n_rows:
+            raise AssertionError(f"{label}: the step's plane sum has P {r_idx.shape[0]} on {r_rows} rows")
+        g = torch.randn(p, 128, generator=gen, device=dev).to(torch.bfloat16)
+        uniform = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
+        for kind, idx in (("uniform", uniform), ("real step", r_idx)):
+            _check_k2_bins(idx, n_rows)
+            err32 = _close(k2.segment_sum(idx, g, n_rows, torch.float32),
+                           k2.segment_sum_plain(idx, g, n_rows, torch.float32), *K2_TOL_F32)
+            # bf16 out on |g| where rows are hot (see K2_TOL_F32)
+            g16 = g if kind == "uniform" else g.abs()
+            err16 = _within_one_bf16_ulp(k2.segment_sum(idx, g16, n_rows, torch.bfloat16),
+                                         k2.segment_sum_plain(idx, g16, n_rows, torch.bfloat16))
+            shape = f"{label} {kind}: n_rows {n_rows}, P {p}, bf16 -> bf16"
+            out = k2.segment_sum(idx, g, n_rows, torch.bfloat16)
+            counts = k2.tile_bins_plain(idx, n_rows, k2.tile_plan(p, 128, n_rows))["counts"]
+            rows.append(dict(
+                name="segment_sum", shape=shape, main=label == "640^3" and kind == "real step",
+                max_abs_err=err32, bf16_err=err16,
+                ms=_time_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16)),
+                plain_ms=_time_ms(lambda: k2.segment_sum_plain(idx, g, n_rows, torch.bfloat16)),
+                library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, out)),
+                occupied_tiles=int((counts > 0).sum()), max_tile_points=int(counts.max()),
+            ))
+        rows.append(check_k5(uniform, g, n_rows, f"{label} uniform: n_rows {n_rows}, P {p}, bf16 -> bf16",
+                             rows[-2]["ms"], main=label == "640^3"))
+        # out of range (skipped) and P = 0 (zeros), in both out dtypes
+        wild = torch.randint(-n_rows // 4, n_rows + n_rows // 4, (p,), generator=gen, device=dev)
+        _check_k2_bins(wild, n_rows)
+        keep = (wild >= 0) & (wild < n_rows)
+        err_w = _close(k2.segment_sum(wild, g, n_rows, torch.float32),
+                       k2.segment_sum_plain(wild[keep], g[keep], n_rows, torch.float32), *K2_TOL_F32)
+        _within_one_bf16_ulp(k2.segment_sum(wild, g.abs(), n_rows, torch.bfloat16),
+                             k2.segment_sum_plain(wild[keep], g[keep].abs(), n_rows, torch.bfloat16))
+        for dt in (torch.float32, torch.bfloat16):
+            empty = k2.segment_sum(wild[:0], g[:0], n_rows, dt)
+            if empty.dtype != dt or empty.shape != (n_rows, 128) or empty.any():
+                raise AssertionError(f"segment_sum with P = 0 ({dt}) is not a zero table")
+        print(f"kernel segment_sum        {label} out of range ({int((~keep).sum())} skipped) err"
+              f" {err_w:.3e}; P = 0 gives zeros")
+    return rows
+
+
+def check_k5(idx, g, n_rows: int, shape: str, k2_ms: float, main: bool) -> dict:
     """K5 against its plain version on K2's inputs, in f32 and bf16 out, bit
     for bit against a second launch; timed whole (sort, payload gather, tile
     bounds, kernel) and as the kernel alone on a prepared schedule."""
@@ -260,11 +441,12 @@ def check_k5(idx, g, n_rows: int, shape: str, k2_ms: float) -> dict:
     sidx, order, starts, tile_rows = k2.merged_schedule(idx, n_rows)
     g_sorted = g.index_select(0, order)
     return dict(
-        name="segment_sum_merged", shape=shape, max_abs_err=max(err32, err16),
+        name="segment_sum_merged", shape=shape, main=main, max_abs_err=max(err32, err16),
         ms=_time_ms(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)),
         kernel_ms=_time_ms(
             lambda: k2._launch_merged(sidx, g_sorted, starts, tile_rows, n_rows, torch.bfloat16)),
         plain_ms=_time_ms(lambda: k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16)),
+        library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, out16)),
         k2_ms=k2_ms, tile_rows=tile_rows, n_tiles=starts.shape[0] - 1,
     )
 
@@ -295,6 +477,15 @@ def march_inputs(g: int, p: int, dtype, gen, dev) -> tuple[list, "torch.Tensor"]
     return args, torch.randn(p, 4, generator=gen, device=dev)
 
 
+# K4's operations per point, counted from csrc/march.cu: the forward's
+# plane bilerps, line lerps and products (~1.3k), basis 72 -> 27 (3,888),
+# MLP 27 -> 128 -> 128 and 131 -> 3 (6,912 + 32,768 + 786); the backward
+# recomputes the forward and runs the MLP and basis VJPs (inputs and
+# weights: twice the forward's products) and the factor VJP (~2k)
+K4_FWD_FLOP = 1_300 + 3_888 + 6_912 + 32_768 + 786
+K4_BWD_FLOP = K4_FWD_FLOP + 2 * (3_888 + 6_912 + 32_768 + 786) + 2_000
+
+
 def check_k3_k4(dev, gen) -> list[dict]:
     """K3 and K4 against their plain versions at the main path's shapes."""
     import torch
@@ -307,12 +498,13 @@ def check_k3_k4(dev, gen) -> list[dict]:
         idx = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
         g = torch.randn(p, 64, generator=gen, device=dev).to(torch.bfloat16)
         want = k3.segment_sum_small_plain(idx, g, n_rows)
-        err = _close(k3.segment_sum_small(idx, g, n_rows), want,
-                     K3_TOL[0], K3_TOL[1] * float(want.abs().max()))
+        got = k3.segment_sum_small(idx, g, n_rows)
+        err = _close(got, want, K3_TOL[0], K3_TOL[1] * float(want.abs().max()))
         rows.append(dict(
-            name="segment_sum_small", shape=f"n_rows {n_rows}, P {p}, bf16 -> f32", max_abs_err=err,
-            ms=_time_ms(lambda: k3.segment_sum_small(idx, g, n_rows)),
+            name="segment_sum_small", shape=f"n_rows {n_rows}, P {p}, bf16 -> f32", main=n_rows == 640,
+            max_abs_err=err, ms=_time_ms(lambda: k3.segment_sum_small(idx, g, n_rows)),
             plain_ms=_time_ms(lambda: k3.segment_sum_small_plain(idx, g, n_rows)),
+            library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, got)),
         ))
 
     for g_rows, p in K4_CASES:
@@ -331,14 +523,16 @@ def check_k3_k4(dev, gen) -> list[dict]:
         plain = [a.detach() for a in args]
         shape = f"G {g_rows}, P {p}, bf16"
         rows.append(dict(
-            name="march_fwd", shape=shape, max_abs_err=err_f,
+            name="march_fwd", shape=shape, main=g_rows == 640, max_abs_err=err_f,
             ms=_time_ms(lambda: k4._launch_fwd(plain, "bfloat16"), reps=10),
-            plain_ms=_time_ms(lambda: k4.march_fwd_plain(*plain, "bfloat16"), reps=5),
+            plain_ms=_time_ms(lambda: k4.march_fwd_plain(*plain, "bfloat16"), reps=5), library_ms=None,
+            **_bound(_nbytes(*plain, out_k), K4_FWD_FLOP * p),
         ))
         rows.append(dict(
-            name="march_bwd", shape=shape, max_abs_err=err_b,
+            name="march_bwd", shape=shape, main=g_rows == 640, max_abs_err=err_b,
             ms=_time_ms(lambda: k4._launch_bwd(plain, gout, "bfloat16"), reps=10),
             plain_ms=_time_ms(lambda: k4.march_bwd_plain(*plain, gout, "bfloat16"), reps=5),
+            library_ms=None, **_bound(_nbytes(*plain, gout, *grads_k), K4_BWD_FLOP * p),
         ))
         del args, grads_k, grads_p, plain
     return rows
@@ -365,7 +559,7 @@ OFF_PATH = {"segment_sum_merged"}
 SYMBOLS = {
     "fused_weights_fwd": "composite_fwd_kernel",
     "fused_weights_bwd": "composite_bwd_kernel",
-    "segment_sum": "segment_sum_kernel",
+    "segment_sum": "segment_sum_tile_kernel",
     "segment_sum_small": "segsum_small_kernel",
     "march_fwd": "march_fwd_kernel",
     "march_bwd": "march_bwd_mlp_kernel",
@@ -954,19 +1148,30 @@ def main() -> None:
         if "registers" in ln or "spill" in ln:
             print(f"  ptxas: {ln.strip()}")
 
-    # phase 2: kernels against their plain versions
-    rows = check_kernels(dev) + check_k3_k4(dev, torch.Generator(device=dev).manual_seed(1))
+    # phase 2: kernels against their plain versions (K2 also on the plane
+    # indices of a real step at each shape)
+    ds = make_dataset(W, H, N_FRAMES)
+    real = real_plane_indices(dev, ds)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = check_k1(dev, gen) + check_k2(dev, gen, real)
+    del real
+    rows += check_k3_k4(dev, torch.Generator(device=dev).manual_seed(1))
     for row in rows:
         extra = f"  kernel alone {row['kernel_ms']:.4f} ms  K2 {row['k2_ms']:.4f} ms" if "k2_ms" in row else ""
-        print(f"kernel {row['name']:18s} {row['shape']:38s} err {row['max_abs_err']:.3e}"
-              f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms{extra}")
+        if "occupied_tiles" in row:
+            extra += (f"  bf16 out err {row['bf16_err']:.3e} (within one ulp); tiles hit"
+                      f" {row['occupied_tiles']}, most points in a tile {row['max_tile_points']}")
+        lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
+        print(f"kernel {row['name']:18s} {row['shape']:44s} err {row['max_abs_err']:.3e}"
+              f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library {lib}"
+              f"  bound {row['bound_ms']:.4f} ms ({row['bound_by']}: {row['bound_bytes']} B,"
+              f" {row['bound_flop']:.3g} flop; share {row['bound_ms'] / row['ms']:.3f}){extra}")
     torch.cuda.empty_cache()
     for path in PATH_TF:
         check_small_step_against_cpu(dev, path)
 
     # phase 4: the slice at 64^3 — dense march, alpha refresh after the 2nd
     # step, dense cull, upsample to 101^3 after the 3rd
-    ds = make_dataset(W, H, N_FRAMES)
     model = LocalTensorfs(
         full_width_config(64, update_AlphaMask_list=[3], N_voxel_list={4: 101**3}), device=dev
     )
@@ -999,16 +1204,18 @@ def main() -> None:
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
+        (row,) = [r for r in mine if r["main"]]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(ph["launches"][name] for ph in (*phases.values(), *chunks.values())),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": mine[-1]["ms"], "plain_ms": mine[-1]["plain_ms"],
-            "shape": mine[-1]["shape"],
+            "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "bound_share": row["bound_ms"] / row["ms"],
+            "bound_bytes": row["bound_bytes"], "library_ms": row["library_ms"], "shape": row["shape"],
             "replayed": sum(ph["replayed"][name] for ph in chunks.values()),
         }
         if name in OFF_PATH:
-            entry.update(on_main_path=False, kernel_ms=mine[-1]["kernel_ms"], k2_ms=mine[-1]["k2_ms"])
+            entry.update(on_main_path=False, kernel_ms=row["kernel_ms"], k2_ms=row["k2_ms"])
         kernels.append(entry)
     print(json.dumps({"slice": {
         label: {"ms_per_step": ph["ms"], "peak_bytes": ph["peak"]} for label, ph in phases.items()}}))

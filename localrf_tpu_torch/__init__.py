@@ -9,8 +9,11 @@ kernel written by hand for Hopper (`csrc/`), wrapped in a
 
 Kernel wrappers take their plain PyTorch version only for tensors on the
 CPU; a CUDA tensor launches the kernel or raises. The package imports
-`torch` and never `jax`; it reuses the JAX package's numpy-only modules
-(`localrf_tpu.data.dataset`) by import.
+`torch` and never `jax`, and nothing of the JAX package: what it needs of
+a numpy-only module there (the datasets, the flow decoder) it keeps as its
+own copy under `data/`. Its entry points (`LocalTensorfs`,
+`DevicePixelPool`, the `convert.py` functions) run on the card unless the
+caller passes `device="cpu"`.
 """
 
 __version__ = "0.1.0"

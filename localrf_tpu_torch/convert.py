@@ -23,7 +23,7 @@ def _tensor(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True)).to(device)
 
 
-def params_from_jax(tree: dict, device="cpu") -> dict[str, torch.Tensor]:
+def params_from_jax(tree: dict, device="cuda") -> dict[str, torch.Tensor]:
     """Nested {name: array} pytree -> flat {"name" / "mlp.w1": tensor}."""
     out = {}
     for k, v in tree.items():
@@ -34,16 +34,16 @@ def params_from_jax(tree: dict, device="cpu") -> dict[str, torch.Tensor]:
     return out
 
 
-def field_from_jax(tree: dict, device="cpu") -> TensorfField:
+def field_from_jax(tree: dict, device="cuda") -> TensorfField:
     return TensorfField(params_from_jax(tree, device))
 
 
-def adam_from_jax(state, device="cpu") -> AdamState:
+def adam_from_jax(state, device="cuda") -> AdamState:
     """JAX optim.AdamState (m, v, step, lr) -> the port's AdamState."""
     return AdamState(*(_tensor(getattr(state, k), device) for k in AdamState._fields))
 
 
-def pose_from_jax(pose, device="cpu") -> PoseState:
+def pose_from_jax(pose, device="cuda") -> PoseState:
     """JAX step.PoseState (the pose/exposure window and its Adam states)."""
     return PoseState(
         r=_tensor(pose.r, device),

@@ -17,7 +17,7 @@ import torch
 
 
 class DevicePixelPool:
-    def __init__(self, dataset, capacity: int, device="cpu"):
+    def __init__(self, dataset, capacity: int, device="cuda"):
         self.ds = dataset
         self.capacity = capacity
         self.device = torch.device(device)

@@ -89,7 +89,7 @@ def _rot6d_roundtrip(r: np.ndarray) -> np.ndarray:
 
 
 class LocalTensorfs:
-    def __init__(self, cfg: LocalConfig, camera_prior: dict | None = None, device="cpu"):
+    def __init__(self, cfg: LocalConfig, camera_prior: dict | None = None, device="cuda"):
         self.cfg = cfg
         self.camera_prior = camera_prior
         self.device = torch.device(device)

@@ -40,10 +40,13 @@ SIGNATURES = {
     "lrf_composite_fwd": (_P, _P, _P, _I, _I, _I, _F, _P),
     # sigma, dists, g, dsigma, R, S, dist_row_stride, scale, stream
     "lrf_composite_bwd": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
-    # idx (int64), g, g_is_bf16, out (f32), P, C, n_rows, stream
-    "lrf_segment_sum": (_P, _P, _I, _P, _L, _I, _L, _P),
-    # src (f32), dst (bf16), n, stream
-    "lrf_cast_f32_bf16": (_P, _P, _L, _P),
+    # idx (int64), P, n_rows, tile_rows, n_tiles, chunk, counts (zeroed),
+    # starts, cursor, slot_base, items, empty, totals, bin (int32), stream
+    "lrf_segment_sum_bin": (_P, _L, _L, _I, _I, _I) + (_P,) * 9,
+    # g, g_is_bf16, vec, bin, starts, slot_base, items, empty, totals, done
+    # (zeroed), partials (f32), out, out_is_bf16, C, n_rows, tile_rows,
+    # n_tiles, chunk, n_items_max, stream
+    "lrf_segment_sum_reduce": (_P, _I, _I) + (_P,) * 9 + (_I, _I, _L, _I, _I, _I, _L, _P),
     # sorted idx (int64), sorted g, g_is_bf16, tile starts (int64 [n_tiles + 1]),
     # out, out_is_bf16, C, n_rows, tile_rows, n_tiles, stream
     "lrf_segment_sum_merged": (_P, _P, _I, _P, _P, _I, _I, _L, _I, _L, _P),

@@ -30,10 +30,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from localrf_tpu.data import pool as jpool
-from localrf_tpu.data.dataset import SyntheticDataset
+from localrf_tpu.data.dataset import SyntheticDataset as JSyntheticDataset
 from localrf_tpu.models import local as jlocal
 from localrf_tpu.models import tensorf as jtf
 from localrf_tpu_torch.convert import field_from_jax, params_from_jax
+from localrf_tpu_torch.data.dataset import SyntheticDataset
 from localrf_tpu_torch.data.pool import DevicePixelPool
 from localrf_tpu_torch.models import local as tlocal
 from localrf_tpu_torch.models import step as tstep
@@ -61,10 +62,11 @@ def jax_noise(key, n_samples_total: int) -> dict:
     }
 
 
-def _dataset(test_every=3, n_frames=N_FRAMES, n_init=N_FRAMES):
+def _dataset(test_every=3, n_frames=N_FRAMES, n_init=N_FRAMES, cls=SyntheticDataset):
+    """The port's dataset (cls=JSyntheticDataset for the JAX side)."""
     rng = np.random.default_rng(0)
     shape = (n_frames, H, W)
-    return SyntheticDataset(
+    return cls(
         rng.random((*shape, 3), dtype=np.float32), "train",
         invdepths=0.1 + 0.9 * rng.random(shape, dtype=np.float32),
         fwd_flow=rng.normal(0, 1, (*shape, 2)).astype(np.float32), fwd_mask=np.ones(shape, np.float32),
@@ -86,8 +88,8 @@ def _schedule(m, rf_iter=2, n_iters_reg=4):
 
 def test_pixel_pool_matches_jax_across_a_slid_window():
     """Slots, recycling and uploaded values equal JAX's DevicePixelPool."""
-    ds_j, ds_t = _dataset(n_frames=10, n_init=6), _dataset(n_frames=10, n_init=6)
-    jp, tp = jpool.DevicePixelPool(ds_j, capacity=8), DevicePixelPool(ds_t, capacity=8)
+    ds_j, ds_t = _dataset(n_frames=10, n_init=6, cls=JSyntheticDataset), _dataset(n_frames=10, n_init=6)
+    jp, tp = jpool.DevicePixelPool(ds_j, capacity=8), DevicePixelPool(ds_t, capacity=8, device="cpu")
     addrs = {k: v.data_ptr() for k, v in tp.arrays.items()}
     for step in range(3):
         if step:
@@ -121,8 +123,8 @@ def test_plan_chunk_matches_jax(case):
     upsample, an alpha refresh and the rescale at rf_iter 1."""
     rf_iter, refining, n_vox, alpha_list = PLAN_CASES[case]
     jm = jlocal.LocalTensorfs(_config(jlocal, jtf))
-    tm = tlocal.LocalTensorfs(_config(tlocal, ttf))
-    ds_j, ds_t = _dataset(), _dataset()
+    tm = tlocal.LocalTensorfs(_config(tlocal, ttf), device="cpu")
+    ds_j, ds_t = _dataset(cls=JSyntheticDataset), _dataset()
     jm.pool = object()  # index-only batches, as with a pool attached
     tm.pool = object()
     for m in (jm, tm):
@@ -155,13 +157,13 @@ def test_run_chunk_pooled_matches_jax():
     """One pooled run_chunk of 4 steps (a pose-only step, an L1 on -> off
     flip, an alpha refresh after the last joint step) against JAX's."""
     jm = jlocal.LocalTensorfs(_config(jlocal, jtf, update_AlphaMask_list=[4], occ_min=4))
-    tm = tlocal.LocalTensorfs(_config(tlocal, ttf, update_AlphaMask_list=[4], occ_min=4))
-    field = field_from_jax(jax.device_get(jm.fields[-1]["params"]))
+    tm = tlocal.LocalTensorfs(_config(tlocal, ttf, update_AlphaMask_list=[4], occ_min=4), device="cpu")
+    field = field_from_jax(jax.device_get(jm.fields[-1]["params"]), device="cpu")
     tm.fields[-1]["params"] = field
     tm.fields[-1]["opt"] = pytree_adam_init(field)
-    ds_j, ds_t = _dataset(), _dataset()
+    ds_j, ds_t = _dataset(cls=JSyntheticDataset), _dataset()
     jm.attach_pool(jpool.DevicePixelPool(ds_j, capacity=8))
-    tm.attach_pool(DevicePixelPool(ds_t, capacity=8))
+    tm.attach_pool(DevicePixelPool(ds_t, capacity=8, device="cpu"))
     for m in (jm, tm):
         _schedule(m)
     bj = _batches(ds_j)
@@ -193,7 +195,7 @@ def test_run_chunk_pooled_matches_jax():
     np.testing.assert_allclose(tm.exp_all, jm.exp_all, rtol=1e-5, atol=1e-5)
     for k, v in jm.pose_opt_all.items():
         np.testing.assert_allclose(tm.pose_opt_all[k], v, rtol=1e-4, atol=1e-7, err_msg=k)
-    want = params_from_jax(jax.device_get(jm.fields[-1]["params"]))
+    want = params_from_jax(jax.device_get(jm.fields[-1]["params"]), device="cpu")
     for k, p in tm.fields[-1]["params"].named_parameters():
         err = np.abs(p.detach().numpy() - want[k].numpy())
         assert err.max() <= 2e-3 and np.median(err) <= 1e-6, (k, err.max(), np.median(err))
@@ -208,11 +210,11 @@ def test_run_chunk_is_the_same_steps_one_at_a_time(pooled):
     optimizer_step / optimizer_step_poses_only on those batches: state,
     metrics, schedule, noise stream and the post-step alpha refresh."""
     kw = dict(update_AlphaMask_list=[4], occ_min=4, lr_i_init=1e-3)
-    m1 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw))
-    m2 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw))
+    m1 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw), device="cpu")
+    m2 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw), device="cpu")
     ds1, ds2 = _dataset(), _dataset()
     if pooled:
-        m2.attach_pool(DevicePixelPool(ds2, capacity=8))
+        m2.attach_pool(DevicePixelPool(ds2, capacity=8, device="cpu"))
     for m in (m1, m2):
         _schedule(m)
     b1, b2 = _batches(ds1), _batches(ds2)
@@ -314,9 +316,9 @@ def test_chunk_steps_fall_in_no_capture_trap(trap, monkeypatch):
             update_AlphaMask_list=[4], occ_min=4, lr_i_init=1e-3,
             tensorf=ttf.TensorfConfig(**TF_KW, l1_stream_min_vox=1),
         )
-        m = tlocal.LocalTensorfs(cfg)
+        m = tlocal.LocalTensorfs(cfg, device="cpu")
         ds = _dataset()
-        m.attach_pool(DevicePixelPool(ds, capacity=8))
+        m.attach_pool(DevicePixelPool(ds, capacity=8, device="cpu"))
         _schedule(m)
         if armed:
             for name in ("train_core", "pooled_batch"):

@@ -7,7 +7,7 @@ tests' conftest.py imports jax).
 Tolerances: K1 forward rtol 1e-4 / atol 1e-6 and gradient rtol 1e-3 /
 atol 1e-5 of its largest entry (torch.cumprod multiplies in another order
 on the card); K2 rtol 1e-4 / atol 1e-4 in f32 (atomic-add order), one
-bf16 ulp after its bf16 cast; K3 rtol 1e-4 / atol 1e-5 of the largest
+bf16 ulp in bf16 (its adds within a tile run in no fixed order); K3 rtol 1e-4 / atol 1e-5 of the largest
 entry (the same, but some 2,000-4,600 points land on each line row, so
 the f32 rounding of a reordered sum scales with the row's partial sums). K4 against march_core_plain: in f32, out
 rtol 1e-4 / atol 1e-5 and gradients 1e-4 of their largest entry (sums in
@@ -80,6 +80,107 @@ def test_k2_kernel_matches_plain_on_card(cuda_device, n_rows, p):
     assert (np.abs(got - want) <= bf16_ulp(np.maximum(np.abs(got), np.abs(want)))).all()
     with pytest.raises(TypeError):
         k2.segment_sum(idx.to(torch.int32), g, n_rows)
+
+
+def _ball_rows(gen, p: int, side: int, dev) -> torch.Tensor:
+    """Plane rows of points in a disc a quarter of the plane wide, packed
+    toward its centre (the ball of a 640^3 step): most tiles empty, a few
+    holding many times the mean."""
+    u = torch.rand(4, p, generator=gen, device=dev)
+    rad = 0.25 * side * u[0].sqrt() * (0.2 + 0.8 * u[1])
+    ang = 2 * np.pi * u[2]
+    x = (side / 2 + rad * torch.cos(ang)).long().clamp(0, side - 1)
+    y = (side / 2 + rad * torch.sin(ang)).long().clamp(0, side - 1)
+    return y * side + x
+
+
+def _k2_against_plain(idx, g, n_rows):
+    """K2 (f32 and bf16 out) against segment_sum_plain over the in-range
+    points, one launch per call; its bins against tile_bins_plain. bf16 out
+    is compared on |g|: where hundreds of signed terms land on one row, a
+    sum that cancels to near 0 moves by more than one bf16 ulp of itself
+    with the order of the f32 adds (the plain index_add_'s own atomics
+    included), while sums of non-negative terms stay within one ulp in any
+    order."""
+    keep = (idx >= 0) & (idx < n_rows)
+    plan = k2.tile_plan(idx.shape[0], g.shape[1], n_rows)
+    sched, want = k2._bin_cuda(idx, n_rows, plan), k2.tile_bins_plain(idx, n_rows, plan)
+    n_items, n_empty = sched["totals"].tolist()
+    for key in ("counts", "starts", "slot_base"):
+        assert torch.equal(sched[key].long(), want[key]), key
+    assert torch.equal(sched["items"][:n_items].long(), want["items"])
+    assert torch.equal(sched["empty"][:n_empty].long(), want["empty"])
+    n = int(want["starts"][-1])
+    for t in torch.nonzero(want["counts"]).flatten()[:50].tolist():  # each bin holds its points
+        lo, hi = int(want["starts"][t]), int(want["starts"][t + 1])
+        got_bin = sorted(zip(sched["bin_pt"][lo:hi].tolist(), sched["bin_row"][lo:hi].tolist()))
+        assert got_bin == list(zip(want["bin_pt"][lo:hi].tolist(), want["bin_row"][lo:hi].tolist()))
+    assert n <= idx.shape[0]
+    n0 = k2.LAUNCHES["segment_sum"]
+    got = k2.segment_sum(idx, g, n_rows)
+    torch.testing.assert_close(got, k2.segment_sum_plain(idx[keep], g[keep], n_rows), rtol=1e-4, atol=1e-4)
+    pos = g.abs()
+    got16 = k2.segment_sum(idx, pos, n_rows, torch.bfloat16).float().cpu().numpy()
+    want16 = k2.segment_sum_plain(idx[keep], pos[keep], n_rows, torch.bfloat16).float().cpu().numpy()
+    assert (np.abs(got16 - want16) <= bf16_ulp(np.maximum(np.abs(got16), np.abs(want16)))).all()
+    assert k2.LAUNCHES["segment_sum"] == n0 + 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["ball", "out-of-range"])
+@pytest.mark.parametrize("n_rows,p", [(4096, 4096 * 72), (409_600, 4096 * 332)])
+def test_k2_kernel_skewed_and_out_of_range_on_card(cuda_device, n_rows, p, kind):
+    """K2 on ball-skewed plane rows (tiles split over several blocks) and
+    on indices partly out of range (skipped), bf16 and f32 payloads."""
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    side = int(round(n_rows**0.5))
+    if kind == "ball":
+        idx = _ball_rows(gen, p, side, cuda_device)
+    else:
+        idx = torch.randint(-n_rows // 4, n_rows + n_rows // 4, (p,), generator=gen, device=cuda_device)
+    for dtype in (torch.bfloat16, torch.float32):
+        _k2_against_plain(idx, torch.randn(p, 128, generator=gen, device=cuda_device).to(dtype), n_rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,n_rows", [(20, 1000), (128, 1000), (128, 1_000_000)])
+def test_k2_kernel_no_points_and_narrow_rows_on_card(cuda_device, c, n_rows):
+    """P = 0 gives a zero table in both out dtypes; rows that are not whole
+    16-byte pieces (20 channels) take the kernel's one-element loads; a
+    table of more tiles than a bin block's shared counters hold (15,625 >
+    12,288) takes the global counters."""
+    gen = torch.Generator(device=cuda_device).manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.randn(50_000, c, generator=gen, device=cuda_device).to(dtype)
+        idx = torch.randint(0, n_rows, (50_000,), generator=gen, device=cuda_device)
+        for out_dtype in (torch.float32, torch.bfloat16):
+            empty = k2.segment_sum(idx[:0], g[:0], n_rows, out_dtype)
+            assert empty.dtype == out_dtype and empty.shape == (n_rows, c) and not empty.any()
+        _k2_against_plain(idx, g, n_rows)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,s,per_ray", [(4096, 72, False), (4096, 332, True), (512, 1000, True)])
+def test_k1_bwd_near_opaque_on_card(cuda_device, r, s, per_ray):
+    """K1 on rays with near-opaque samples (1 in 20 at sigma 1e3: 1 - a
+    rounds to 0, so T runs into the 1e-10 clamp and underflows), at the
+    tolerances of test_k1_kernel_matches_plain_on_card; 1,000 samples a ray
+    run past the windows the backward keeps in registers."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    sigma = 2 * torch.rand(r, s, generator=gen, device=cuda_device)
+    sigma = torch.where(torch.rand(r, s, generator=gen, device=cuda_device) < 0.05, 1e3, sigma)
+    dists = 0.01 + 0.49 * torch.rand(r if per_ray else 1, s, generator=gen, device=cuda_device)
+    cot = torch.randn(r, s, generator=gen, device=cuda_device)
+    xk = sigma.clone().requires_grad_(True)
+    xp = sigma.clone().requires_grad_(True)
+    wk = k1.fused_weights(xk, dists, SCALE)
+    wp = k1.fused_weights_plain(xp, dists, SCALE)
+    assert (wp == 0).any()  # T underflowed on some ray
+    (gk,) = torch.autograd.grad(wk, xk, cot)
+    (gp,) = torch.autograd.grad(wp, xp, cot)
+    assert torch.isfinite(gk).all()
+    torch.testing.assert_close(wk, wp, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(gk, gp, rtol=1e-3, atol=1e-5 * float(gp.abs().max()))
 
 
 @pytest.mark.gpu

@@ -166,6 +166,76 @@ def test_take_rows_binned_bf16_table_grad_dtype(rng):
     np.testing.assert_array_equal(table.grad.float().numpy(), np.asarray(g_j, np.float32))
 
 
+def _bins_oracle(idx: np.ndarray, n_rows: int, tile_rows: int, chunk: int) -> dict:
+    """K2's bin schedule written out point by point in numpy."""
+    n_tiles = -(-n_rows // tile_rows)
+    counts = np.zeros(n_tiles, np.int64)
+    bins = [[] for _ in range(n_tiles)]
+    for p, r in enumerate(idx):
+        if 0 <= r < n_rows:
+            counts[r // tile_rows] += 1
+            bins[r // tile_rows].append((p, r % tile_rows))
+    items, slot_base, slot = [], [], 0
+    for t in range(n_tiles):
+        k = -(-int(counts[t]) // chunk)  # 0 for an empty tile
+        items += [(t, j) for j in range(k)]
+        slot_base.append(slot)
+        slot += k if k > 1 else 0
+    flat = [e for b in bins for e in b]
+    return dict(counts=counts, starts=np.concatenate([[0], np.cumsum(counts)]), slot_base=np.array(slot_base),
+                items=np.array(items, np.int64).reshape(-1, 2), empty=np.flatnonzero(counts == 0),
+                bin_pt=np.array([e[0] for e in flat], np.int64),
+                bin_row=np.array([e[1] for e in flat], np.int64), n_slots_used=slot)
+
+
+def _ball_rows(rng, p: int, side: int) -> np.ndarray:
+    """Plane rows of points in a disc a quarter of the plane wide, packed
+    toward its centre (a ball's projection): most tiles empty, a few full."""
+    rad = 0.25 * side * np.sqrt(rng.uniform(0, 1, p)) * rng.uniform(0.2, 1, p)
+    ang = rng.uniform(0, 2 * np.pi, p)
+    x = np.clip(side / 2 + rad * np.cos(ang), 0, side - 1).astype(np.int64)
+    y = np.clip(side / 2 + rad * np.sin(ang), 0, side - 1).astype(np.int64)
+    return y * side + x
+
+
+@pytest.mark.parametrize("case", ["uniform", "ball", "hot", "out-of-range", "empty-tiles", "no-points"])
+def test_tile_bins_plain_matches_numpy(rng, monkeypatch, case):
+    """K2's bin schedule in plain PyTorch (tile_bins_plain, the on-card
+    reference of the bin kernels) against numpy: per-tile counts, starts,
+    the work list of the tiles with points (split past CHUNK points), the
+    empty tiles, partial slots, and every
+    in-range point binned in tile order at its row in the tile; out-of-range
+    points in no bin. tile_plan's sizes hold every schedule (work items and
+    partial slots)."""
+    monkeypatch.setattr(k2, "TILE_FLOATS", 16 * 128)  # tiles of 16 rows of 128
+    monkeypatch.setattr(k2, "CHUNK", 32)
+    n_rows, p = 40 * 40, 3000
+    if case == "uniform":
+        idx = rng.integers(0, n_rows, p)
+    elif case == "ball":
+        idx = _ball_rows(rng, p, 40)
+    elif case == "hot":
+        idx = rng.integers(100, 110, p)
+    elif case == "out-of-range":
+        idx = rng.integers(-200, n_rows + 200, p)
+    elif case == "empty-tiles":
+        idx = rng.choice([0, 17, n_rows - 1], p)
+    else:
+        idx = np.zeros(0, np.int64)
+    plan = k2.tile_plan(len(idx), 128, n_rows)
+    assert (plan.tile_rows, plan.n_tiles, plan.chunk) == (16, 100, 32)
+    got = k2.tile_bins_plain(T(idx), n_rows, plan)
+    want = _bins_oracle(idx, n_rows, plan.tile_rows, plan.chunk)
+    for key in ("counts", "starts", "slot_base", "items", "empty", "bin_pt", "bin_row"):
+        np.testing.assert_array_equal(got[key].numpy(), want[key], err_msg=key)
+    assert want["items"].shape[0] <= plan.n_items and want["n_slots_used"] <= plan.n_slots
+    assert want["items"].shape[0] + want["empty"].shape[0] >= plan.n_tiles
+    if case in ("ball", "hot", "empty-tiles"):  # skewed: some tile is split
+        assert (want["items"][:, 1] > 0).any()
+    np.testing.assert_array_equal(idx[got["bin_pt"].numpy()] // plan.tile_rows * plan.tile_rows
+                                  + got["bin_row"].numpy(), idx[got["bin_pt"].numpy()])
+
+
 # ------------------------------- K5 -------------------------------
 
 K5_CASES = [

@@ -368,7 +368,7 @@ def _field(seed=0, cfg=None, density_scale=1.0):
         return (scale * rng.normal(size=s.shape)).astype(np.float32)
 
     jp = jax.tree_util.tree_map_with_path(fill, shapes)
-    return jp, field_from_jax(jp)
+    return jp, field_from_jax(jp, device="cpu")
 
 
 def _flat(tree: dict, prefix="") -> dict:
@@ -437,7 +437,7 @@ def test_density_app_features_and_grads(rng):
     names = [n for n, _ in field.named_parameters()]
     g_t = dict(zip(names + ["x"], torch.autograd.grad(loss, list(field.parameters()) + [x_t], allow_unused=True)))
     g_pj, g_xj = jax.jit(jax.grad(j_fn, argnums=(0, 1)))(jp, jnp.asarray(pts))
-    g_j = params_from_jax(jax.device_get(g_pj))
+    g_j = params_from_jax(jax.device_get(g_pj), device="cpu")
     for k, v in g_j.items():
         if k.startswith("mlp."):
             continue
@@ -465,7 +465,7 @@ def test_density_app_features_line_modes(rng, line_bwd):
     names = [n for n, _ in field.named_parameters()]
     g_t = dict(zip(names + ["x"], torch.autograd.grad(loss, list(field.parameters()) + [x_t], allow_unused=True)))
     g_pj, g_xj = jax.jit(jax.grad(j_fn, argnums=(0, 1)))(jp, jnp.asarray(pts))
-    for k, v in params_from_jax(jax.device_get(g_pj)).items():
+    for k, v in params_from_jax(jax.device_get(g_pj), device="cpu").items():
         if not k.startswith("mlp."):
             close(g_t[k], v.numpy(), rtol=1e-4, atol=1e-5)
     close(g_t["x"], g_xj, rtol=1e-4, atol=1e-4)
@@ -508,7 +508,7 @@ def test_fused_march_features_matches_jax(rng, dt):
     loss = (sig * T(w_sig)).sum() + (rgb * T(w_rgb)).sum()
     names = [n for n, _ in field.named_parameters()]
     g_t = dict(zip(names + ["x"], torch.autograd.grad(loss, list(field.parameters()) + [x_t], allow_unused=True)))
-    want = {**params_from_jax(jax.device_get(g_pj)), "x": T(g_xj)}
+    want = {**params_from_jax(jax.device_get(g_pj), device="cpu"), "x": T(g_xj)}
     for k, v in want.items():
         got = g_t[k].detach().float().numpy()
         scale = float(v.float().abs().max())
@@ -554,7 +554,7 @@ def test_density_l1_dense_and_streamed(monkeypatch, streamed):
     close(val, val_j)
     g_t = dict(zip([n for n, _ in field.named_parameters()],
                    torch.autograd.grad(val, list(field.parameters()), allow_unused=True)))
-    g_j = params_from_jax(jax.device_get(g_pj))
+    g_j = params_from_jax(jax.device_get(g_pj), device="cpu")
     for i in range(3):
         for k in (f"density_plane_{i}", f"density_line_{i}"):
             close(g_t[k], g_j[k].numpy(), rtol=1e-4, atol=1e-7)
@@ -567,7 +567,7 @@ def test_upsample_dense_alpha_and_alpha_volume():
     new_j = jax.jit(lambda p: jtf.upsample_tensorf(p, jcfg, (15, 13, 17))[0])(jp)
     cfg_j = jcfg.with_grid((15, 13, 17))
     assert cfg_t.grid_size == cfg_j.grid_size
-    for k, v in params_from_jax(jax.device_get(new_j)).items():
+    for k, v in params_from_jax(jax.device_get(new_j), device="cpu").items():
         close(new_t[k] if "." not in k else new_t["mlp"][k[4:]], v.numpy(), atol=1e-5)
     alpha_j, vol_j = jax.jit(lambda p: (jtf.compute_dense_alpha(p, jcfg, (12, 10, 14)),
                                         jtf.update_alpha_volume(p, jcfg, (12, 10, 14))))(jp)
@@ -615,7 +615,7 @@ def test_pytree_adam_tensor_gate_matches_jax(rng):
     for on in (True, False, True):
         g_j = jax.tree.map(lambda x: jnp.asarray(rng.normal(size=x.shape).astype(np.float32)), jp)
         before = {k: p.detach().clone() for k, p in field.named_parameters()}
-        field, st_t = toptim.pytree_adam_update(field, params_from_jax(jax.device_get(g_j)), st_t,
+        field, st_t = toptim.pytree_adam_update(field, params_from_jax(jax.device_get(g_j), device="cpu"), st_t,
                                                 lrs_t, gate=torch.tensor(on))
         pj, st_j = jax.jit(joptim.pytree_adam_update)(pj, g_j, st_j, lrs_j, jnp.asarray(on))
         if not on:
@@ -623,7 +623,7 @@ def test_pytree_adam_tensor_gate_matches_jax(rng):
                 assert torch.equal(p, before[k]), k
         assert st_t.step is step_t and int(st_t.step) == int(st_j.step)
     assert int(st_t.step) == 2
-    want = params_from_jax(jax.device_get(pj))
+    want = params_from_jax(jax.device_get(pj), device="cpu")
     for k, p in field.named_parameters():
         close(p, want[k].numpy(), 1e-5, 1e-6)
 
@@ -639,17 +639,17 @@ def test_pytree_adam_in_place(rng, moment_dtype):
     pj = jp
     for k in range(2):
         g_j = jax.tree.map(lambda x: jnp.asarray(rng.normal(size=x.shape).astype(np.float32)), jp)
-        g_t = params_from_jax(jax.device_get(g_j))
+        g_t = params_from_jax(jax.device_get(g_j), device="cpu")
         field, st_t = toptim.pytree_adam_update(field, g_t, st_t, lrs_t)
         pj, st_j = jax.jit(joptim.pytree_adam_update)(pj, g_j, st_j, lrs_j)
         st_t = st_t._replace(lr_scale=st_t.lr_scale * 0.95)
         st_j = st_j._replace(lr_scale=st_j.lr_scale * 0.95)
     assert st_t.step.shape == () and int(st_t.step) == int(st_j.step)
     tol = (1e-5, 1e-6) if moment_dtype == "float32" else (1e-2, 1e-4)
-    want = params_from_jax(jax.device_get(pj))
+    want = params_from_jax(jax.device_get(pj), device="cpu")
     for k, p in field.named_parameters():
         close(p, want[k].numpy(), *tol)
-    m_j = params_from_jax(jax.device_get(st_j.m))
+    m_j = params_from_jax(jax.device_get(st_j.m), device="cpu")
     assert st_t.m["density_plane_0"].dtype == getattr(torch, moment_dtype)
     close(st_t.m["mlp.w2"].float(), m_j["mlp.w2"].float().numpy(), *tol)
 
@@ -658,31 +658,118 @@ def test_pytree_adam_in_place(rng, moment_dtype):
 
 
 def test_port_imports_no_jax():
-    """No module of the port imports jax (source scan), and importing the
-    port and the slice's modules in a fresh interpreter loads no jax."""
-    pkg = REPO / "localrf_tpu_torch"
-    for path in pkg.rglob("*.py"):
+    """No module of the port, and not chip_smoke.py, imports jax or anything
+    of the JAX package (source scan: `localrf_tpu` itself, even its
+    numpy-only modules), and importing the port's modules and chip_smoke in
+    a fresh interpreter loads neither."""
+    files = [*sorted((REPO / "localrf_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
+    n_imports = 0
+    for path in files:
         for node in ast.walk(ast.parse(path.read_text())):
             names = []
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
-            elif isinstance(node, ast.ImportFrom) and node.module:
+            elif isinstance(node, ast.ImportFrom) and node.module and not node.level:
                 names = [node.module]
             for n in names:
-                assert n.split(".")[0] not in ("jax", "jaxlib"), f"{path}: imports {n}"
-                assert not n.startswith(("localrf_tpu.models", "localrf_tpu.ops", "localrf_tpu.optim")), (
-                    f"{path}: imports {n}")
+                n_imports += 1
+                assert n.split(".")[0] not in ("jax", "jaxlib", "localrf_tpu"), f"{path}: imports {n}"
+    assert n_imports > 50
     code = (
-        "import sys; pre = 'jax' in sys.modules\n"
+        "import sys\n"
+        "def loaded():\n"
+        "    return sorted({m.split('.')[0] for m in sys.modules} & {'jax', 'jaxlib', 'localrf_tpu'})\n"
+        "pre = loaded()\n"
         "import localrf_tpu_torch, localrf_tpu_torch.convert, localrf_tpu_torch.optim\n"
-        "import localrf_tpu_torch.models.local, localrf_tpu_torch.models.render\n"
+        "import localrf_tpu_torch.models.local, localrf_tpu_torch.models.render, localrf_tpu_torch.models.graph\n"
         "import localrf_tpu_torch.models.step, localrf_tpu_torch.models.tensorf\n"
         "import localrf_tpu_torch.ops.kernels.composite, localrf_tpu_torch.ops.kernels.binned_scatter\n"
         "import localrf_tpu_torch.ops.kernels.segsum, localrf_tpu_torch.ops.kernels.march\n"
-        "import localrf_tpu_torch.data.dataset\n"
+        "import localrf_tpu_torch.data.dataset, localrf_tpu_torch.data.flow_io, localrf_tpu_torch.data.pool\n"
         "import chip_smoke\n"
-        "print(pre, 'jax' in sys.modules)\n"
+        "print(pre, loaded())\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.split() == ["False", "False"], out.stdout
+    assert out.stdout.split() == ["[]", "[]"], out.stdout
+
+
+def _dataset_arrays(seed: int, n_frames: int = 9, h: int = 6, w: int = 10) -> dict:
+    rng = np.random.default_rng(seed)
+    shape = (n_frames, h, w)
+    return dict(
+        rgbs=rng.random((*shape, 3), dtype=np.float32),
+        invdepths=0.1 + 0.9 * rng.random(shape, dtype=np.float32),
+        fwd_flow=rng.normal(0, 1, (*shape, 2)).astype(np.float32),
+        fwd_mask=(rng.random(shape) > 0.2).astype(np.float32),
+        bwd_flow=rng.normal(0, 1, (*shape, 2)).astype(np.float32),
+        bwd_mask=(rng.random(shape) > 0.2).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 1, 7])
+def test_torch_dataset_matches_jax(seed):
+    """The port's copy of the datasets (localrf_tpu_torch/data/dataset.py)
+    and the JAX package's give identical batches from the same data: rgb,
+    flow, depth, masks, indices and views, across n_views, the coarse and
+    refining samplers, index-only batches and a slid window with held-out
+    test frames; and their pixel pools hold identical contents."""
+    from localrf_tpu.data import pool as jpool
+    from localrf_tpu.data.dataset import SyntheticDataset as JSyntheticDataset
+    from localrf_tpu_torch.data.dataset import SyntheticDataset
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+
+    arrays = _dataset_arrays(seed)
+    kw = dict(n_init_frames=6, test_frame_every=4, frames_chunk=3)
+    ds_j = JSyntheticDataset(arrays["rgbs"], "train", **{k: v for k, v in arrays.items() if k != "rgbs"}, **kw)
+    ds_t = SyntheticDataset(arrays["rgbs"], "train", **{k: v for k, v in arrays.items() if k != "rgbs"}, **kw)
+    pool_j, pool_t = jpool.DevicePixelPool(ds_j, capacity=8), DevicePixelPool(ds_t, capacity=8, device="cpu")
+    n_batches = 0
+    for rnd in range(3):
+        if rnd:
+            for ds in (ds_j, ds_t):
+                ds.activate_frames(1)
+                ds.deactivate_frames(ds.active_frames_bounds[0] + 1)
+        assert ds_t.active_frames_bounds == ds_j.active_frames_bounds
+        for n_views, refining, poses, values in [(4, True, True, True), (8, False, True, True),
+                                                 (2, True, False, True), (4, False, True, False)]:
+            bj = ds_j.sample(8 * n_views, refining, poses, n_views=n_views, values=values)
+            bt = ds_t.sample(8 * n_views, refining, poses, n_views=n_views, values=values)
+            assert bt.keys() == bj.keys()
+            for k, v in bj.items():
+                if isinstance(v, np.ndarray):
+                    np.testing.assert_array_equal(bt[k], v, err_msg=k)
+                else:
+                    assert bt[k] == v, k
+            n_batches += 1
+        pool_j.sync()
+        pool_t.sync()
+        assert pool_t.slot_of_frame == pool_j.slot_of_frame
+        for k, v in pool_j.arrays.items():
+            np.testing.assert_array_equal(pool_t.arrays[k].numpy(), np.asarray(v), err_msg=k)
+    assert n_batches == 12
+
+
+def test_entry_points_default_to_the_card():
+    """LocalTensorfs, DevicePixelPool and the convert.py functions run on
+    the card unless the caller asks for the CPU (signature defaults; the
+    CPU tests pass device="cpu"). Without a card, asking for it raises:
+    nothing falls back to the CPU."""
+    import inspect
+
+    from localrf_tpu_torch import convert
+    from localrf_tpu_torch.data.dataset import SyntheticDataset
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+    from localrf_tpu_torch.models.local import LocalTensorfs
+
+    fns = [LocalTensorfs.__init__, DevicePixelPool.__init__, convert.params_from_jax,
+           convert.field_from_jax, convert.adam_from_jax, convert.pose_from_jax]
+    for fn in fns:
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__qualname__
+    if not torch.cuda.is_available():
+        arrays = _dataset_arrays(0)
+        ds = SyntheticDataset(arrays["rgbs"], "train", n_init_frames=2, test_frame_every=0)
+        with pytest.raises((RuntimeError, AssertionError)):
+            DevicePixelPool(ds, capacity=2)
+        with pytest.raises((RuntimeError, AssertionError)):
+            convert.params_from_jax({"w": np.ones(3, np.float32)})

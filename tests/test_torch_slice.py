@@ -20,12 +20,13 @@ import numpy as np
 import pytest
 import torch
 
-from localrf_tpu.data.dataset import SyntheticDataset
+from localrf_tpu.data.dataset import SyntheticDataset as JSyntheticDataset
 from localrf_tpu.models import local as jlocal
 from localrf_tpu.models import render as jrender
 from localrf_tpu.models import step as jstep
 from localrf_tpu.models import tensorf as jtf
 from localrf_tpu_torch.convert import field_from_jax, params_from_jax, pose_from_jax
+from localrf_tpu_torch.data.dataset import SyntheticDataset
 from localrf_tpu_torch.models import local as tlocal
 from localrf_tpu_torch.models import render as trender
 from localrf_tpu_torch.models import step as tstep
@@ -92,7 +93,7 @@ def test_render_rays_matches_jax(rng, case):
     jcfg = jtf.TensorfConfig(**TF_KW, **kw)
     tcfg = ttf.TensorfConfig(**TF_KW, **kw)
     jp = jax.device_get(jtf.init_tensorf(jax.random.PRNGKey(3), jcfg))
-    field = field_from_jax(jp)
+    field = field_from_jax(jp, device="cpu")
     o = rng.uniform(-0.4, 0.4, (64, 3)).astype(np.float32)
     d = rng.normal(size=(64, 3)).astype(np.float32)
     alpha = _ball((10, 11, 12)) if with_alpha else None
@@ -122,7 +123,7 @@ def test_render_rays_matches_jax(rng, case):
     names = [n for n, _ in field.named_parameters()]
     grads = torch.autograd.grad(loss, list(field.parameters()) + [ot, dt], allow_unused=True)
     g_t = dict(zip(names + ["o", "d"], grads))
-    want = {**params_from_jax(jax.device_get(g_j[0])), "o": g_j[1], "d": g_j[2]}
+    want = {**params_from_jax(jax.device_get(g_j[0]), device="cpu"), "o": g_j[1], "d": g_j[2]}
     for k, v in want.items():
         got = g_t[k] if g_t[k] is not None else torch.zeros(v.shape)
         grad_close(got, v.numpy() if isinstance(v, torch.Tensor) else v,
@@ -132,10 +133,12 @@ def test_render_rays_matches_jax(rng, case):
 # ------------------------ train_step / LocalTensorfs ------------------------
 
 
-def _dataset(seed=0):
+def _dataset(seed=0, cls=SyntheticDataset):
+    """The port's dataset (cls=JSyntheticDataset for the JAX side: both
+    draw the same batches from the same seed)."""
     rng = np.random.default_rng(seed)
     shape = (N_FRAMES, H, W)
-    return SyntheticDataset(
+    return cls(
         rng.random((*shape, 3), dtype=np.float32), "train",
         invdepths=0.1 + 0.9 * rng.random(shape, dtype=np.float32),
         fwd_flow=rng.normal(0, 1, (*shape, 2)).astype(np.float32), fwd_mask=np.ones(shape, np.float32),
@@ -149,8 +152,8 @@ def _models(tf_kw=None, **local_kw):
     common = dict(WH=(W, H), n_init_frames=N_FRAMES, n_views=N_VIEWS, batch_size=BATCH, **local_kw)
     tf = dict(TF_KW, **(tf_kw or {}))
     jm = jlocal.LocalTensorfs(jlocal.LocalConfig(tensorf=jtf.TensorfConfig(**tf), **common))
-    tm = tlocal.LocalTensorfs(tlocal.LocalConfig(tensorf=ttf.TensorfConfig(**tf), **common))
-    field = field_from_jax(jax.device_get(jm.fields[-1]["params"]))
+    tm = tlocal.LocalTensorfs(tlocal.LocalConfig(tensorf=ttf.TensorfConfig(**tf), **common), device="cpu")
+    field = field_from_jax(jax.device_get(jm.fields[-1]["params"]), device="cpu")
     tm.fields[-1]["params"] = field
     tm.fields[-1]["opt"] = pytree_adam_init(field)
     for m in (jm, tm):
@@ -174,7 +177,7 @@ def test_train_step_matches_jax(config):
     key = jax.random.PRNGKey(5)
     f = jm.fields[-1]
     j_stat = jm._statics(True)
-    j_batch = jm._device_batch(batch)
+    j_batch = jm._device_batch(_dataset(cls=JSyntheticDataset).sample(BATCH, True, True, n_views=N_VIEWS))
     j_scal = dict(jm._scalars(), pose_only=jnp.zeros(()))
     pose = jm._pose_dev
 
@@ -196,7 +199,7 @@ def test_train_step_matches_jax(config):
         tf_["params"], tm._pose_dev, tm.intr.params, t_stat, t_batch, tm._scalars_py(), noise)
     for k in m_j:
         np.testing.assert_allclose(float(m_t[k]), float(m_j[k]), rtol=1e-4, atol=1e-7, err_msg=k)
-    g_fj = params_from_jax(jax.device_get(g_j[0]))
+    g_fj = params_from_jax(jax.device_get(g_j[0]), device="cpu")
     for k, v in g_fj.items():
         grad_close(g_field[k], v.numpy())
     # window rows past the live frames are zero-padded poses (NaN gradients
@@ -207,13 +210,13 @@ def test_train_step_matches_jax(config):
     new_field, new_pose, _, _ = tstep.train_step(
         tstep.FieldState(tf_["params"], tf_["opt"]), tm._pose_dev, tm.intr, t_batch,
         tm._scalars_py(), t_stat, noise)
-    want_p = params_from_jax(jax.device_get(new_f.params))
+    want_p = params_from_jax(jax.device_get(new_f.params), device="cpu")
     for k, p in new_field.params.named_parameters():
         g = g_fj[k].numpy()
         mask = np.abs(g) > 1e-3 * np.abs(g).max()
         assert mask.any()
         np.testing.assert_allclose(p.detach().numpy()[mask], want_p[k].numpy()[mask], rtol=1e-5, atol=1e-6)
-    want_pose = pose_from_jax(jax.device_get(new_p))
+    want_pose = pose_from_jax(jax.device_get(new_p), device="cpu")
     for name in ("r", "t", "exposure"):
         np.testing.assert_allclose(getattr(new_pose, name).numpy()[:N_FRAMES],
                                    getattr(want_pose, name).numpy()[:N_FRAMES],
@@ -229,13 +232,12 @@ def test_local_tensorfs_two_steps_with_alpha_refresh(config):
     The second step starts from parameters a first Adam step may have moved
     apart (see the module docstring), so its losses get rtol 1e-3."""
     jm, tm = _models(TRAIN_CONFIGS[config], update_AlphaMask_list=[2], occ_min=4)
-    ds = _dataset(1)
+    ds_j, ds_t = _dataset(1, JSyntheticDataset), _dataset(1)
     for step in range(2):
-        batch = ds.sample(BATCH, True, True, n_views=N_VIEWS)
         _, sub = jax.random.split(jm._key)  # the key jm's step will draw
         tm._next_noise = lambda cfg, sub=sub: jax_noise(sub, cfg.n_samples)
-        jm.optimizer_step(batch, optimize_poses=True)
-        tm.optimizer_step(batch, optimize_poses=True)
+        jm.optimizer_step(ds_j.sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
+        tm.optimizer_step(ds_t.sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
         rtol = 1e-4 if step == 0 else 1e-3
         for k, v in jm.last_metrics.items():
             np.testing.assert_allclose(tm.last_metrics[k], v, rtol=rtol, atol=1e-7, err_msg=k)
@@ -257,7 +259,7 @@ def test_append_frame_links_with_threshold():
     """append_frame links a frame to the first field whose blending weight
     exceeds 1e-6 (a float residue in a retired column must not link)."""
     cfg = tlocal.LocalConfig(WH=(W, H), n_init_frames=2, tensorf=ttf.TensorfConfig(grid_size=(8, 8, 8)))
-    m = tlocal.LocalTensorfs(cfg)
+    m = tlocal.LocalTensorfs(cfg, device="cpu")
     m.blending_weights = np.array([[1.0, 0.0], [1e-16, 1.0]])
     m.append_frame()
     assert m.pose_linked_rf[-1] == 1
