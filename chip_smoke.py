@@ -4,7 +4,8 @@
 
 1. Needs a CUDA card (exits 1 otherwise). Prints the card's name and power
    limit, builds the kernels from localrf_tpu_torch/csrc/ and prints the
-   build time.
+   build time, and checks with `cuobjdump -sass` that the bf16 K4 MLP
+   kernels hold tensor-core instructions (HMMA or HGMMA).
 2. Checks each hand-written kernel against its plain PyTorch version on the
    card at the shapes of the training step, and times both (a captured
    CUDA graph of 20 calls, replayed; CUDA events), beside its bound (bytes over the card's memory rate or operations over
@@ -14,7 +15,8 @@
    segment sum; on uniform indices and on the plane indices of a real step
    at 64^3 and 640^3, its bin schedule against tile_bins_plain, with
    indices out of range and with P = 0), K3 (line segment sum), K4 (fused
-   march core, forward and backward), and K5 (the merged segment sum: no
+   march core, forward and backward; K4-bwd also by its kernels' device
+   us from one profiled call), and K5 (the merged segment sum: no
    training path calls it, as none does in the JAX package; it is also
    checked bit for bit against a second launch and timed beside K2 on the
    same inputs).
@@ -229,6 +231,56 @@ def _index_add_ms(idx, g, n_rows: int) -> float:
     g32 = g.float()
     return _time_ms(lambda: torch.zeros((n_rows, g.shape[1]), dtype=torch.float32,
                                         device=g.device).index_add_(0, idx, g32))
+
+
+def _kernel_us(fn, reps: int = 5) -> dict:
+    """Device microseconds per call of each CUDA kernel fn ran, by name,
+    from one torch.profiler trace of `reps` eager calls after a warm-up."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = collections.Counter()
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            name = e.name().removeprefix("void ").replace("(anonymous namespace)::", "")
+            out[name.split("(")[0].split("<")[0]] += e.duration_ns() / 1e3 / reps
+    return dict(out.most_common())
+
+
+# the tensor-core K4 kernels (bf16 tables and MLP) and the CUDA-core ones
+# (any f32 table or MLP), as the built library's SASS names them
+MMA_KERNELS = ("march_fwd_mma_kernel", "march_bwd_mlp_mma_kernel")
+CORE_KERNELS = ("march_fwd_kernel", "march_bwd_mlp_kernel")
+
+
+def check_sass(lib: str) -> dict:
+    """`cuobjdump -sass` of the built library: each tensor-core K4 kernel
+    holds tensor-core instructions (HMMA or HGMMA); the count of those in
+    every K4 MLP kernel, by name."""
+    import re
+
+    from localrf_tpu_torch.ops.kernels import _build
+
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, check=True).stdout
+    counts = {k: 0 for k in MMA_KERNELS + CORE_KERNELS}
+    for section in sass.split("Function : ")[1:]:
+        name = section.split("\n", 1)[0]
+        for k in MMA_KERNELS + CORE_KERNELS:
+            if k in name:
+                counts[k] += len(re.findall(r"\bHG?MMA\b", section))
+                break
+    missing = [k for k in MMA_KERNELS if not counts[k]]
+    if missing:
+        raise AssertionError(f"no HMMA/HGMMA in the SASS of {missing}: the bf16 K4 products are not on tensor cores")
+    return counts
 
 
 def check_k1(dev, gen) -> list[dict]:
@@ -533,6 +585,8 @@ def check_k3_k4(dev, gen) -> list[dict]:
             ms=_time_ms(lambda: k4._launch_bwd(plain, gout, "bfloat16"), reps=10),
             plain_ms=_time_ms(lambda: k4.march_bwd_plain(*plain, gout, "bfloat16"), reps=5),
             library_ms=None, **_bound(_nbytes(*plain, gout, *grads_k), K4_BWD_FLOP * p),
+            # its MLP, factor and reduce kernels (and the wrapper's zero fills and cast)
+            kernel_us=_kernel_us(lambda: k4._launch_bwd(plain, gout, "bfloat16")),
         ))
         del args, grads_k, grads_p, plain
     return rows
@@ -561,8 +615,8 @@ SYMBOLS = {
     "fused_weights_bwd": "composite_bwd_kernel",
     "segment_sum": "segment_sum_tile_kernel",
     "segment_sum_small": "segsum_small_kernel",
-    "march_fwd": "march_fwd_kernel",
-    "march_bwd": "march_bwd_mlp_kernel",
+    "march_fwd": "march_fwd_mma_kernel",
+    "march_bwd": "march_bwd_mlp_mma_kernel",
     "segment_sum_merged": "segment_sum_merged_kernel",
 }
 # the kernels each training path launches (and no other)
@@ -1147,6 +1201,7 @@ def main() -> None:
     for ln in _build.build_info["log"].splitlines():
         if "registers" in ln or "spill" in ln:
             print(f"  ptxas: {ln.strip()}")
+    print(f"sass: tensor-core instructions (HMMA/HGMMA) per K4 MLP kernel {check_sass(_build.build_info['path'])}")
 
     # phase 2: kernels against their plain versions (K2 also on the plane
     # indices of a real step at each shape)
@@ -1158,6 +1213,8 @@ def main() -> None:
     rows += check_k3_k4(dev, torch.Generator(device=dev).manual_seed(1))
     for row in rows:
         extra = f"  kernel alone {row['kernel_ms']:.4f} ms  K2 {row['k2_ms']:.4f} ms" if "k2_ms" in row else ""
+        if "kernel_us" in row:
+            extra += "  per kernel us " + ", ".join(f"{k} {v:.1f}" for k, v in row["kernel_us"].items())
         if "occupied_tiles" in row:
             extra += (f"  bf16 out err {row['bf16_err']:.3e} (within one ulp); tiles hit"
                       f" {row['occupied_tiles']}, most points in a tile {row['max_tile_points']}")
@@ -1216,6 +1273,8 @@ def main() -> None:
         }
         if name in OFF_PATH:
             entry.update(on_main_path=False, kernel_ms=row["kernel_ms"], k2_ms=row["k2_ms"])
+        if "kernel_us" in row:
+            entry["kernel_us"] = row["kernel_us"]
         kernels.append(entry)
     print(json.dumps({"slice": {
         label: {"ms_per_step": ph["ms"], "peak_bytes": ph["peak"]} for label, ph in phases.items()}}))

@@ -25,31 +25,52 @@
 //
 // What bounds it on the card: the MLP. At 640^3 the step shades
 // P = 1,359,872 samples, ~20k multiply-adds each forward and ~3x that
-// backward (recompute + VJP), on CUDA cores from shared memory; the row
-// and line bytes (3 x 348 MB of bf16 rows) come second. The TPU kernel ran
-// the MLP and the one-hot line lookup on the MXU with lines resident in
-// VMEM. Here a line row is a direct indexed load (the [3, 640, 64] bf16
-// lines sit in L2), and the design is the simple one:
-// - forward: persistent blocks of 256 threads loop over tiles of 16
-//   points; the weights, rounded as the Pallas kernel rounds them, stay in
-//   shared memory (row strides padded to 129 so both the forward and the
-//   transposed backward reads are free of bank conflicts); one warp per
-//   point with a lane per channel computes the features, then the tile's
-//   app and hidden activations pass through shared memory;
-// - backward, kernel 1: one block per SM recomputes the tile's forward,
-//   runs the MLP and basis VJP and writes d_app [P, 27] (f32); every
-//   parameter gradient is a per-block partial in shared memory, each entry
-//   owned by one thread per phase (no atomics), written out once per block
-//   and summed over blocks in a fixed order by a small third kernel
-//   (deterministic; the TPU kernel carried these sums in its revisited
-//   output blocks over the sequential grid);
-// - backward, kernel 2: one warp per run of 16 consecutive points, a lane
-//   per channel, recomputes the lerps and produces d_rows, d(wx, wy, w1)
-//   and dlines. dlines takes f32 global atomics, but consecutive samples of
-//   a ray mostly share a line row, so each warp sums a run of equal rows
-//   in registers and adds once per run (about 2,100 samples land on each
-//   of the 640 rows at 640^3).
-// Tensor cores (wgmma), TMA and warp specialisation are later work.
+// backward (recompute + VJP); the row and line bytes (3 x 348 MB of bf16
+// rows) come second. The TPU kernel ran the MLP and the one-hot line
+// lookup on the MXU with lines resident in VMEM. Here a line row is a
+// direct indexed load (the [3, 640, 64] bf16 lines sit in L2).
+//
+// Two instantiations, chosen by dtype in the C entry points (no fallback
+// between them):
+// - bf16 tables and bf16 MLP (the training CLI's dtypes): the tensor-core
+//   kernels `march_fwd_mma_kernel` and `march_bwd_mlp_mma_kernel`. Every
+//   operand of the basis and MLP products is a bf16 value there (the
+//   products, the rounded activations and cotangents, the weights rounded
+//   as staged), and the product of two bf16 values is exact in f32, so
+//   `mma.sync.m16n8k16` bf16 with f32 accumulation gives the CUDA-core sums
+//   up to their order. Persistent blocks of 256 threads (one per SM) loop
+//   over tiles of 64 points. The weights sit in shared memory as bf16 in
+//   their natural row-major layout, rows padded so that `ldmatrix` is free
+//   of bank conflicts (basis [96][40], w1 [32][136], w2 [128][136], the
+//   padding zero); `ldmatrix.trans` reads the transposed operands (w2^T,
+//   w1^T, and the activations of the weight gradients) from the same
+//   copies. Eight warps split each product: a warp owns 16 rows by N/2
+//   columns (the accumulator layout of a warpgroup's m64 `wgmma`, not
+//   used here: a forward tile's 720 HMMA.16816 need ~1.5k of the ~12k
+//   cycles a tile takes on the card, PERF.md "PR 5"). While
+//   a tile's MLP runs, the next tile's rows and per-point inputs arrive in
+//   shared memory by `cp.async` (zero-filled past P, so a ragged tile needs
+//   no branch), then its line rows (the gather needs its x0), so the
+//   features read only shared memory. The backward keeps dw2, dw1 and
+//   dbasis in registers across its tiles (dw2 as 16 rows of 128 per warp)
+//   and writes them once.
+// - any f32 table or MLP: the CUDA-core kernels `march_fwd_kernel` and
+//   `march_bwd_mlp_kernel`: tiles of 16 points, the weights as f32 in
+//   shared memory (row strides padded to 129), one warp per point for the
+//   features and a thread per output column for the products.
+// Both backward MLP kernels write d_feat = T(T(d_app) @ basis^T) [P, 72] in
+// the table dtype (the appearance products' cotangent) and per-block
+// parameter-gradient partials, each entry owned by one thread (no
+// atomics), summed over blocks in a fixed order by `march_reduce_kernel`
+// (deterministic; the TPU kernel carried these sums in its revisited
+// output blocks over the sequential grid).
+// Backward, factor kernel (both dtypes): a half warp per run of 16
+// consecutive points, a lane per pair of channels, recomputes the lerps
+// and produces d_rows, d(wx, wy, w1) and dlines from d_feat. dlines takes
+// f32 global atomics (float2, Hopper's vector atomic add); consecutive
+// samples of a ray often share a line row, so each half warp sums a run of
+// equal rows in registers and adds once per run (about 2,100 samples land
+// on each of the 640 rows at 640^3).
 // x0 is never range-checked here: the texel clamp in the caller keeps
 // x0 <= G - 1, and the quad line's last row duplicates the border.
 
@@ -65,7 +86,7 @@ constexpr int CD = 8, CA = 24, C = 32, APP = 27, FC = 128, NB = 3 * CA;
 constexpr int TP = 16;         // points per tile
 constexpr int kThreads = 256;  // 8 warps
 constexpr int WS = FC + 1;     // padded row stride of w1 and w2 in shared memory
-constexpr int kPtsPerWarp = 16;
+constexpr int kPtsPerHalf = 16;  // points a half warp walks in the factor kernel
 
 // shared memory (floats): weights
 constexpr int OFF_BASIS = 0;                    // [72][27], rounded to T
@@ -288,11 +309,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Backward kernel 1: recompute, MLP + basis VJP, d_app, parameter partials.
+// Backward kernel 1: recompute, MLP + basis VJP, d_feat, parameter partials.
 template <typename T, bool MB>
 __global__ void __launch_bounds__(kThreads, 1)
     march_bwd_mlp_kernel(Inputs<T> in, const float* __restrict__ gout,
-                         float* __restrict__ d_app, float* __restrict__ partials) {
+                         T* __restrict__ d_feat, float* __restrict__ partials) {
   extern __shared__ float sm[];
   constexpr bool TB = std::is_same<T, __nv_bfloat16>::value;
   const int tid = threadIdx.x;
@@ -379,13 +400,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     __syncthreads();
 
-    // d_app = d_pre1 @ w1^T (f32, written out; rounded to T here); dw1, db1
+    // d_app = d_pre1 @ w1^T (f32), rounded to T; dw1, db1
     for (int e = tid; e < TP * APP; e += kThreads) {
       const int pl = e / APP, k = e % APP;
       float s = 0.0f;
       for (int m = 0; m < FC; ++m) s += sm[OFF_DP1 + pl * FC + m] * sm[OFF_W1 + k * WS + m];
-      const int64_t p = p0 + pl;
-      if (p < in.p_total) d_app[p * APP + k] = s;
       sm[OFF_DAPPT + pl * APP + k] = rnd<TB>(s);
     }
     for (int e = tid; e < APP * FC; e += kThreads) {
@@ -408,91 +427,139 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int pl = 0; pl < TP; ++pl) s += sm[OFF_FEAT + pl * NB + j] * sm[OFF_DAPPT + pl * APP + k];
       acc[A_BASIS + e] += s;
     }
+    // d_feat = T(T(d_app) @ basis^T), written out for the factor kernel
+    for (int e = tid; e < TP * NB; e += kThreads) {
+      const int pl = e / NB, j = e % NB;
+      const int64_t p = p0 + pl;
+      float s = 0.0f;
+      for (int k = 0; k < APP; ++k) s += sm[OFF_DAPPT + pl * APP + k] * sm[OFF_BASIS + j * APP + k];
+      if (p < in.p_total) st(d_feat + p * NB + j, s);
+    }
     __syncthreads();
   }
   float* part = partials + static_cast<int64_t>(blockIdx.x) * N_ACC;
   for (int e = tid; e < N_ACC; e += kThreads) part[e] = acc[e];
 }
 
-// Backward kernel 2: per point and orientation, the factor backward.
+// Two channels of T in packed arithmetic: bf16 pairs round once per op, which
+// is the f32 op rounded to bf16 (see tile_features); f32 pairs are plain f32.
+template <typename T>
+struct Pair;
+
+template <>
+struct Pair<float> {
+  using V = float2;
+  __device__ static V splat(float x) { return make_float2(x, x); }
+  __device__ static V mul(V a, V b) { return make_float2(a.x * b.x, a.y * b.y); }
+  __device__ static V add(V a, V b) { return make_float2(a.x + b.x, a.y + b.y); }
+  __device__ static V sub(V a, V b) { return make_float2(a.x - b.x, a.y - b.y); }
+  __device__ static float2 f32(V a) { return a; }
+};
+
+template <>
+struct Pair<__nv_bfloat16> {
+  using V = __nv_bfloat162;
+  __device__ static V splat(float x) { return __float2bfloat162_rn(x); }
+  __device__ static V mul(V a, V b) { return __hmul2_rn(a, b); }
+  __device__ static V add(V a, V b) { return __hadd2_rn(a, b); }
+  __device__ static V sub(V a, V b) { return __hsub2_rn(a, b); }
+  __device__ static float2 f32(V a) { return __bfloat1622float2(a); }
+};
+
+// sum over the 16 lanes of a half warp (every lane of the warp calls it)
+__device__ __forceinline__ float half_sum(float v) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Backward kernel 2: per point and orientation, the factor backward. A half
+// warp walks a run of kPtsPerHalf consecutive points, a lane per pair of
+// channels (4-byte loads and stores of bf16 rows; the line gradient's run
+// sums added as float2, Hopper's vector atomic).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     march_bwd_factor_kernel(Inputs<T> in, const float* __restrict__ gout,
-                            const float* __restrict__ d_app, T* __restrict__ drows0,
+                            const T* __restrict__ d_feat, T* __restrict__ drows0,
                             T* __restrict__ drows1, T* __restrict__ drows2,
                             float* __restrict__ d_wxy, float* __restrict__ d_w1l,
                             float* __restrict__ dlines) {
+  using P2 = Pair<T>;
+  using V = typename P2::V;
   constexpr bool TB = std::is_same<T, __nv_bfloat16>::value;
-  __shared__ float basis_s[NB * APP];
-  const int tid = threadIdx.x, lane = tid & 31;
-  for (int e = tid; e < NB * APP; e += kThreads) basis_s[e] = rnd<TB>(in.basis[e]);
-  __syncthreads();
+  const int cp = threadIdx.x & 15;  // channels 2 cp, 2 cp + 1
   T* drows[3] = {drows0, drows1, drows2};
-  const int64_t gw = static_cast<int64_t>(blockIdx.x) * (kThreads / 32) + (tid >> 5);
-  const int64_t p_begin = gw * kPtsPerWarp;
-  const int64_t p_end =
-      (p_begin + kPtsPerWarp < in.p_total) ? p_begin + kPtsPerWarp : in.p_total;
+  const int64_t p_begin =
+      ((static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 4) * kPtsPerHalf;
+  auto ld2 = [](const T* q) { return *reinterpret_cast<const V*>(q); };
+  auto st2v = [](T* q, V v) { *reinterpret_cast<V*>(q) = v; };
   // a run of equal line rows per orientation, summed in registers
   int run_x[3] = {-1, -1, -1};
-  float run0[3] = {0.0f, 0.0f, 0.0f}, run1[3] = {0.0f, 0.0f, 0.0f};
-  const int jj = lane >= CD ? lane - CD : 0;
-  for (int64_t p = p_begin; p < p_end; ++p) {
-    const float dk = lane < APP ? rnd<TB>(d_app[p * APP + lane]) : 0.0f;
-    const float gs = rnd<TB>(gout[p * 4]);
+  float2 run0[3], run1[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) run0[i] = run1[i] = make_float2(0.0f, 0.0f);
+  auto flush = [&](int i) {
+    float* dst = dlines + (static_cast<int64_t>(i) * in.g + run_x[i]) * (2 * C) + 2 * cp;
+    atomicAdd(reinterpret_cast<float2*>(dst), run0[i]);
+    atomicAdd(reinterpret_cast<float2*>(dst + C), run1[i]);
+  };
+  const V one = P2::splat(1.0f);
+  // a fixed trip count, so both halves of a warp reach every shuffle
+  for (int k = 0; k < kPtsPerHalf; ++k) {
+    const int64_t p = p_begin + k;
+    const bool valid = p < in.p_total;
+    const int64_t pc = valid ? p : 0;
+    const V gs = P2::splat(gout[pc * 4]);
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
-      const T* r = in.rows[i] + p * (4 * C);
-      const float wx = rnd<TB>(in.wxy[p * 6 + 2 * i]);
-      const float wy = rnd<TB>(in.wxy[p * 6 + 2 * i + 1]);
-      const float wl = rnd<TB>(in.w1l[p * 3 + i]);
-      const float omwx = rnd<TB>(1.0f - wx), omwy = rnd<TB>(1.0f - wy);
-      const float omwl = rnd<TB>(1.0f - wl);
-      const float v00 = ld(r + lane), v01 = ld(r + C + lane);
-      const float v10 = ld(r + 2 * C + lane), v11 = ld(r + 3 * C + lane);
-      const float top = rnd<TB>(rnd<TB>(v00 * omwx) + rnd<TB>(v01 * wx));
-      const float bot = rnd<TB>(rnd<TB>(v10 * omwx) + rnd<TB>(v11 * wx));
-      const float f = rnd<TB>(rnd<TB>(top * omwy) + rnd<TB>(bot * wy));
-      const int xi = in.x0[p * 3 + i];
-      const T* lrow = in.lines + (static_cast<int64_t>(i) * in.g + xi) * (2 * C);
-      const float lr0 = ld(lrow + lane), lr1 = ld(lrow + C + lane);
-      const float l = rnd<TB>(rnd<TB>(lr0 * omwl) + rnd<TB>(lr1 * wl));
+      const T* r = in.rows[i] + pc * (4 * C) + 2 * cp;
+      const V wx = P2::splat(in.wxy[pc * 6 + 2 * i]);
+      const V wy = P2::splat(in.wxy[pc * 6 + 2 * i + 1]);
+      const V wl = P2::splat(in.w1l[pc * 3 + i]);
+      const V omwx = P2::sub(one, wx), omwy = P2::sub(one, wy), omwl = P2::sub(one, wl);
+      const V v00 = ld2(r), v01 = ld2(r + C), v10 = ld2(r + 2 * C), v11 = ld2(r + 3 * C);
+      const V top = P2::add(P2::mul(v00, omwx), P2::mul(v01, wx));
+      const V bot = P2::add(P2::mul(v10, omwx), P2::mul(v11, wx));
+      const V f = P2::add(P2::mul(top, omwy), P2::mul(bot, wy));
+      const int xi = in.x0[pc * 3 + i];
+      const T* lrow = in.lines + (static_cast<int64_t>(i) * in.g + xi) * (2 * C) + 2 * cp;
+      const V lr0 = ld2(lrow), lr1 = ld2(lrow + C);
+      const V l = P2::add(P2::mul(lr0, omwl), P2::mul(lr1, wl));
 
-      // d_feat = T(T(d_app) @ basis_i^T); lanes < 8 carry T(d_sigma)
-      float s = 0.0f;
-#pragma unroll
-      for (int k = 0; k < APP; ++k) {
-        s += __shfl_sync(0xffffffffu, dk, k) * basis_s[(i * CA + jj) * APP + k];
-      }
-      const float dprod = lane < CD ? gs : rnd<TB>(s);
-      const float d_f = rnd<TB>(dprod * l), d_l = rnd<TB>(dprod * f);
+      // channels < 8 carry T(d_sigma), the others d_feat
+      const V dprod = cp < CD / 2 ? gs : ld2(d_feat + pc * NB + i * CA + 2 * cp - CD);
+      const V d_f = P2::mul(dprod, l), d_l = P2::mul(dprod, f);
 
       // line lerp backward
-      const float dlr0 = rnd<TB>(d_l * omwl), dlr1 = rnd<TB>(d_l * wl);
-      if (xi != run_x[i]) {
-        if (run_x[i] >= 0) {
-          float* dst = dlines + (static_cast<int64_t>(i) * in.g + run_x[i]) * (2 * C);
-          atomicAdd(dst + lane, run0[i]);
-          atomicAdd(dst + C + lane, run1[i]);
+      const float2 dlr0 = P2::f32(P2::mul(d_l, omwl)), dlr1 = P2::f32(P2::mul(d_l, wl));
+      if (valid) {
+        if (xi != run_x[i]) {
+          if (run_x[i] >= 0) flush(i);
+          run_x[i] = xi;
+          run0[i] = run1[i] = make_float2(0.0f, 0.0f);
         }
-        run_x[i] = xi;
-        run0[i] = 0.0f;
-        run1[i] = 0.0f;
+        run0[i].x += dlr0.x;
+        run0[i].y += dlr0.y;
+        run1[i].x += dlr1.x;
+        run1[i].y += dlr1.y;
       }
-      run0[i] += dlr0;
-      run1[i] += dlr1;
-      const float dw1l = warp_sum(rnd<TB>(d_l * rnd<TB>(lr1 - lr0)));
+      const float2 t1 = P2::f32(P2::mul(d_l, P2::sub(lr1, lr0)));
+      const float dw1l = half_sum(t1.x + t1.y);
 
       // plane bilerp backward
-      const float d_top = rnd<TB>(d_f * omwy), d_bot = rnd<TB>(d_f * wy);
-      T* dr = drows[i] + p * (4 * C);
-      st(dr + lane, d_top * omwx);
-      st(dr + C + lane, d_top * wx);
-      st(dr + 2 * C + lane, d_bot * omwx);
-      st(dr + 3 * C + lane, d_bot * wx);
-      const float dwx = warp_sum(
-          rnd<TB>(rnd<TB>(d_top * rnd<TB>(v01 - v00)) + rnd<TB>(d_bot * rnd<TB>(v11 - v10))));
-      const float dwy = warp_sum(rnd<TB>(d_f * rnd<TB>(bot - top)));
-      if (lane == 0) {
+      const V d_top = P2::mul(d_f, omwy), d_bot = P2::mul(d_f, wy);
+      if (valid) {
+        T* dr = drows[i] + p * (4 * C) + 2 * cp;
+        st2v(dr, P2::mul(d_top, omwx));
+        st2v(dr + C, P2::mul(d_top, wx));
+        st2v(dr + 2 * C, P2::mul(d_bot, omwx));
+        st2v(dr + 3 * C, P2::mul(d_bot, wx));
+      }
+      const float2 tx = P2::f32(P2::add(P2::mul(d_top, P2::sub(v01, v00)),
+                                        P2::mul(d_bot, P2::sub(v11, v10))));
+      const float2 ty = P2::f32(P2::mul(d_f, P2::sub(bot, top)));
+      const float dwx = half_sum(tx.x + tx.y), dwy = half_sum(ty.x + ty.y);
+      if (cp == 0 && valid) {
         d_wxy[p * 6 + 2 * i] = rnd<TB>(dwx);
         d_wxy[p * 6 + 2 * i + 1] = rnd<TB>(dwy);
         d_w1l[p * 3 + i] = rnd<TB>(dw1l);
@@ -501,11 +568,532 @@ __global__ void __launch_bounds__(kThreads)
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    if (run_x[i] >= 0) {
-      float* dst = dlines + (static_cast<int64_t>(i) * in.g + run_x[i]) * (2 * C);
-      atomicAdd(dst + lane, run0[i]);
-      atomicAdd(dst + C + lane, run1[i]);
+    if (run_x[i] >= 0) flush(i);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The tensor-core instantiation: bf16 tables and bf16 MLP.
+
+using bf16 = __nv_bfloat16;
+constexpr int TPM = 64;   // points per tile
+constexpr int NBP = 80;   // basis rows (72) padded to the k16 step of feats @ basis
+constexpr int NBN = 96;   // and to 12 n8 chunks of d_app @ basis^T
+// bf16 row strides: a multiple of 16 bytes whose count of 16-byte pieces is
+// odd, so the 8 rows an ldmatrix phase reads fall in 8 distinct bank groups
+constexpr int LDB = 40;   // [.][32] arrays
+constexpr int LDF = 88;   // [.][80]
+constexpr int LDH = 136;  // [.][128]
+
+constexpr int align128(int b) { return (b + 127) / 128 * 128; }
+// shared memory, in bytes; everything not written below stays zero
+constexpr int S_BASIS = 0;                                   // bf16 [96][LDB] basis (T)
+constexpr int S_W1 = align128(S_BASIS + NBN * LDB * 2);      // bf16 [32][LDH] w1 (M)
+constexpr int S_W2 = align128(S_W1 + 32 * LDH * 2);          // bf16 [128][LDH] w2 (M)
+constexpr int S_VEC = align128(S_W2 + FC * LDH * 2);         // f32, V_* below
+constexpr int V_B1 = 0, V_B2 = FC, V_W3 = 2 * FC, V_B3 = V_W3 + (FC + 3) * 3;
+constexpr int N_VEC = V_B3 + 3;
+constexpr int S_FEAT = align128(S_VEC + N_VEC * 4);          // bf16 [64][LDF] products (T)
+constexpr int S_X0M = align128(S_FEAT + TPM * LDF * 2);      // bf16 [64][LDB] app rounded to M
+constexpr int S_H1 = align128(S_X0M + TPM * LDB * 2);        // bf16 [64][LDH] h1
+constexpr int S_H2 = align128(S_H1 + TPM * LDH * 2);         // bf16 [64][LDH] h2, then d_pre1
+constexpr int S_PT = align128(S_H2 + TPM * LDH * 2);         // f32 per point, P_* below
+constexpr int P_SIG = 0, P_RGB = TPM, P_VDM = P_RGB + TPM * 4, P_GR = P_VDM + TPM * 3;
+constexpr int P_DP3 = P_GR + TPM * 3, P_DP3M = P_DP3 + TPM * 4, P_PRE3 = P_DP3M + TPM * 4;
+constexpr int N_PT = P_PRE3 + 2 * TPM * 3;                   // pre3 partials [2 halves][64][3]
+constexpr int S_ROWS = align128(S_PT + N_PT * 4);            // bf16 [3][64][128] (cp.async)
+constexpr int S_IN = align128(S_ROWS + 3 * TPM * 4 * C * 2); // 32-bit inputs, I_* (cp.async)
+constexpr int I_WXY = 0, I_W1L = TPM * 6, I_X0 = I_W1L + TPM * 3, I_VD = I_X0 + TPM * 3;
+constexpr int I_GO = I_VD + TPM * 3, N_IN = I_GO + TPM * 4;
+constexpr int S_LINES = align128(S_IN + N_IN * 4);          // bf16 [3][64][64] (cp.async)
+constexpr int SMEM_FWD = align128(S_LINES + 3 * TPM * 2 * C * 2);
+constexpr int S_DP2 = SMEM_FWD;                              // bf16 [64][LDH] d_pre2
+constexpr int S_DAPP = align128(S_DP2 + TPM * LDH * 2);      // bf16 [64][LDB] d_app (T)
+constexpr int SMEM_BWD = align128(S_DAPP + TPM * LDB * 2);
+static_assert(SMEM_BWD <= 232448, "tensor-core backward exceeds one block's 227 KB");
+// the weight-gradient partials a block keeps in registers: w3 | b3 entries
+constexpr int N_W3B3 = (FC + 3) * 3 + 3;
+static_assert(A_B3 == A_W3 + (FC + 3) * 3 && N_W3B3 <= 2 * kThreads, "w3 | b3 layout");
+
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p)));
+}
+
+__device__ __forceinline__ void ldsm4t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(saddr(p)));
+}
+
+// d += a @ b, m16n8k16, bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 (4) bytes global -> shared, zero-filled when !ok (src is then not read)
+__device__ __forceinline__ void cp16(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr(dst)), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp4(void* dst, const void* src, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(saddr(dst)), "l"(src),
+               "r"(ok ? 4 : 0));
+}
+
+__device__ __forceinline__ void st2(bf16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ float bf(const bf16* p) { return __bfloat162float(*p); }
+
+template <int NC>
+__device__ __forceinline__ void zero(float (&acc)[NC][4]) {
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[c][j] = 0.0f;
+  }
+}
+
+// One warp: acc[c] += A[m0 : m0 + 16, :16 KS] @ B[:16 KS, n0 + 8c : n0 + 8c + 8], c < NC.
+// A is a[m * lda + k], or with AT a[k * lda + m] (stored transposed);
+// B is b[n * ldb + k], or with BN b[k * ldb + n] (stored [K][N]).
+// acc[c] holds rows m0 + lane / 4 (entries 0, 1) and m0 + 8 + lane / 4
+// (2, 3) at columns n0 + 8c + 2 (lane % 4) + {0, 1}.
+template <int NC, int KS, bool AT, bool BN>
+__device__ __forceinline__ void warp_mma(float (&acc)[NC][4], const bf16* a, int lda, int m0,
+                                         const bf16* b, int ldb, int n0) {
+  static_assert(NC % 2 == 0, "B fragments come in pairs of n8 chunks");
+  const int lane = threadIdx.x & 31, i8 = lane & 7, mat = lane >> 3;
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks) {
+    const int k = ks * 16;
+    uint32_t af[4];
+    if constexpr (AT) {
+      ldsm4t(af, a + (k + i8 + (mat >> 1) * 8) * lda + m0 + (mat & 1) * 8);
+    } else {
+      ldsm4(af, a + (m0 + (lane & 15)) * lda + k + (lane >> 4) * 8);
     }
+#pragma unroll
+    for (int c = 0; c < NC; c += 2) {
+      const int n = n0 + c * 8;
+      uint32_t bfr[4];
+      if constexpr (BN) {
+        ldsm4t(bfr, b + (k + i8 + (mat & 1) * 8) * ldb + n + (mat >> 1) * 8);
+      } else {
+        ldsm4(bfr, b + (n + i8 + (mat >> 1) * 8) * ldb + k + (mat & 1) * 8);
+      }
+      mma16816(acc[c], af, bfr[0], bfr[1]);
+      mma16816(acc[c + 1], af, bfr[2], bfr[3]);
+    }
+  }
+}
+
+struct Smem {
+  unsigned char* base;
+  __device__ bf16* h(int off) const { return reinterpret_cast<bf16*>(base + off); }
+  __device__ float* f(int off) const { return reinterpret_cast<float*>(base + off); }
+};
+
+// Start the copies of tile `tile`'s rows and per-point inputs into S_ROWS
+// and S_IN (gout only when given), zero-filled past P, as one group.
+__device__ void fetch_tile(const Smem& s, const Inputs<bf16>& in, const float* gout, int64_t tile) {
+  const int tid = threadIdx.x;
+  const int64_t p0 = tile * TPM;
+  bf16* rows = s.h(S_ROWS);
+  for (int c = tid; c < 3 * TPM * 16; c += kThreads) {  // 16 pieces of 16 bytes a row
+    const int i = c / (TPM * 16), pl = (c >> 4) % TPM, part = c & 15;
+    const bool ok = p0 + pl < in.p_total;
+    const bf16* src = ok ? in.rows[i] + (p0 + pl) * (4 * C) + part * 8 : in.rows[i];
+    cp16(rows + (i * TPM + pl) * (4 * C) + part * 8, src, ok);
+  }
+  float* w = s.f(S_IN);
+  auto copy = [&](int off, const void* base, int width) {
+    const int64_t first = p0 * width, total = in.p_total * width;
+    for (int e = tid; e < TPM * width; e += kThreads) {
+      const bool ok = first + e < total;
+      cp4(w + off + e, static_cast<const float*>(base) + (ok ? first + e : 0), ok);
+    }
+  };
+  copy(I_WXY, in.wxy, 6);
+  copy(I_W1L, in.w1l, 3);
+  copy(I_X0, in.x0, 3);
+  copy(I_VD, in.vd, 3);
+  if (gout != nullptr) copy(I_GO, gout, 4);
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Start the copies of the line rows of the tile whose x0 is in S_IN into
+// S_LINES, as one group (S_IN's zeros past P pick row 0).
+__device__ void fetch_lines(const Smem& s, const Inputs<bf16>& in) {
+  const int* x0 = reinterpret_cast<const int*>(s.f(S_IN) + I_X0);
+  bf16* lines = s.h(S_LINES);
+  for (int c = threadIdx.x; c < 3 * TPM * 8; c += kThreads) {  // 8 pieces of 16 bytes a row
+    const int i = c / (TPM * 8), pl = (c >> 3) % TPM, part = c & 7;
+    const bf16* src = in.lines + (static_cast<int64_t>(i) * in.g + x0[pl * 3 + i]) * (2 * C);
+    cp16(lines + (i * TPM + pl) * (2 * C) + part * 8, src + part * 8, true);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::: "memory"); }
+
+// Zero the block's shared memory, fetch its first tile (rows and inputs,
+// then its line rows), stage the weights (rounded as the CUDA-core kernels
+// round them; padding stays zero).
+__device__ void mma_setup(const Smem& s, int n_bytes, const Inputs<bf16>& in, const float* gout) {
+  const int tid = threadIdx.x;
+  for (int e = tid; e < n_bytes / 16; e += kThreads) {
+    reinterpret_cast<uint4*>(s.base)[e] = make_uint4(0u, 0u, 0u, 0u);
+  }
+  __syncthreads();
+  fetch_tile(s, in, gout, blockIdx.x);
+  bf16 *basis = s.h(S_BASIS), *w1 = s.h(S_W1), *w2 = s.h(S_W2);
+  float* vec = s.f(S_VEC);
+  for (int e = tid; e < NB * APP; e += kThreads) {
+    basis[(e / APP) * LDB + e % APP] = __float2bfloat16(in.basis[e]);
+  }
+  for (int e = tid; e < APP * FC; e += kThreads) w1[(e >> 7) * LDH + (e & 127)] = __float2bfloat16(in.w1[e]);
+  for (int e = tid; e < FC * FC; e += kThreads) w2[(e >> 7) * LDH + (e & 127)] = __float2bfloat16(in.w2[e]);
+  for (int e = tid; e < FC; e += kThreads) {
+    vec[V_B1 + e] = rnd<true>(in.b1[e]);
+    vec[V_B2 + e] = rnd<true>(in.b2[e]);
+  }
+  for (int e = tid; e < (FC + 3) * 3; e += kThreads) vec[V_W3 + e] = rnd<true>(in.w3[e]);
+  if (tid < 3) vec[V_B3 + tid] = in.b3[tid];
+  cp_wait_all();
+  __syncthreads();
+  fetch_lines(s, in);
+}
+
+// Phase A of one tile from the fetched inputs: the products into S_FEAT,
+// sigma, M(vd) and (backward) the rgb cotangent into S_PT. A half warp per
+// point, a lane per pair of channels in packed bf16 arithmetic: the sum,
+// difference or product of two bf16 values rounded once to bf16 equals the
+// f32 op rounded to bf16 (a product is exact in f32; a sum is exact unless
+// the smaller term lies below the larger's half ulp, where both give the
+// larger), so these are the CUDA-core kernels' rnd<T> chains bit for bit.
+// The _rn intrinsics keep each op rounded: the plain ones may be
+// contracted into an fma, which rounds a product and a sum once.
+// Points past P read zeros and give zeros.
+__device__ void tile_features(const Smem& s) {
+  using bf2 = __nv_bfloat162;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int cp = lane & 15;  // channels 2 cp, 2 cp + 1
+  const bf2* rows = reinterpret_cast<const bf2*>(s.h(S_ROWS));
+  const bf2* lines = reinterpret_cast<const bf2*>(s.h(S_LINES));
+  const float* w = s.f(S_IN);
+  bf16* feat = s.h(S_FEAT);
+  float* pt = s.f(S_PT);
+  const bf2 one = __float2bfloat162_rn(1.0f);
+  for (int pl = 2 * warp + (lane >> 4); pl < TPM; pl += kThreads / 16) {
+    float sigma = 0.0f;  // lanes cp < 4: their density products over the orientations
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const bf2* r = rows + (i * TPM + pl) * (2 * C);  // corners at 0, 16, 32, 48
+      const bf2* lr = lines + (i * TPM + pl) * C;      // the pair at 0, 16
+      const bf2 wx = __float2bfloat162_rn(w[I_WXY + pl * 6 + 2 * i]);
+      const bf2 wy = __float2bfloat162_rn(w[I_WXY + pl * 6 + 2 * i + 1]);
+      const bf2 wl = __float2bfloat162_rn(w[I_W1L + pl * 3 + i]);
+      const bf2 omwx = __hsub2_rn(one, wx), omwy = __hsub2_rn(one, wy), omwl = __hsub2_rn(one, wl);
+      const bf2 top = __hadd2_rn(__hmul2_rn(r[cp], omwx), __hmul2_rn(r[C / 2 + cp], wx));
+      const bf2 bot = __hadd2_rn(__hmul2_rn(r[C + cp], omwx), __hmul2_rn(r[3 * C / 2 + cp], wx));
+      const bf2 f = __hadd2_rn(__hmul2_rn(top, omwy), __hmul2_rn(bot, wy));
+      const bf2 l = __hadd2_rn(__hmul2_rn(lr[cp], omwl), __hmul2_rn(lr[C / 2 + cp], wl));
+      const bf2 prod = __hmul2_rn(f, l);
+      if (cp < CD / 2) {
+        sigma += __low2float(prod) + __high2float(prod);
+      } else {
+        *reinterpret_cast<bf2*>(feat + pl * LDF + i * CA + 2 * cp - CD) = prod;
+      }
+    }
+    sigma += __shfl_xor_sync(0xffffffffu, sigma, 1);
+    sigma += __shfl_xor_sync(0xffffffffu, sigma, 2);
+    if (cp == 0) pt[P_SIG + pl] = sigma;
+  }
+  if (tid < TPM * 3) {
+    pt[P_VDM + tid] = rnd<true>(w[I_VD + tid]);
+    pt[P_GR + tid] = w[I_GO + (tid / 3) * 4 + 1 + tid % 3];
+  }
+}
+
+// h = relu(M(M(acc) + bias)) into a [64][LDH] tile, as bf16. With w3, also
+// this warp's part of h @ w3[:128] (its 64 columns; f32) into pre3 [64][3].
+__device__ __forceinline__ void hidden_epilogue(const float (&acc)[8][4], const float* bias, bf16* h,
+                                                int m0, int n0, const float* w3 = nullptr,
+                                                float* pre3 = nullptr) {
+  const int lane = threadIdx.x & 31, r = m0 + (lane >> 2);
+  float part[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    const int n = n0 + c * 8 + 2 * (lane & 3);
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      const float v0 = fmaxf(rnd<true>(rnd<true>(acc[c][2 * hr]) + bias[n]), 0.0f);
+      const float v1 = fmaxf(rnd<true>(rnd<true>(acc[c][2 * hr + 1]) + bias[n + 1]), 0.0f);
+      st2(h + (r + 8 * hr) * LDH + n, v0, v1);
+      if (w3 != nullptr) {
+#pragma unroll
+        for (int o = 0; o < 3; ++o) part[hr][o] += v0 * w3[n * 3 + o] + v1 * w3[(n + 1) * 3 + o];
+      }
+    }
+  }
+  if (w3 != nullptr) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+#pragma unroll
+      for (int o = 0; o < 3; ++o) {
+        float v = part[hr][o];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if ((lane & 3) == 0) pre3[(r + 8 * hr) * 3 + o] = v;
+      }
+    }
+  }
+}
+
+// The MLP forward of the tile in S_FEAT: app (rounded to M), h1, h2, rgb.
+// Each product on tensor cores, a warp owning rows 16 (warp % 4) and half
+// the columns. With `next`, waits there for the next tile's rows and
+// inputs and starts the copy of its line rows. Ends with a barrier.
+__device__ void tile_mlp_forward(const Smem& s, const Inputs<bf16>& in, bool next) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mb = (warp & 3) * 16, nh = warp >> 2, r = mb + (lane >> 2);
+  const float* vec = s.f(S_VEC);
+  bf16 *x0m = s.h(S_X0M), *h1 = s.h(S_H1), *h2 = s.h(S_H2);
+  float* pt = s.f(S_PT);
+  {  // app = feats @ basis (f32 sums of T products), rounded to M
+    float acc[2][4];
+    zero(acc);
+    warp_mma<2, NBP / 16, false, true>(acc, s.h(S_FEAT), LDF, mb, s.h(S_BASIS), LDB, nh * 16);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int n = nh * 16 + c * 8 + 2 * (lane & 3);
+      st2(x0m + r * LDB + n, rnd<true>(acc[c][0]), rnd<true>(acc[c][1]));
+      st2(x0m + (r + 8) * LDB + n, rnd<true>(acc[c][2]), rnd<true>(acc[c][3]));
+    }
+  }
+  __syncthreads();
+  {  // h1 = relu(M(x0m @ w1) + b1)
+    float acc[8][4];
+    zero(acc);
+    warp_mma<8, 2, false, true>(acc, x0m, LDB, mb, s.h(S_W1), LDH, nh * 64);
+    hidden_epilogue(acc, vec + V_B1, h1, mb, nh * 64);
+  }
+  __syncthreads();
+  {  // h2 = relu(M(h1 @ w2) + b2), and the halves of h2 @ w3[:128]
+    float acc[8][4];
+    zero(acc);
+    warp_mma<8, FC / 16, false, true>(acc, h1, LDH, mb, s.h(S_W2), LDH, nh * 64);
+    hidden_epilogue(acc, vec + V_B2, h2, mb, nh * 64, vec + V_W3, pt + P_PRE3 + nh * TPM * 3);
+  }
+  if (next) cp_wait_all();
+  __syncthreads();
+  if (next) fetch_lines(s, in);
+  // rgb = sigmoid(h2 @ w3[:128] + M(vd) @ w3[128:] + b3), f32
+  if (tid < TPM * 3) {
+    const int pl = tid / 3, o = tid % 3;
+    const float a = pt[P_PRE3 + tid] + pt[P_PRE3 + TPM * 3 + tid];
+    float b = 0.0f;
+#pragma unroll
+    for (int v = 0; v < 3; ++v) b += pt[P_VDM + pl * 3 + v] * vec[V_W3 + (FC + v) * 3 + o];
+    const float pre3 = (a + b) + vec[V_B3 + o];
+    pt[P_RGB + pl * 4 + o] = 1.0f / (1.0f + expf(-pre3));
+  }
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    march_fwd_mma_kernel(Inputs<bf16> in, float* __restrict__ out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Smem s{smem_raw};
+  const int tid = threadIdx.x;
+  mma_setup(s, SMEM_FWD, in, nullptr);
+  const float* pt = s.f(S_PT);
+  const int64_t n_tiles = (in.p_total + TPM - 1) / TPM;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    cp_wait_all();
+    __syncthreads();
+    tile_features(s);
+    __syncthreads();
+    const bool next = tile + gridDim.x < n_tiles;
+    if (next) fetch_tile(s, in, nullptr, tile + gridDim.x);
+    tile_mlp_forward(s, in, next);
+    const int pl = tid >> 2, c = tid & 3;
+    const int64_t p = tile * TPM + pl;
+    if (p < in.p_total) out[p * 4 + c] = c == 0 ? pt[P_SIG + pl] : pt[P_RGB + pl * 4 + c - 1];
+  }
+}
+
+// Backward kernel 1, tensor cores: recompute, MLP + basis VJP, d_feat (T),
+// parameter partials.
+__global__ void __launch_bounds__(kThreads, 1)
+    march_bwd_mlp_mma_kernel(Inputs<bf16> in, const float* __restrict__ gout,
+                             bf16* __restrict__ d_feat, float* __restrict__ partials) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const Smem s{smem_raw};
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int mb = (warp & 3) * 16, nh = warp >> 2, r = mb + (lane >> 2);
+  mma_setup(s, SMEM_BWD, in, gout);
+  const float* vec = s.f(S_VEC);
+  const bf16 *feat = s.h(S_FEAT), *x0m = s.h(S_X0M), *h1 = s.h(S_H1);
+  bf16 *h2 = s.h(S_H2), *dp1 = s.h(S_H2), *dp2 = s.h(S_DP2), *dapp = s.h(S_DAPP);
+  float* pt = s.f(S_PT);
+  // parameter partials kept across tiles: dw2 rows 16 warp.., dw1 rows
+  // 16 (warp % 2).. by columns 32 (warp / 2)..; dbasis rows 16 warp.. (warps
+  // 0-4); db2 (threads < 128) or db1; w3 | b3 entries tid and tid + 256
+  float dw2[16][4], dw1[4][4], dbasis[4][4], dbias = 0.0f, d3[2] = {0.0f, 0.0f};
+  zero(dw2);
+  zero(dw1);
+  zero(dbasis);
+  const int64_t n_tiles = (in.p_total + TPM - 1) / TPM;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    cp_wait_all();
+    __syncthreads();
+    tile_features(s);
+    __syncthreads();
+    const bool next = tile + gridDim.x < n_tiles;
+    if (next) fetch_tile(s, in, gout, tile + gridDim.x);
+    tile_mlp_forward(s, in, next);
+
+    // d_pre3 = g_rgb * rgb * (1 - rgb); points past P have g_rgb = 0
+    if (tid < TPM * 3) {
+      const int pl = tid / 3, o = tid % 3;
+      const float rgb = pt[P_RGB + pl * 4 + o];
+      const float d = pt[P_GR + tid] * rgb * (1.0f - rgb);
+      pt[P_DP3 + pl * 4 + o] = d;
+      pt[P_DP3M + pl * 4 + o] = rnd<true>(d);
+    }
+    __syncthreads();
+
+    // d_pre2 = (pre2 > 0) * M(d_pre3m @ w3h^T); dw3, db3
+    for (int e = tid; e < TPM * FC; e += kThreads) {
+      const int pl = e >> 7, n = e & 127;
+      float sum = 0.0f;
+#pragma unroll
+      for (int o = 0; o < 3; ++o) sum += pt[P_DP3M + pl * 4 + o] * vec[V_W3 + n * 3 + o];
+      dp2[pl * LDH + n] = __float2bfloat16(bf(h2 + pl * LDH + n) > 0.0f ? rnd<true>(sum) : 0.0f);
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int e = tid + j * kThreads;
+      float sum = 0.0f;
+      if (e < FC * 3) {
+        for (int pl = 0; pl < TPM; ++pl) sum += bf(h2 + pl * LDH + e / 3) * pt[P_DP3M + pl * 4 + e % 3];
+      } else if (e < (FC + 3) * 3) {
+        const int v = (e - FC * 3) / 3, o = e % 3;
+        for (int pl = 0; pl < TPM; ++pl) sum += pt[P_VDM + pl * 3 + v] * pt[P_DP3M + pl * 4 + o];
+      } else if (e < N_W3B3) {
+        for (int pl = 0; pl < TPM; ++pl) sum += pt[P_DP3 + pl * 4 + e - (FC + 3) * 3];
+      }
+      d3[j] += sum;
+    }
+    __syncthreads();
+
+    // d_pre1 = (pre1 > 0) * M(d_pre2 @ w2^T), over h2; dw2 += h1^T @ d_pre2; db2
+    {
+      float acc[8][4];
+      zero(acc);
+      warp_mma<8, FC / 16, false, false>(acc, dp2, LDH, mb, s.h(S_W2), LDH, nh * 64);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        const int n = nh * 64 + c * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int row = r + 8 * hr;
+          const bf16* hv = h1 + row * LDH + n;
+          st2(dp1 + row * LDH + n, bf(hv) > 0.0f ? rnd<true>(acc[c][2 * hr]) : 0.0f,
+              bf(hv + 1) > 0.0f ? rnd<true>(acc[c][2 * hr + 1]) : 0.0f);
+        }
+      }
+    }
+    warp_mma<16, TPM / 16, true, true>(dw2, h1, LDH, warp * 16, dp2, LDH, 0);
+    if (tid < FC) {
+      float sum = 0.0f;
+      for (int pl = 0; pl < TPM; ++pl) sum += bf(dp2 + pl * LDH + tid);
+      dbias += sum;
+    }
+    __syncthreads();
+
+    // d_app = d_pre1 @ w1^T (f32), rounded to T; dw1 += x0m^T @ d_pre1; db1
+    {
+      float acc[2][4];
+      zero(acc);
+      warp_mma<2, FC / 16, false, false>(acc, dp1, LDH, mb, s.h(S_W1), LDH, nh * 16);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int k = nh * 16 + c * 8 + 2 * (lane & 3);
+        st2(dapp + r * LDB + k, rnd<true>(acc[c][0]), rnd<true>(acc[c][1]));
+        st2(dapp + (r + 8) * LDB + k, rnd<true>(acc[c][2]), rnd<true>(acc[c][3]));
+      }
+    }
+    warp_mma<4, TPM / 16, true, true>(dw1, x0m, LDB, (warp & 1) * 16, dp1, LDH, (warp >> 1) * 32);
+    if (tid >= FC) {
+      float sum = 0.0f;
+      for (int pl = 0; pl < TPM; ++pl) sum += bf(dp1 + pl * LDH + tid - FC);
+      dbias += sum;
+    }
+    __syncthreads();
+
+    // dbasis += feats^T @ T(d_app); d_feat = T(T(d_app) @ basis^T), written out
+    if (warp < NBP / 16) warp_mma<4, TPM / 16, true, true>(dbasis, feat, LDF, warp * 16, dapp, LDB, 0);
+    {
+      float acc[6][4];
+      zero(acc);
+      warp_mma<6, 2, false, false>(acc, dapp, LDB, mb, s.h(S_BASIS), LDB, nh * 48);
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const int n = nh * 48 + c * 8 + 2 * (lane & 3);
+#pragma unroll
+        for (int hr = 0; hr < 2; ++hr) {
+          const int64_t p = tile * TPM + r + 8 * hr;
+          if (n < NB && p < in.p_total) {
+            st2(d_feat + p * NB + n, rnd<true>(acc[c][2 * hr]), rnd<true>(acc[c][2 * hr + 1]));
+          }
+        }
+      }
+    }
+  }
+
+  float* part = partials + static_cast<int64_t>(blockIdx.x) * N_ACC;
+  const int g = lane >> 2, q2 = 2 * (lane & 3);
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int m2 = warp * 16 + g + 8 * hr, m1 = (warp & 1) * 16 + g + 8 * hr;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      part[A_W2 + m2 * FC + c * 8 + q2] = dw2[c][2 * hr];
+      part[A_W2 + m2 * FC + c * 8 + q2 + 1] = dw2[c][2 * hr + 1];
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int n = (warp >> 1) * 32 + c * 8 + q2;
+      if (m1 < APP) {
+        part[A_W1 + m1 * FC + n] = dw1[c][2 * hr];
+        part[A_W1 + m1 * FC + n + 1] = dw1[c][2 * hr + 1];
+      }
+      if (warp < NBP / 16 && m2 < NB) {
+        if (c * 8 + q2 < APP) part[A_BASIS + m2 * APP + c * 8 + q2] = dbasis[c][2 * hr];
+        if (c * 8 + q2 + 1 < APP) part[A_BASIS + m2 * APP + c * 8 + q2 + 1] = dbasis[c][2 * hr + 1];
+      }
+    }
+  }
+  part[(tid < FC ? A_B2 + tid : A_B1 + tid - FC)] = dbias;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    if (tid + j * kThreads < N_W3B3) part[A_W3 + tid + j * kThreads] = d3[j];
   }
 }
 
@@ -545,44 +1133,73 @@ Inputs<T> make_inputs(const void* rows0, const void* rows1, const void* rows2, c
   return in;
 }
 
-int grid_for(int64_t p, int n_blocks) {
-  const int64_t n_tiles = (p + TP - 1) / TP;
+// the persistent grid: a block per tile of `tile` points, at most n_blocks
+int grid_for(int64_t p, int tile, int n_blocks) {
+  const int64_t n_tiles = (p + tile - 1) / tile;
   return static_cast<int>(n_tiles < n_blocks ? n_tiles : n_blocks);
 }
 
+// bf16 tables and MLP take the tensor-core kernels, every other pair the
+// CUDA-core ones
 template <typename T, bool MB>
-cudaError_t fwd(const Inputs<T>& in, float* out, int n_blocks, cudaStream_t s) {
-  const size_t smem = N_FWD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(march_fwd_kernel<T, MB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  march_fwd_kernel<T, MB><<<grid_for(in.p_total, n_blocks), kThreads, smem, s>>>(in, out);
+constexpr bool kMma = std::is_same<T, bf16>::value && MB;
+
+template <typename T, bool MB>
+cudaError_t fwd(const Inputs<T>& in, float* out, int n_sms, cudaStream_t s) {
+  cudaError_t err;
+  if constexpr (kMma<T, MB>) {
+    err = cudaFuncSetAttribute(march_fwd_mma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               SMEM_FWD);
+    if (err != cudaSuccess) return err;
+    march_fwd_mma_kernel<<<grid_for(in.p_total, TPM, n_sms), kThreads, SMEM_FWD, s>>>(in, out);
+  } else {
+    const size_t smem = N_FWD * sizeof(float);
+    err = cudaFuncSetAttribute(march_fwd_kernel<T, MB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    // two blocks per SM (__launch_bounds__)
+    march_fwd_kernel<T, MB><<<grid_for(in.p_total, TP, 2 * n_sms), kThreads, smem, s>>>(in, out);
+  }
   return cudaGetLastError();
 }
 
 template <typename T, bool MB>
 cudaError_t bwd(const Inputs<T>& in, const float* gout, void* drows0, void* drows1,
-                void* drows2, float* d_wxy, float* d_w1l, float* dlines, float* d_app,
+                void* drows2, float* d_wxy, float* d_w1l, float* dlines, T* d_feat,
                 float* partials, float* dparams, int n_blocks, cudaStream_t s) {
-  const size_t smem = N_BWD * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(march_bwd_mlp_kernel<T, MB>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const int grid = grid_for(in.p_total, n_blocks);
-  march_bwd_mlp_kernel<T, MB><<<grid, kThreads, smem, s>>>(in, gout, d_app, partials);
+  cudaError_t err;
+  int grid;
+  if constexpr (kMma<T, MB>) {
+    err = cudaFuncSetAttribute(march_bwd_mlp_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BWD);
+    if (err != cudaSuccess) return err;
+    grid = grid_for(in.p_total, TPM, n_blocks);
+    march_bwd_mlp_mma_kernel<<<grid, kThreads, SMEM_BWD, s>>>(in, gout, d_feat, partials);
+  } else {
+    const size_t smem = N_BWD * sizeof(float);
+    err = cudaFuncSetAttribute(march_bwd_mlp_kernel<T, MB>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    grid = grid_for(in.p_total, TP, n_blocks);
+    march_bwd_mlp_kernel<T, MB><<<grid, kThreads, smem, s>>>(in, gout, d_feat, partials);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const int64_t pts_per_block = static_cast<int64_t>(kPtsPerWarp) * (kThreads / 32);
+  const int64_t pts_per_block = static_cast<int64_t>(kPtsPerHalf) * (kThreads / 16);
   const unsigned fblocks = static_cast<unsigned>((in.p_total + pts_per_block - 1) / pts_per_block);
   march_bwd_factor_kernel<T><<<fblocks, kThreads, 0, s>>>(
-      in, gout, d_app, static_cast<T*>(drows0), static_cast<T*>(drows1),
+      in, gout, d_feat, static_cast<T*>(drows0), static_cast<T*>(drows1),
       static_cast<T*>(drows2), d_wxy, d_w1l, dlines);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   march_reduce_kernel<<<(N_ACC + 255) / 256, 256, 0, s>>>(partials, grid, dparams);
   return cudaGetLastError();
+}
+
+// the tensor-core kernels copy plane and line rows in 16-byte pieces
+bool aligned16(const void* r0, const void* r1, const void* r2, const void* lines) {
+  return ((reinterpret_cast<uintptr_t>(r0) | reinterpret_cast<uintptr_t>(r1) |
+           reinterpret_cast<uintptr_t>(r2) | reinterpret_cast<uintptr_t>(lines)) & 15) == 0;
 }
 
 }  // namespace
@@ -594,19 +1211,20 @@ extern "C" int lrf_march_fwd(const void* rows0, const void* rows1, const void* r
                              const void* lines, const void* basis, const void* w1,
                              const void* b1, const void* w2, const void* b2, const void* w3,
                              const void* b3, void* out, int64_t p, int g, int t_bf16,
-                             int m_bf16, int n_blocks, void* stream) {
+                             int m_bf16, int n_sms, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float*>(out);
+  if (t_bf16 && m_bf16 && !aligned16(rows0, rows1, rows2, lines)) return cudaErrorMisalignedAddress;
   cudaError_t err;
   if (t_bf16) {
     const auto in = make_inputs<__nv_bfloat16>(rows0, rows1, rows2, wxy, w1l, x0, vd, lines,
                                                basis, w1, b1, w2, b2, w3, b3, p, g);
-    err = m_bf16 ? fwd<__nv_bfloat16, true>(in, o, n_blocks, s)
-                 : fwd<__nv_bfloat16, false>(in, o, n_blocks, s);
+    err = m_bf16 ? fwd<__nv_bfloat16, true>(in, o, n_sms, s)
+                 : fwd<__nv_bfloat16, false>(in, o, n_sms, s);
   } else {
     const auto in = make_inputs<float>(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1,
                                        b1, w2, b2, w3, b3, p, g);
-    err = m_bf16 ? fwd<float, true>(in, o, n_blocks, s) : fwd<float, false>(in, o, n_blocks, s);
+    err = m_bf16 ? fwd<float, true>(in, o, n_sms, s) : fwd<float, false>(in, o, n_sms, s);
   }
   return static_cast<int>(err);
 }
@@ -616,7 +1234,7 @@ extern "C" int lrf_march_bwd(const void* rows0, const void* rows1, const void* r
                              const void* lines, const void* basis, const void* w1,
                              const void* b1, const void* w2, const void* b2, const void* w3,
                              const void* b3, const void* gout, void* drows0, void* drows1,
-                             void* drows2, void* d_wxy, void* d_w1l, void* dlines, void* d_app,
+                             void* drows2, void* d_wxy, void* d_w1l, void* dlines, void* d_feat,
                              void* partials, void* dparams, int64_t p, int g, int t_bf16,
                              int m_bf16, int n_blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
@@ -624,11 +1242,12 @@ extern "C" int lrf_march_bwd(const void* rows0, const void* rows1, const void* r
   auto* dwxy = static_cast<float*>(d_wxy);
   auto* dw1l = static_cast<float*>(d_w1l);
   auto* dl = static_cast<float*>(dlines);
-  auto* da = static_cast<float*>(d_app);
   auto* pa = static_cast<float*>(partials);
   auto* dp = static_cast<float*>(dparams);
+  if (t_bf16 && m_bf16 && !aligned16(rows0, rows1, rows2, lines)) return cudaErrorMisalignedAddress;
   cudaError_t err;
   if (t_bf16) {
+    auto* da = static_cast<__nv_bfloat16*>(d_feat);
     const auto in = make_inputs<__nv_bfloat16>(rows0, rows1, rows2, wxy, w1l, x0, vd, lines,
                                                basis, w1, b1, w2, b2, w3, b3, p, g);
     err = m_bf16 ? bwd<__nv_bfloat16, true>(in, go, drows0, drows1, drows2, dwxy, dw1l, dl, da,
@@ -636,6 +1255,7 @@ extern "C" int lrf_march_bwd(const void* rows0, const void* rows1, const void* r
                  : bwd<__nv_bfloat16, false>(in, go, drows0, drows1, drows2, dwxy, dw1l, dl,
                                              da, pa, dp, n_blocks, s);
   } else {
+    auto* da = static_cast<float*>(d_feat);
     const auto in = make_inputs<float>(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1,
                                        b1, w2, b2, w3, b3, p, g);
     err = m_bf16 ? bwd<float, true>(in, go, drows0, drows1, drows2, dwxy, dw1l, dl, da, pa, dp,

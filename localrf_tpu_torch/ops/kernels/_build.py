@@ -53,11 +53,11 @@ SIGNATURES = {
     # idx (int64), g, g_is_bf16, out (f32), P, C, n_rows, stream
     "lrf_segsum_small": (_P, _P, _I, _P, _L, _I, _L, _P),
     # rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3,
-    # b3, out, P, G, t_bf16, m_bf16, n_blocks, stream
+    # b3, out, P, G, t_bf16, m_bf16, SM count, stream
     "lrf_march_fwd": (_P,) * 16 + (_L, _I, _I, _I, _I, _P),
     # the 15 inputs above, gout, drows0, drows1, drows2, d_wxy, d_w1l,
-    # dlines (f32), d_app (scratch), partials (scratch), dparams, P, G,
-    # t_bf16, m_bf16, n_blocks, stream
+    # dlines (f32), d_feat (scratch [P, 72], table dtype), partials (scratch, f32
+    # [n_blocks, n_params]), dparams, P, G, t_bf16, m_bf16, n_blocks, stream
     "lrf_march_bwd": (_P,) * 25 + (_L, _I, _I, _I, _I, _P),
     # -> length of the march backward's packed parameter gradient
     "lrf_march_n_params": (),

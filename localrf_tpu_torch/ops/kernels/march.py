@@ -17,6 +17,14 @@ in everything the atomic adds and the reordered f32 sums touch (dlines,
 the parameter gradients, sigma, app), and bit for bit elsewhere up to
 those f32 differences crossing a bf16 rounding.
 
+Which kernels a CUDA call runs is a function of the dtypes alone: bf16
+tables with the bf16 MLP (the training CLI's defaults) take the tensor-core
+kernels (`march_fwd_mma_kernel`, `march_bwd_mlp_mma_kernel`: every operand
+of their basis and MLP products is a bf16 value, `march_products_plain`
+lists them, so bf16 MMAs with f32 sums compute the same products); any f32
+table or MLP takes the CUDA-core kernels. Both need sm_90a; neither stands
+in for the other when a launch fails (the wrapper raises).
+
 Layouts (the JAX kernel's `aux` column split into its parts):
   rows0..2 [P, 128] table dtype (f32 or bf16): gathered quad plane rows
   wxy [P, 6] f32: wx0 wy0 wx1 wy1 wx2 wy2;  w1l [P, 3] f32;  x0 [P, 3] int32
@@ -104,9 +112,23 @@ def march_bwd_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1,
     """The Pallas kernel's VJP: recompute the forward, then (d_rows0, d_rows1,
     d_rows2 [table dtype], d_wxy, d_w1l, dlines [table dtype], dbasis, dw1,
     db1, dw2, db2, dw3, db3 [f32])."""
+    return _backward((rows0, rows1, rows2), wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3,
+                     gout, mlp_dtype)[0]
+
+
+def march_products_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3,
+                         b3, gout, mlp_dtype: str) -> dict:
+    """{name: (a, b)}: the operands of every basis and MLP product that the
+    forward and march_bwd_plain form, each computed there as _mm(a, b). The
+    tensor-core kernels take these operands as bf16."""
+    return _backward((rows0, rows1, rows2), wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3,
+                     gout, mlp_dtype)[1]
+
+
+def _backward(rows, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3, gout, mlp_dtype):
+    """march_bwd_plain's outputs, and the operands of its products."""
     with torch.no_grad():
-        rows = (rows0, rows1, rows2)
-        tdt, mdt = rows0.dtype, _DTYPES[mlp_dtype]
+        tdt, mdt = rows[0].dtype, _DTYPES[mlp_dtype]
         _, rgb, feats, lerp, mlp = _forward(rows, wxy, w1l, x0, vd, lines, basis,
                                             w1, b1, w2, b2, w3, b3, mdt)
         x0m, pre1, h1, pre2, h2, vdm, w1m, w2m, w3m = mlp
@@ -132,9 +154,17 @@ def march_bwd_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1,
         d_app_t = d_app.to(tdt)
         gs_t = gs.to(tdt)[:, None]
         d_rows, d_wxy, d_w1l, dlines, dbasis = [], [], [], [], []
+        products = {
+            "h1": (x0m, w1m), "h2": (h1, w2m), "pre3": (h2, w3m[:FEAT_C]),
+            "d_h2": (d_pre3m, w3m[:FEAT_C].T), "dw3": (h2.T, d_pre3m), "d_h1": (d_pre2, w2m.T),
+            "dw2": (h1.T, d_pre2), "d_app": (d_pre1, w1m.T), "dw1": (x0m.T, d_pre1),
+        }
         for i in range(3):
             f, l, lr, (v00, v01, v10, v11, top, bot), wx, wy, wl = lerp[i]
             basis_i = basis[i * CA : (i + 1) * CA].to(tdt)
+            products[f"app{i}"] = (feats[i], basis_i)
+            products[f"dbasis{i}"] = (feats[i].T, d_app_t)
+            products[f"d_feat{i}"] = (d_app_t, basis_i.T)
             d_feat = _mm(d_app_t, basis_i.T).to(tdt)
             dbasis.append(_mm(feats[i].T, d_app_t))
             d_prod = torch.cat([gs_t.expand(-1, CD), d_feat], dim=-1)
@@ -150,13 +180,14 @@ def march_bwd_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1,
                 [d_top * (1.0 - wx), d_top * wx, d_bot * (1.0 - wx), d_bot * wx], dim=-1))
             d_wxy.append((d_top * (v01 - v00) + d_bot * (v11 - v10)).sum(-1))
             d_wxy.append((d_f * (bot - top)).sum(-1))
-        return (
+        grads = (
             *d_rows,
             torch.stack(d_wxy, dim=-1).to(F32),
             torch.stack(d_w1l, dim=-1).to(F32),
             torch.stack(dlines).to(lines.dtype),
             torch.cat(dbasis), dw1, db1, dw2, db2, dw3, db3,
         )
+        return grads, products
 
 
 def _check(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3):
@@ -182,6 +213,9 @@ def _check(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, 
             raise ValueError(f"march_core: {name} is on {t.device}, rows on {rows0.device}")
         if not t.is_contiguous():
             raise ValueError(f"march_core: {name} must be contiguous")
+    for name in ("rows0", "rows1", "rows2", "lines"):
+        if want[name][0].data_ptr() % 16:
+            raise ValueError(f"march_core: {name} must start on a 16-byte boundary")
 
 
 def _n_blocks(device) -> int:
@@ -198,7 +232,7 @@ def _launch_fwd(args, mlp_dtype: str) -> torch.Tensor:
             _build.launch(
                 "lrf_march_fwd", *(t.data_ptr() for t in args), out.data_ptr(), p, lines.shape[1],
                 int(rows0.dtype == torch.bfloat16), int(mlp_dtype == "bfloat16"),
-                2 * _n_blocks(rows0.device), _build.stream_ptr(rows0.device),
+                _n_blocks(rows0.device), _build.stream_ptr(rows0.device),
             )
         LAUNCHES["march_fwd"] += 1
     return out
@@ -217,7 +251,7 @@ def _launch_bwd(args, gout, mlp_dtype: str):
     dparams = torch.zeros(N_PARAMS, dtype=F32, device=dev)
     if p:
         n_blocks = _n_blocks(dev)
-        d_app = torch.empty((p, APP_DIM), dtype=F32, device=dev)
+        d_feat = torch.empty((p, 3 * CA), dtype=rows0.dtype, device=dev)
         partials = torch.empty((n_blocks, N_PARAMS), dtype=F32, device=dev)
         with torch.cuda.device(dev):
             if _build.library().lrf_march_n_params() != N_PARAMS:
@@ -225,7 +259,7 @@ def _launch_bwd(args, gout, mlp_dtype: str):
             _build.launch(
                 "lrf_march_bwd", *(t.data_ptr() for t in args), gout.data_ptr(),
                 *(t.data_ptr() for t in d_rows), d_wxy.data_ptr(), d_w1l.data_ptr(),
-                dlines.data_ptr(), d_app.data_ptr(), partials.data_ptr(), dparams.data_ptr(),
+                dlines.data_ptr(), d_feat.data_ptr(), partials.data_ptr(), dparams.data_ptr(),
                 p, lines.shape[1], int(rows0.dtype == torch.bfloat16), int(mlp_dtype == "bfloat16"),
                 n_blocks, _build.stream_ptr(dev),
             )

@@ -1,4 +1,4 @@
-"""Time K1 and K2 of two checkouts on one card, in turns.
+"""Time K1, K2 and K4 of two checkouts on one card, in turns.
 
     python3 localrf_tpu_torch/scripts/kernel_ab.py --parent DIR [--chunks]
 
@@ -8,11 +8,15 @@ lists). The script records the plane indices of one real training step at
 64^3 and 640^3 with this checkout (chip_smoke.real_plane_indices), then
 runs itself as a worker four times, parent, this checkout, this checkout,
 parent, each on the same inputs: K1 forward and backward at [4096, 72]
-(the shared [1, 72] dist row) and [4096, 332] (per-ray dists), and K2
-bf16 -> bf16 on uniform and real-step indices at both plane shapes. A time
-is a CUDA graph of 20 calls replayed (as a captured training step launches
-them), per call; each worker also lists the device time of every CUDA
-kernel a call ran (torch.profiler). With --chunks each worker also trains
+(the shared [1, 72] dist row) and [4096, 332] (per-ray dists), K2
+bf16 -> bf16 on uniform and real-step indices at both plane shapes, and K4
+forward and backward (bf16 tables and MLP, chip_smoke.march_inputs of that
+checkout: G 64, P 4096 x 72 and G 640, P 4096 x 332, line rows x0 drawn
+uniformly; K4-bwd also with x0 sorted within each ray's samples, as a
+march gives them). A time is a CUDA graph of 20 calls (K4: 10) replayed
+(as a captured training step launches them), per call; each worker also
+lists the device time of every CUDA kernel a K2 or K4-bwd call ran
+(torch.profiler). With --chunks each worker also trains
 the chunk path through that checkout's chip_smoke helpers (a 146-slot
 pixel pool, chunks of 16 replayed CUDA graphs): at 64^3 and at 640^3 on the
 default and the fused-march paths, one chunk to capture, then 3 timed
@@ -79,16 +83,20 @@ def kernel_us(fn, reps: int = 5) -> dict:
 
 
 def worker(root: str, indices: str) -> dict:
-    """K1 and K2 of the checkout at `root`: graph-replay ms per case, and
-    the device us of each kernel of a K2 call."""
+    """K1, K2 and K4 of the checkout at `root`: graph-replay ms per case,
+    and the device us of each kernel of a K2 or K4-bwd call."""
     sys.path.insert(0, root)
     import torch
 
+    import chip_smoke as cs
     from localrf_tpu_torch.ops.kernels import binned_scatter as k2
     from localrf_tpu_torch.ops.kernels import composite as k1
+    from localrf_tpu_torch.ops.kernels import march as k4
 
-    if not pathlib.Path(k2.__file__).resolve().is_relative_to(pathlib.Path(root).resolve()):
-        raise RuntimeError(f"imported {k2.__file__}, not from {root}")
+    for mod in (k2, cs):
+        if not pathlib.Path(mod.__file__).resolve().is_relative_to(pathlib.Path(root).resolve()):
+            raise RuntimeError(f"imported {mod.__file__}, not from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     real = torch.load(indices, map_location=dev)
@@ -107,6 +115,19 @@ def worker(root: str, indices: str) -> dict:
             key = f"K2 {label} {kind}"
             times[key] = graph_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
             kernels[key] = kernel_us(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
+    for label, g_rows, s in (("64^3", 64, 72), ("640^3", 640, 332)):
+        args, gout = cs.march_inputs(g_rows, 4096 * s, torch.bfloat16, torch.Generator(device=dev).manual_seed(1), dev)
+        plain = [a.detach() for a in args]
+        times[f"K4-fwd {label}"] = graph_ms(lambda: k4._launch_fwd(plain, "bfloat16"), reps=10)
+        times[f"K4-bwd {label}"] = graph_ms(lambda: k4._launch_bwd(plain, gout, "bfloat16"), reps=10)
+        kernels[f"K4-bwd {label}"] = kernel_us(lambda: k4._launch_bwd(plain, gout, "bfloat16"))
+        # x0 ascending along each ray's samples: runs of equal line rows
+        plain[5] = plain[5].view(4096, s, 3).sort(dim=1).values.reshape(-1, 3).contiguous()
+        key = f"K4-bwd {label} ray-sorted x0"
+        times[key] = graph_ms(lambda: k4._launch_bwd(plain, gout, "bfloat16"), reps=10)
+        kernels[key] = kernel_us(lambda: k4._launch_bwd(plain, gout, "bfloat16"))
+        del args, plain, gout
+        torch.cuda.empty_cache()
     return {"root": root, "ms": times, "kernel_us": kernels}
 
 

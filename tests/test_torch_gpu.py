@@ -11,7 +11,8 @@ bf16 ulp in bf16 (its adds within a tile run in no fixed order); K3 rtol 1e-4 / 
 entry (the same, but some 2,000-4,600 points land on each line row, so
 the f32 rounding of a reordered sum scales with the row's partial sums). K4 against march_core_plain: in f32, out
 rtol 1e-4 / atol 1e-5 and gradients 1e-4 of their largest entry (sums in
-another order, fused multiply-adds); with bf16 tables and MLP, out atol
+another order, fused multiply-adds); with a bf16 table or MLP (both: the
+tensor-core kernels, whose bf16 MMAs sum exact products in f32), out atol
 1e-2 and gradients 2e-2 of their largest entry (a reordered f32 sum can
 flip one bf16 rounding of a hidden activation). K5 against its plain
 version: rtol 1e-4 / atol 1e-4 in f32 (the plain index_add_ adds atomically
@@ -222,33 +223,47 @@ def _march_args(g_rows, p, dtype, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("g_rows,p,dtype", [
-    (64, 4096 * 72, "bfloat16"), (640, 4096 * 332, "bfloat16"), (32, 50_001, "float32"),
+@pytest.mark.parametrize("g_rows,p,dtype,mlp_dtype", [
+    (64, 4096 * 72, "bfloat16", "bfloat16"), (640, 4096 * 332, "bfloat16", "bfloat16"),
+    (32, 50_001, "float32", "float32"),
+    # ragged: the last tile of 64 points holds 37
+    (640, 4096 * 332 + 37, "bfloat16", "bfloat16"),
+    # fewer points than one tile, and none
+    (64, 5, "bfloat16", "bfloat16"), (64, 0, "bfloat16", "bfloat16"),
+    # mixed dtypes: the CUDA-core kernels
+    (64, 4096 * 72, "bfloat16", "float32"), (64, 4096 * 72, "float32", "bfloat16"),
 ])
-def test_k4_kernel_matches_plain_on_card(cuda_device, g_rows, p, dtype):
-    """K4-fwd and K4-bwd: out [P, 4] and every gradient (dtype and value)."""
+def test_k4_kernel_matches_plain_on_card(cuda_device, g_rows, p, dtype, mlp_dtype):
+    """K4-fwd and K4-bwd: out [P, 4] and every gradient (dtype and value);
+    bf16 tables with the bf16 MLP run the tensor-core kernels, every other
+    pair the CUDA-core ones. P = 0 launches nothing and gives zeros."""
     torch.backends.cuda.matmul.allow_tf32 = False
     args, gout = _march_args(g_rows, p, getattr(torch, dtype), cuda_device)
     leaves = [a for a in args if a.requires_grad]
     n0 = dict(k4.LAUNCHES)
-    out_k = k4.march_core(*args, dtype)
-    out_p = k4.march_core_plain(*args, dtype)
+    out_k = k4.march_core(*args, mlp_dtype)
+    out_p = k4.march_core_plain(*args, mlp_dtype)
     grads_k = torch.autograd.grad(out_k, leaves, gout)
     grads_p = torch.autograd.grad(out_p, leaves, gout)
-    assert k4.LAUNCHES == {"march_fwd": n0["march_fwd"] + 1, "march_bwd": n0["march_bwd"] + 1}
-    f32 = dtype == "float32"
+    n = int(p > 0)
+    assert k4.LAUNCHES == {"march_fwd": n0["march_fwd"] + n, "march_bwd": n0["march_bwd"] + n}
+    f32 = dtype == mlp_dtype == "float32"
+    assert out_k.shape == (p, 4)
     if f32:
         torch.testing.assert_close(out_k, out_p, rtol=1e-4, atol=1e-5)
     else:
         torch.testing.assert_close(out_k, out_p, rtol=0.0, atol=1e-2)
     names = "rows0 rows1 rows2 wxy w1l lines basis w1 b1 w2 b2 w3 b3".split()
     for name, leaf, gk, gp in zip(names, leaves, grads_k, grads_p):
-        assert gk.dtype == gp.dtype == leaf.dtype, name
+        assert gk.dtype == gp.dtype == leaf.dtype and gk.shape == leaf.shape, name
+        if p == 0:
+            assert not gk.any(), name
+            continue
         scale = float(gp.abs().max())
         err = float((gk.float() - gp.float()).abs().max())
         assert err <= (1e-4 if f32 else 2e-2) * scale, f"{name}: {err:.3e} of max {scale:.3e}"
     with pytest.raises(ValueError):
-        k4.march_core(args[0][:-1], *args[1:], dtype)
+        k4.march_core(args[0][:, :-1], *args[1:], mlp_dtype)
 
 
 @pytest.mark.gpu

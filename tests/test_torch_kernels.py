@@ -516,6 +516,40 @@ def test_march_plain_backward_matches_autograd(rng):
         torch.testing.assert_close(h, a, rtol=1e-5, atol=1e-5 * float(a.abs().max()), msg=name)
 
 
+@pytest.mark.parametrize("g", [16, 64])
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_march_mlp_operands_are_bf16_exact(seed, g):
+    """With bf16 tables and MLP, every operand of every basis and MLP
+    product of the plain forward and backward is a bf16 value, so the f32
+    product of the operands cast to bf16 (what a bf16 tensor-core MMA takes
+    in) equals the plain version's _mm bit for bit."""
+    d = _march_inputs(np.random.default_rng(seed), p=300, g=g)
+    args = [a.detach() for a in _torch_march_args(d, torch.bfloat16)]
+    products = k4.march_products_plain(*args, T(d["gout"]), "bfloat16")
+    assert {"app0", "app1", "app2", "h1", "h2", "d_h1", "d_app", "dw2", "dw1",
+            "dbasis0", "dbasis1", "dbasis2", "d_feat0", "d_feat1", "d_feat2", "dw3"} <= products.keys()
+    for name, (a, b) in products.items():
+        for x in (a, b):
+            assert torch.equal(x.float(), x.to(torch.bfloat16).float()), name
+        cast = a.to(torch.bfloat16).float() @ b.to(torch.bfloat16).float()
+        assert torch.equal(k4._mm(a, b), cast), name
+        assert cast.abs().max() > 0, name
+
+
+def test_march_check_rejects_unaligned_rows(rng):
+    """The tensor-core kernels copy plane and line rows in 16-byte pieces:
+    the launch check refuses a contiguous view that starts off a 16-byte
+    boundary, and takes the same rows copied out."""
+    d = _march_inputs(rng, p=40, g=8)
+    args = [a.detach() for a in _torch_march_args(d, torch.bfloat16)]
+    k4._check(*args)
+    for i in (0, 2, 7):
+        shifted = torch.empty(args[i].numel() + 1, dtype=args[i].dtype)[1:].view(args[i].shape)
+        shifted.copy_(args[i])
+        with pytest.raises(ValueError, match="16-byte"):
+            k4._check(*args[:i], shifted, *args[i + 1:])
+
+
 def test_march_core_cpu_dispatch_and_no_fallback(rng):
     d = _march_inputs(rng, p=40, g=8)
     args = _torch_march_args(d, torch.float32)
