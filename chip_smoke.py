@@ -233,27 +233,6 @@ def _index_add_ms(idx, g, n_rows: int) -> float:
                                         device=g.device).index_add_(0, idx, g32))
 
 
-def _kernel_us(fn, reps: int = 5) -> dict:
-    """Device microseconds per call of each CUDA kernel fn ran, by name,
-    from one torch.profiler trace of `reps` eager calls after a warm-up."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = collections.Counter()
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            name = e.name().removeprefix("void ").replace("(anonymous namespace)::", "")
-            out[name.split("(")[0].split("<")[0]] += e.duration_ns() / 1e3 / reps
-    return dict(out.most_common())
-
-
 # the tensor-core K4 kernels (bf16 tables and MLP) and the CUDA-core ones
 # (any f32 table or MLP), as the built library's SASS names them
 MMA_KERNELS = ("march_fwd_mma_kernel", "march_bwd_mlp_mma_kernel")
@@ -544,6 +523,7 @@ def check_k3_k4(dev, gen) -> list[dict]:
 
     from localrf_tpu_torch.ops.kernels import march as k4
     from localrf_tpu_torch.ops.kernels import segsum as k3
+    from localrf_tpu_torch.scripts.kernel_ab import kernel_us
 
     rows = []
     for n_rows, p in K3_CASES:
@@ -586,7 +566,7 @@ def check_k3_k4(dev, gen) -> list[dict]:
             plain_ms=_time_ms(lambda: k4.march_bwd_plain(*plain, gout, "bfloat16"), reps=5),
             library_ms=None, **_bound(_nbytes(*plain, gout, *grads_k), K4_BWD_FLOP * p),
             # its MLP, factor and reduce kernels (and the wrapper's zero fills and cast)
-            kernel_us=_kernel_us(lambda: k4._launch_bwd(plain, gout, "bfloat16")),
+            kernel_us=kernel_us(lambda: k4._launch_bwd(plain, gout, "bfloat16")),
         ))
         del args, grads_k, grads_p, plain
     return rows

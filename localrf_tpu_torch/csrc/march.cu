@@ -45,15 +45,14 @@
 //   padding zero); `ldmatrix.trans` reads the transposed operands (w2^T,
 //   w1^T, and the activations of the weight gradients) from the same
 //   copies. Eight warps split each product: a warp owns 16 rows by N/2
-//   columns (the accumulator layout of a warpgroup's m64 `wgmma`, not
-//   used here: a forward tile's 720 HMMA.16816 need ~1.5k of the ~12k
-//   cycles a tile takes on the card, PERF.md "PR 5"). While
-//   a tile's MLP runs, the next tile's rows and per-point inputs arrive in
-//   shared memory by `cp.async` (zero-filled past P, so a ragged tile needs
-//   no branch), then its line rows (the gather needs its x0), so the
-//   features read only shared memory. The backward keeps dw2, dw1 and
-//   dbasis in registers across its tiles (dw2 as 16 rows of 128 per warp)
-//   and writes them once.
+//   columns (the accumulator layout of a warpgroup's m64 `wgmma`, which
+//   is not used here; PERF.md "PR 5" gives the phase spans of a tile).
+//   While a tile's MLP runs, the next tile's rows and per-point inputs
+//   arrive in shared memory by `cp.async` (zero-filled past P, so a ragged
+//   tile needs no branch), then its line rows (the gather needs its x0),
+//   so the features read only shared memory. The backward keeps dw2, dw1
+//   and dbasis in registers across its tiles (dw2 as 16 rows of 128 per
+//   warp) and dw3's hidden rows in shared memory, and writes them once.
 // - any f32 table or MLP: the CUDA-core kernels `march_fwd_kernel` and
 //   `march_bwd_mlp_kernel`: tiles of 16 points, the weights as f32 in
 //   shared memory (row strides padded to 129), one warp per point for the
@@ -609,11 +608,12 @@ constexpr int S_LINES = align128(S_IN + N_IN * 4);          // bf16 [3][64][64] 
 constexpr int SMEM_FWD = align128(S_LINES + 3 * TPM * 2 * C * 2);
 constexpr int S_DP2 = SMEM_FWD;                              // bf16 [64][LDH] d_pre2
 constexpr int S_DAPP = align128(S_DP2 + TPM * LDH * 2);      // bf16 [64][LDB] d_app (T)
-constexpr int SMEM_BWD = align128(S_DAPP + TPM * LDB * 2);
+constexpr int S_DP3M = align128(S_DAPP + TPM * LDB * 2);     // bf16 [64][LDB] d_pre3m, columns 3.. zero
+constexpr int S_DW3 = align128(S_DP3M + TPM * LDB * 2);      // f32 [128][3] the block's dw3[:128]
+constexpr int SMEM_BWD = align128(S_DW3 + FC * 3 * 4);
 static_assert(SMEM_BWD <= 232448, "tensor-core backward exceeds one block's 227 KB");
-// the weight-gradient partials a block keeps in registers: w3 | b3 entries
-constexpr int N_W3B3 = (FC + 3) * 3 + 3;
-static_assert(A_B3 == A_W3 + (FC + 3) * 3 && N_W3B3 <= 2 * kThreads, "w3 | b3 layout");
+// the 12 partials after dw3[:128]: w3's view-direction rows, then b3
+static_assert(A_B3 == A_W3 + (FC + 3) * 3, "w3 | b3 layout");
 
 __device__ __forceinline__ uint32_t saddr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -657,6 +657,33 @@ __device__ __forceinline__ void st2(bf16* p, float a, float b) {
 }
 
 __device__ __forceinline__ float bf(const bf16* p) { return __bfloat162float(*p); }
+
+// Phases of a tensor-core tile, for the spans of a build with
+// -DLRF_MARCH_PHASES (scripts/march_phases.py): thread 0 of each block adds
+// the clock64() ticks since the last mark to g_phase_cycles[block][phase].
+// A mark that follows a block barrier closes the block's span since the
+// barrier before; SETUP, TAIL, FETCH and END are thread 0's own time
+// (TAIL: its warp's share of the previous tile's last, barrier-free part;
+// FETCH: its share of issuing the next tile's copies). Without the macro a
+// mark is nothing.
+enum Phase {
+  PH_SETUP, PH_TAIL, PH_WAIT, PH_FEAT, PH_FETCH, PH_APP, PH_H1, PH_H2, PH_RGB,
+  PH_DP3, PH_DP2, PH_DP1, PH_DAPP, PH_END, N_PHASES
+};
+#ifdef LRF_MARCH_PHASES
+constexpr int kPhaseBlocks = 1024;
+__device__ long long g_phase_cycles[kPhaseBlocks][N_PHASES];
+__shared__ long long s_phase_t;
+__device__ __forceinline__ void mark(int phase) {
+  if (threadIdx.x == 0 && blockIdx.x < kPhaseBlocks) {
+    const long long t = clock64();
+    if (phase >= 0) g_phase_cycles[blockIdx.x][phase] += t - s_phase_t;
+    s_phase_t = t;
+  }
+}
+#else
+__device__ __forceinline__ void mark(int) {}
+#endif
 
 template <int NC>
 __device__ __forceinline__ void zero(float (&acc)[NC][4]) {
@@ -886,6 +913,7 @@ __device__ void tile_mlp_forward(const Smem& s, const Inputs<bf16>& in, bool nex
     }
   }
   __syncthreads();
+  mark(PH_APP);
   {  // h1 = relu(M(x0m @ w1) + b1)
     float acc[8][4];
     zero(acc);
@@ -893,6 +921,7 @@ __device__ void tile_mlp_forward(const Smem& s, const Inputs<bf16>& in, bool nex
     hidden_epilogue(acc, vec + V_B1, h1, mb, nh * 64);
   }
   __syncthreads();
+  mark(PH_H1);
   {  // h2 = relu(M(h1 @ w2) + b2), and the halves of h2 @ w3[:128]
     float acc[8][4];
     zero(acc);
@@ -901,6 +930,7 @@ __device__ void tile_mlp_forward(const Smem& s, const Inputs<bf16>& in, bool nex
   }
   if (next) cp_wait_all();
   __syncthreads();
+  mark(PH_H2);
   if (next) fetch_lines(s, in);
   // rgb = sigmoid(h2 @ w3[:128] + M(vd) @ w3[128:] + b3), f32
   if (tid < TPM * 3) {
@@ -913,6 +943,7 @@ __device__ void tile_mlp_forward(const Smem& s, const Inputs<bf16>& in, bool nex
     pt[P_RGB + pl * 4 + o] = 1.0f / (1.0f + expf(-pre3));
   }
   __syncthreads();
+  mark(PH_RGB);
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -920,21 +951,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Smem s{smem_raw};
   const int tid = threadIdx.x;
+  mark(-1);
   mma_setup(s, SMEM_FWD, in, nullptr);
+  mark(PH_SETUP);
   const float* pt = s.f(S_PT);
   const int64_t n_tiles = (in.p_total + TPM - 1) / TPM;
   for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    mark(PH_TAIL);
     cp_wait_all();
     __syncthreads();
+    mark(PH_WAIT);
     tile_features(s);
     __syncthreads();
+    mark(PH_FEAT);
     const bool next = tile + gridDim.x < n_tiles;
     if (next) fetch_tile(s, in, nullptr, tile + gridDim.x);
+    mark(PH_FETCH);
     tile_mlp_forward(s, in, next);
     const int pl = tid >> 2, c = tid & 3;
     const int64_t p = tile * TPM + pl;
     if (p < in.p_total) out[p * 4 + c] = c == 0 ? pt[P_SIG + pl] : pt[P_RGB + pl * 4 + c - 1];
   }
+  mark(PH_END);
 }
 
 // Backward kernel 1, tensor cores: recompute, MLP + basis VJP, d_feat (T),
@@ -946,26 +984,34 @@ __global__ void __launch_bounds__(kThreads, 1)
   const Smem s{smem_raw};
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int mb = (warp & 3) * 16, nh = warp >> 2, r = mb + (lane >> 2);
+  mark(-1);
   mma_setup(s, SMEM_BWD, in, gout);
+  mark(PH_SETUP);
   const float* vec = s.f(S_VEC);
   const bf16 *feat = s.h(S_FEAT), *x0m = s.h(S_X0M), *h1 = s.h(S_H1);
   bf16 *h2 = s.h(S_H2), *dp1 = s.h(S_H2), *dp2 = s.h(S_DP2), *dapp = s.h(S_DAPP);
-  float* pt = s.f(S_PT);
+  bf16* dp3m = s.h(S_DP3M);
+  float *pt = s.f(S_PT), *dw3h = s.f(S_DW3);
   // parameter partials kept across tiles: dw2 rows 16 warp.., dw1 rows
   // 16 (warp % 2).. by columns 32 (warp / 2)..; dbasis rows 16 warp.. (warps
-  // 0-4); db2 (threads < 128) or db1; w3 | b3 entries tid and tid + 256
-  float dw2[16][4], dw1[4][4], dbasis[4][4], dbias = 0.0f, d3[2] = {0.0f, 0.0f};
+  // 0-4); db2 (threads < 128) or db1; entry tid / 16 of w3[128:] | b3
+  // (threads tid % 16 == 0 below 192); dw3[:128] in shared memory
+  float dw2[16][4], dw1[4][4], dbasis[4][4], dbias = 0.0f, d3 = 0.0f;
   zero(dw2);
   zero(dw1);
   zero(dbasis);
   const int64_t n_tiles = (in.p_total + TPM - 1) / TPM;
   for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    mark(PH_TAIL);
     cp_wait_all();
     __syncthreads();
+    mark(PH_WAIT);
     tile_features(s);
     __syncthreads();
+    mark(PH_FEAT);
     const bool next = tile + gridDim.x < n_tiles;
     if (next) fetch_tile(s, in, gout, tile + gridDim.x);
+    mark(PH_FETCH);
     tile_mlp_forward(s, in, next);
 
     // d_pre3 = g_rgb * rgb * (1 - rgb); points past P have g_rgb = 0
@@ -975,10 +1021,12 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float d = pt[P_GR + tid] * rgb * (1.0f - rgb);
       pt[P_DP3 + pl * 4 + o] = d;
       pt[P_DP3M + pl * 4 + o] = rnd<true>(d);
+      dp3m[pl * LDB + o] = __float2bfloat16(d);
     }
     __syncthreads();
+    mark(PH_DP3);
 
-    // d_pre2 = (pre2 > 0) * M(d_pre3m @ w3h^T); dw3, db3
+    // d_pre2 = (pre2 > 0) * M(d_pre3m @ w3h^T) (K = 3: CUDA cores)
     for (int e = tid; e < TPM * FC; e += kThreads) {
       const int pl = e >> 7, n = e & 127;
       float sum = 0.0f;
@@ -986,21 +1034,36 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int o = 0; o < 3; ++o) sum += pt[P_DP3M + pl * 4 + o] * vec[V_W3 + n * 3 + o];
       dp2[pl * LDH + n] = __float2bfloat16(bf(h2 + pl * LDH + n) > 0.0f ? rnd<true>(sum) : 0.0f);
     }
+    {  // dw3[:128] += h2^T @ d_pre3m; the lanes holding columns 0-2 add them up
+      float acc[2][4];
+      zero(acc);
+      warp_mma<2, TPM / 16, true, true>(acc, h2, LDH, warp * 16, dp3m, LDB, 0);
+      const int q2 = 2 * (lane & 3);
+      if (q2 < 3) {
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int e = tid + j * kThreads;
-      float sum = 0.0f;
-      if (e < FC * 3) {
-        for (int pl = 0; pl < TPM; ++pl) sum += bf(h2 + pl * LDH + e / 3) * pt[P_DP3M + pl * 4 + e % 3];
-      } else if (e < (FC + 3) * 3) {
-        const int v = (e - FC * 3) / 3, o = e % 3;
-        for (int pl = 0; pl < TPM; ++pl) sum += pt[P_VDM + pl * 3 + v] * pt[P_DP3M + pl * 4 + o];
-      } else if (e < N_W3B3) {
-        for (int pl = 0; pl < TPM; ++pl) sum += pt[P_DP3 + pl * 4 + e - (FC + 3) * 3];
+        for (int hr = 0; hr < 2; ++hr) {
+          float* d = dw3h + (warp * 16 + (lane >> 2) + 8 * hr) * 3 + q2;
+          d[0] += acc[0][2 * hr];
+          if (q2 == 0) d[1] += acc[0][2 * hr + 1];
+        }
       }
-      d3[j] += sum;
+    }
+    // w3[128:] += M(vd)^T @ d_pre3m and db3 += d_pre3 (f32): 16 lanes an
+    // entry, 4 points a lane
+    if (tid < 12 * 16) {
+      const int k = tid >> 4, part = tid & 15;
+      float sum = 0.0f;
+#pragma unroll
+      for (int j = 0; j < TPM / 16; ++j) {
+        const int pl = part + 16 * j;
+        sum += k < 9 ? pt[P_VDM + pl * 3 + k / 3] * pt[P_DP3M + pl * 4 + k % 3] : pt[P_DP3 + pl * 4 + k - 9];
+      }
+#pragma unroll
+      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      d3 += sum;
     }
     __syncthreads();
+    mark(PH_DP2);
 
     // d_pre1 = (pre1 > 0) * M(d_pre2 @ w2^T), over h2; dw2 += h1^T @ d_pre2; db2
     {
@@ -1026,6 +1089,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       dbias += sum;
     }
     __syncthreads();
+    mark(PH_DP1);
 
     // d_app = d_pre1 @ w1^T (f32), rounded to T; dw1 += x0m^T @ d_pre1; db1
     {
@@ -1046,6 +1110,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       dbias += sum;
     }
     __syncthreads();
+    mark(PH_DAPP);
 
     // dbasis += feats^T @ T(d_app); d_feat = T(T(d_app) @ basis^T), written out
     if (warp < NBP / 16) warp_mma<4, TPM / 16, true, true>(dbasis, feat, LDF, warp * 16, dapp, LDB, 0);
@@ -1091,10 +1156,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   part[(tid < FC ? A_B2 + tid : A_B1 + tid - FC)] = dbias;
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    if (tid + j * kThreads < N_W3B3) part[A_W3 + tid + j * kThreads] = d3[j];
-  }
+  for (int e = tid; e < FC * 3; e += kThreads) part[A_W3 + e] = dw3h[e];
+  if (tid < 12 * 16 && (tid & 15) == 0) part[A_W3 + FC * 3 + (tid >> 4)] = d3;
+  mark(PH_END);
 }
 
 // dparams[e] = sum over blocks of partials[b][e], in block order.
@@ -1196,15 +1260,20 @@ cudaError_t bwd(const Inputs<T>& in, const float* gout, void* drows0, void* drow
   return cudaGetLastError();
 }
 
-// the tensor-core kernels copy plane and line rows in 16-byte pieces
-bool aligned16(const void* r0, const void* r1, const void* r2, const void* lines) {
-  return ((reinterpret_cast<uintptr_t>(r0) | reinterpret_cast<uintptr_t>(r1) |
-           reinterpret_cast<uintptr_t>(r2) | reinterpret_cast<uintptr_t>(lines)) & 15) == 0;
-}
-
 }  // namespace
 
 extern "C" int lrf_march_n_params() { return N_ACC; }
+
+#ifdef LRF_MARCH_PHASES
+// Copy the phase spans (int64 [1024][N_PHASES], clock64 ticks) to `host`
+// and zero them; synchronous.
+extern "C" int lrf_march_phase_cycles(void* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(g_phase_cycles));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  static const long long zeros[kPhaseBlocks][N_PHASES] = {};
+  return static_cast<int>(cudaMemcpyToSymbol(g_phase_cycles, zeros, sizeof(zeros)));
+}
+#endif
 
 extern "C" int lrf_march_fwd(const void* rows0, const void* rows1, const void* rows2,
                              const void* wxy, const void* w1l, const void* x0, const void* vd,
@@ -1214,7 +1283,6 @@ extern "C" int lrf_march_fwd(const void* rows0, const void* rows1, const void* r
                              int m_bf16, int n_sms, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   auto* o = static_cast<float*>(out);
-  if (t_bf16 && m_bf16 && !aligned16(rows0, rows1, rows2, lines)) return cudaErrorMisalignedAddress;
   cudaError_t err;
   if (t_bf16) {
     const auto in = make_inputs<__nv_bfloat16>(rows0, rows1, rows2, wxy, w1l, x0, vd, lines,
@@ -1244,7 +1312,6 @@ extern "C" int lrf_march_bwd(const void* rows0, const void* rows1, const void* r
   auto* dl = static_cast<float*>(dlines);
   auto* pa = static_cast<float*>(partials);
   auto* dp = static_cast<float*>(dparams);
-  if (t_bf16 && m_bf16 && !aligned16(rows0, rows1, rows2, lines)) return cudaErrorMisalignedAddress;
   cudaError_t err;
   if (t_bf16) {
     auto* da = static_cast<__nv_bfloat16*>(d_feat);

@@ -190,7 +190,8 @@ def _backward(rows, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3, gout
         return grads, products
 
 
-def _check(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3):
+def _check(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3,
+           mlp_dtype: str):
     """Raise on anything the CUDA kernels do not take."""
     p = rows0.shape[0]
     tdt = rows0.dtype
@@ -213,9 +214,11 @@ def _check(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, 
             raise ValueError(f"march_core: {name} is on {t.device}, rows on {rows0.device}")
         if not t.is_contiguous():
             raise ValueError(f"march_core: {name} must be contiguous")
-    for name in ("rows0", "rows1", "rows2", "lines"):
-        if want[name][0].data_ptr() % 16:
-            raise ValueError(f"march_core: {name} must start on a 16-byte boundary")
+    # the tensor-core kernels copy plane and line rows in 16-byte pieces
+    if tdt == torch.bfloat16 and mlp_dtype == "bfloat16":
+        for name in ("rows0", "rows1", "rows2", "lines"):
+            if want[name][0].data_ptr() % 16:
+                raise ValueError(f"march_core: {name} must start on a 16-byte boundary")
 
 
 def _n_blocks(device) -> int:
@@ -223,7 +226,7 @@ def _n_blocks(device) -> int:
 
 
 def _launch_fwd(args, mlp_dtype: str) -> torch.Tensor:
-    _check(*args)
+    _check(*args, mlp_dtype)
     rows0, lines = args[0], args[7]
     p = rows0.shape[0]
     out = torch.empty((p, 4), dtype=F32, device=rows0.device)
@@ -239,7 +242,7 @@ def _launch_fwd(args, mlp_dtype: str) -> torch.Tensor:
 
 
 def _launch_bwd(args, gout, mlp_dtype: str):
-    _check(*args)
+    _check(*args, mlp_dtype)
     if gout.shape != (args[0].shape[0], 4) or gout.dtype != F32 or not gout.is_contiguous():
         raise ValueError(f"march_core: cotangent must be contiguous float32 [{args[0].shape[0]}, 4]")
     rows0, lines = args[0], args[7]

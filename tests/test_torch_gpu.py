@@ -262,6 +262,14 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, g_rows, p, dtype, mlp_dtyp
         scale = float(gp.abs().max())
         err = float((gk.float() - gp.float()).abs().max())
         assert err <= (1e-4 if f32 else 2e-2) * scale, f"{name}: {err:.3e} of max {scale:.3e}"
+    # rows0 a row short of the other inputs (with P = 0, rows1 a row long)
+    if p:
+        with pytest.raises(ValueError):
+            k4.march_core(args[0][:-1], *args[1:], mlp_dtype)
+    else:
+        with pytest.raises(ValueError):
+            k4.march_core(args[0], args[1].new_zeros(1, 128), *args[2:], mlp_dtype)
+    # rows0 a channel narrow
     with pytest.raises(ValueError):
         k4.march_core(args[0][:, :-1], *args[1:], mlp_dtype)
 

@@ -537,17 +537,19 @@ def test_march_mlp_operands_are_bf16_exact(seed, g):
 
 
 def test_march_check_rejects_unaligned_rows(rng):
-    """The tensor-core kernels copy plane and line rows in 16-byte pieces:
-    the launch check refuses a contiguous view that starts off a 16-byte
-    boundary, and takes the same rows copied out."""
+    """The tensor-core kernels (bf16 tables and MLP) copy plane and line
+    rows in 16-byte pieces: the launch check refuses a contiguous view that
+    starts off a 16-byte boundary, and takes the same rows copied out; the
+    CUDA-core kernels (here the f32 MLP) take the view."""
     d = _march_inputs(rng, p=40, g=8)
     args = [a.detach() for a in _torch_march_args(d, torch.bfloat16)]
-    k4._check(*args)
+    k4._check(*args, "bfloat16")
     for i in (0, 2, 7):
         shifted = torch.empty(args[i].numel() + 1, dtype=args[i].dtype)[1:].view(args[i].shape)
         shifted.copy_(args[i])
         with pytest.raises(ValueError, match="16-byte"):
-            k4._check(*args[:i], shifted, *args[i + 1:])
+            k4._check(*args[:i], shifted, *args[i + 1:], "bfloat16")
+        k4._check(*args[:i], shifted, *args[i + 1:], "float32")
 
 
 def test_march_core_cpu_dispatch_and_no_fallback(rng):
