@@ -14,8 +14,10 @@
    K1 (compositing weights; also on near-opaque samples), K2 (plane
    segment sum; on uniform indices and on the plane indices of a real step
    at 64^3 and 640^3, its bin schedule against tile_bins_plain, with
-   indices out of range and with P = 0), K3 (line segment sum), K4 (fused
-   march core, forward and backward; K4-bwd also by its kernels' device
+   indices out of range and with P = 0), K3 (line segment sum; on uniform
+   indices and on the line indices of a real 640^3 segsum step, bit for
+   bit against its ordered plain version and against a second launch), K4
+   (fused march core, forward and backward; K4-bwd also by its kernels' device
    us from one profiled call), and K5 (the merged segment sum: no
    training path calls it, as none does in the JAX package; it is also
    checked bit for bit against a second launch and timed beside K2 on the
@@ -34,12 +36,13 @@
    960x540) is attached and LocalTensorfs.plan_chunk / run_chunk train
    chunks of 16 steps, every step a replay of a captured CUDA graph: at
    64^3 (ending in an alpha refresh, which drops the graphs, and one chunk
-   captured again after it), and at 640^3 on the default and the fused
-   march paths. The 64^3 and 640^3 default phases first train a chunk with
-   every sum in a fixed order (torch's deterministic algorithms, the plane
-   VJP through K5) and hold it bit for bit against the same 16 steps taken
-   eagerly by a twin model from the same state (not the fused march, whose
-   K4-bwd adds the line gradient atomically). Then, on the path as it runs: the first chunk
+   captured again after it), and at 640^3 on the default, the fused march
+   and the segsum-lines paths. The 64^3, 640^3 default and segsum phases
+   first train a chunk with every sum in a fixed order (torch's
+   deterministic algorithms, the plane VJP through K5; K3 sums in a fixed
+   order of its own) and hold it bit for bit against the same 16 steps
+   taken eagerly by a twin model from the same state (not the fused march,
+   whose K4-bwd adds the line gradient atomically). Then, on the path as it runs: the first chunk
    against a twin's eager steps (tolerances at CHUNK_TOL; the chunk's launch
    counts are read before the twin runs), 3 chunks timed, one traced with
    torch.profiler, which must show one graph launch per step whose replays
@@ -76,9 +79,11 @@ K2_TOL_F32 = (1e-4, 1e-4)
 # with the order of the f32 adds (the plain index_add_'s own atomics
 # included); sums of non-negative terms stay within one ulp in any order.
 # So bf16 out is checked on |g| except on uniform indices, as before.
-# K3: f32 atomic-add order over ~2,000-4,600 points per line row: rtol 1e-4,
-# atol 1e-5 of the largest entry (the rounding of a reordered sum scales
-# with the row's partial sums)
+# K3 equals its ordered plain version bit for bit (the order is fixed by
+# the shapes); against the plain index_add_, which adds in another order,
+# over ~2,000-4,600 points per line row: rtol 1e-4, atol 1e-5 of the
+# largest entry (the rounding of a reordered sum scales with the row's
+# partial sums)
 K3_TOL = (1e-4, 1e-5)
 # K4 against march_core_plain, bf16 tables and MLP: an f32 sum taken in
 # another order (atomics, the MLP dots) can flip a bf16 rounding, which
@@ -327,25 +332,44 @@ def check_k1(dev, gen) -> list[dict]:
     return rows
 
 
-def record_plane_sums(model, ds) -> list:
-    """(idx, n_rows) of every plane segment sum (K2) in one eager step of
-    `model` (its three plane gathers' backward)."""
-    import torch
+def record_sums(model, ds, module, name: str) -> list:
+    """(idx, n_rows) of every call of the segment sum `module.name` in one
+    eager step of `model` (the backward of its row gathers)."""
+    seen, segment_sum = [], getattr(module, name)
 
-    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
-
-    seen, segment_sum = [], k2.segment_sum
-
-    def spy(idx, g, n_rows, out_dtype=torch.float32):
+    def spy(idx, g, n_rows, *args, **kwargs):
         seen.append((idx.clone(), n_rows))
-        return segment_sum(idx, g, n_rows, out_dtype)
+        return segment_sum(idx, g, n_rows, *args, **kwargs)
 
-    k2.segment_sum = spy
+    setattr(module, name, spy)
     try:
         model.optimizer_step(ds.sample(BATCH, model.is_refining, True, n_views=N_VIEWS), optimize_poses=True)
     finally:
-        k2.segment_sum = segment_sum
+        setattr(module, name, segment_sum)
     return seen
+
+
+def record_plane_sums(model, ds) -> list:
+    """(idx, n_rows) of every plane segment sum (K2) in one eager step of
+    `model` (its three plane gathers' backward)."""
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+
+    return record_sums(model, ds, k2, "segment_sum")
+
+
+def real_line_indices(dev, ds) -> tuple:
+    """(idx, n_rows) of the first line segment sum (K3) of one step of
+    model_640 on the segsum lines: the ball's 4096 x 332 compacted points
+    on a 640-row line table."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import segsum as k3
+
+    model = model_640(dev, "segsum")
+    out = record_sums(model, ds, k3, "segment_sum_small")[0]
+    del model
+    torch.cuda.empty_cache()
+    return out
 
 
 def real_plane_indices(dev, ds) -> dict:
@@ -517,27 +541,59 @@ K4_FWD_FLOP = 1_300 + 3_888 + 6_912 + 32_768 + 786
 K4_BWD_FLOP = K4_FWD_FLOP + 2 * (3_888 + 6_912 + 32_768 + 786) + 2_000
 
 
-def check_k3_k4(dev, gen) -> list[dict]:
-    """K3 and K4 against their plain versions at the main path's shapes."""
+def check_k3(dev, gen, real: tuple) -> list[dict]:
+    """K3 at the main path's line-table shapes, on uniform random indices
+    and on the line indices of a real 640^3 segsum step (`real`), with a
+    random bf16 payload of 64 channels: bit for bit against its ordered
+    plain version (segment_sum_small_ordered on copies on the CPU) and
+    against a second launch, and to K3_TOL against the plain index_add_;
+    timed beside the plain version and index_add_. The bound counts the
+    function's bytes; `partial_bytes` are the partial tables the kernel
+    writes and reads back besides."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import segsum as k3
+
+    cases = [(f"{n_rows} rows uniform", torch.randint(0, n_rows, (p,), generator=gen, device=dev), n_rows)
+             for n_rows, p in K3_CASES]
+    r_idx, r_rows = real
+    if r_idx.shape[0] != K3_CASES[1][1] or r_rows != K3_CASES[1][0]:
+        raise AssertionError(f"640^3 segsum step: the line sum has P {r_idx.shape[0]} on {r_rows} rows")
+    cases.append((f"{r_rows} rows real step", r_idx, r_rows))
+    rows = []
+    for label, idx, n_rows in cases:
+        p = idx.shape[0]
+        g = torch.randn(p, 64, generator=gen, device=dev).to(torch.bfloat16)
+        got = k3.segment_sum_small(idx, g, n_rows)
+        if not torch.equal(got, k3.segment_sum_small(idx, g, n_rows)):
+            raise AssertionError(f"segment_sum_small {label}: two launches differ")
+        if not torch.equal(got.cpu(), k3.segment_sum_small_ordered(idx.cpu(), g.cpu(), n_rows)):
+            raise AssertionError(f"segment_sum_small {label}: differs from its ordered plain version")
+        want = k3.segment_sum_small_plain(idx, g, n_rows)
+        err = _close(got, want, K3_TOL[0], K3_TOL[1] * float(want.abs().max()))
+        plan = k3.segsum_plan(p, n_rows, 64)
+        rows.append(dict(
+            name="segment_sum_small", shape=f"{label}, P {p}, bf16 -> f32", main="real" in label,
+            max_abs_err=0.0, index_add_err=err,
+            ms=_time_ms(lambda: k3.segment_sum_small(idx, g, n_rows)),
+            plain_ms=_time_ms(lambda: k3.segment_sum_small_plain(idx, g, n_rows)),
+            library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, got)),
+            partial_bytes=0 if plan.n_ranges == 1 else 2 * plan.n_ranges * n_rows * 64 * 4,
+            n_ranges=plan.n_ranges, rows_hit=int((torch.bincount(idx, minlength=n_rows) > 0).sum()),
+            # consecutive points on one row, on average
+            mean_run=p / (int((idx[1:] != idx[:-1]).sum()) + 1),
+        ))
+    return rows
+
+
+def check_k4(dev, gen) -> list[dict]:
+    """K4 against its plain version at the main path's shapes."""
     import torch
 
     from localrf_tpu_torch.ops.kernels import march as k4
-    from localrf_tpu_torch.ops.kernels import segsum as k3
     from localrf_tpu_torch.scripts.kernel_ab import kernel_us
 
     rows = []
-    for n_rows, p in K3_CASES:
-        idx = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
-        g = torch.randn(p, 64, generator=gen, device=dev).to(torch.bfloat16)
-        want = k3.segment_sum_small_plain(idx, g, n_rows)
-        got = k3.segment_sum_small(idx, g, n_rows)
-        err = _close(got, want, K3_TOL[0], K3_TOL[1] * float(want.abs().max()))
-        rows.append(dict(
-            name="segment_sum_small", shape=f"n_rows {n_rows}, P {p}, bf16 -> f32", main=n_rows == 640,
-            max_abs_err=err, ms=_time_ms(lambda: k3.segment_sum_small(idx, g, n_rows)),
-            plain_ms=_time_ms(lambda: k3.segment_sum_small_plain(idx, g, n_rows)),
-            library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, got)),
-        ))
 
     for g_rows, p in K4_CASES:
         args, gout = march_inputs(g_rows, p, torch.bfloat16, gen, dev)
@@ -1165,6 +1221,7 @@ def main() -> None:
     # the H100's default cuBLAS workspace (8 x 4 MiB), named so that cuBLAS
     # calls raise no warning under deterministic_sums
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    t_start = time.perf_counter()
     torch = _require_cuda()
     from localrf_tpu_torch.models.local import LocalTensorfs
     from localrf_tpu_torch.ops.kernels import _build
@@ -1187,10 +1244,13 @@ def main() -> None:
     # indices of a real step at each shape)
     ds = make_dataset(W, H, N_FRAMES)
     real = real_plane_indices(dev, ds)
+    real_lines = real_line_indices(dev, ds)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = check_k1(dev, gen) + check_k2(dev, gen, real)
     del real
-    rows += check_k3_k4(dev, torch.Generator(device=dev).manual_seed(1))
+    gen = torch.Generator(device=dev).manual_seed(1)
+    rows += check_k3(dev, gen, real_lines) + check_k4(dev, gen)
+    del real_lines
     for row in rows:
         extra = f"  kernel alone {row['kernel_ms']:.4f} ms  K2 {row['k2_ms']:.4f} ms" if "k2_ms" in row else ""
         if "kernel_us" in row:
@@ -1198,6 +1258,12 @@ def main() -> None:
         if "occupied_tiles" in row:
             extra += (f"  bf16 out err {row['bf16_err']:.3e} (within one ulp); tiles hit"
                       f" {row['occupied_tiles']}, most points in a tile {row['max_tile_points']}")
+        if "partial_bytes" in row:
+            with_partials = (row["bound_bytes"] + row["partial_bytes"]) / HBM_BYTES_PER_S * 1e3
+            extra += (f"  bit for bit = ordered plain = 2nd launch; index_add_ err {row['index_add_err']:.3e};"
+                      f" {row['n_ranges']} ranges, {row['rows_hit']} rows hit, runs of"
+                      f" {row['mean_run']:.2f} points on one row on average; bound with the partial"
+                      f" tables ({row['partial_bytes']} B) {with_partials:.4f} ms")
         lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
         print(f"kernel {row['name']:18s} {row['shape']:44s} err {row['max_abs_err']:.3e}"
               f"  {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  library {lib}"
@@ -1234,7 +1300,7 @@ def main() -> None:
     pool_bytes = sum(a.numel() * a.element_size() for a in pool.arrays.values())
     print(f"pixel pool: {POOL_SLOTS} slots of {pool.n_px} px, {pool_bytes / 2**30:.3f} GiB")
     chunks = {"64^3": chunk_64(ds, dev, pool)}
-    for path in ("default", "fused_march"):
+    for path in ("default", "fused_march", "segsum"):
         torch.cuda.empty_cache()
         chunks[f"640^3 {path}"] = chunk_640(ds, dev, pool, path)
 
@@ -1262,6 +1328,7 @@ def main() -> None:
         label: {k: ph[k] for k in ("ms", "ms_all", "idle", "device_gaps", "peak", "reserved",
                                    "captures", "capture_ms", "worst_rel", "bit_exact_tensors")}
         for label, ph in chunks.items()}}))
+    print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here")
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))
     if "jax" in sys.modules:

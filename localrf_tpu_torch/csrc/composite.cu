@@ -11,24 +11,26 @@
 // What bounds it on the card: bytes, since the main path's [4096, 332]
 // moves only 16 MB forward and 22 MB backward (microseconds at 3.35 TB/s),
 // but the scan along a ray is sequential, so how the rays are spread over
-// the threads decides the time.
-// - forward: one thread per ray, every intermediate in registers: sigma
-//   and dist read once, w written once (a scan per ray, latency bound at
-//   4,096 threads: later work).
-// - backward: one warp per ray walks it in windows of 32 consecutive
-//   samples, so every load and store is coalesced. In each window a
-//   shuffle exclusive product scan of b_i = max(1 - a_i, eps) times the
-//   carry from earlier windows gives T_i; an (alpha, T) pair per lane
-//   stays in registers for the first kCacheWin windows (S <= 384, the
-//   main path's 72 and 332), so T is never parked in device memory. A
-//   reverse pass over the windows runs a shuffle suffix-sum scan of
-//   g_k w_k plus the carry from later windows: the suffix sum is summed,
-//   never taken as `total - prefix`, which cancels. Windows past the cache
-//   keep only their starting T (shared memory) and recompute a and T in
-//   the reverse pass from the inputs (the same arithmetic, so the same
-//   bits). The products and sums run in another order than the plain
-//   cumprod: the result moves by a few f32 ulp, and the order is fixed, so
-//   the kernel is deterministic.
+// the threads decides the time. Both kernels run one warp per ray and walk
+// it in windows of 32 consecutive samples, so every load and store is
+// coalesced and 4,096 rays make 4,096 warps (~31 on each of 132 SMs). In
+// each window a shuffle exclusive product scan of b_i = max(1 - a_i, eps)
+// times the carry from earlier windows gives T_i (`window_fwd`), and the
+// window's product carries on to the next.
+// - forward: w_i = a_i T_i written from registers, window by window; sigma
+//   and dist read once, w written once. The backward recomputes T with the
+//   same `window_fwd`, so the two see the same bits.
+// - backward: an (alpha, T) pair per lane stays in registers for the first
+//   kCacheWin windows (S <= 384, the main path's 72 and 332), so T is never
+//   parked in device memory. A reverse pass over the windows runs a
+//   shuffle suffix-sum scan of g_k w_k plus the carry from later windows:
+//   the suffix sum is summed, never taken as `total - prefix`, which
+//   cancels. Windows past the cache keep only their starting T (shared
+//   memory) and recompute a and T in the reverse pass from the inputs (the
+//   same arithmetic, so the same bits).
+// The products and sums run in another order than the plain cumprod: the
+// result moves by a few f32 ulp, and the order is fixed, so both kernels
+// are deterministic.
 // a_i is the same expression in both kernels and the plain version (no
 // fast math). `max(1 - a, eps)` stays an fmaxf: (1 - a) + eps may be
 // reassociated to 0 at the terminator.
@@ -40,30 +42,9 @@
 namespace {
 
 constexpr float kEps = 1e-10f;
-constexpr int kThreads = 64;  // forward: 4096 rays -> 64 blocks over 132 SMs
+constexpr int kFwdWarps = 4;  // forward: one warp per ray, 4 rays per block (1,024 blocks at R = 4096)
 constexpr int kBwdWarps = 8;  // backward: one warp per ray, 8 rays per block
 constexpr int kCacheWin = 12;  // backward: windows of 32 samples kept in registers
-
-__device__ __forceinline__ float alpha_at(const float* sg, const float* dd, int i, int s,
-                                          float scale) {
-  return (i == s - 1) ? 1.0f : 1.0f - expf(-sg[i] * dd[i] * scale);
-}
-
-__global__ void composite_fwd_kernel(const float* __restrict__ sigma,
-                                     const float* __restrict__ dists, float* __restrict__ w,
-                                     int r_total, int s, int dist_stride, float scale) {
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
-  if (r >= r_total) return;
-  const float* sg = sigma + static_cast<size_t>(r) * s;
-  const float* dd = dists + static_cast<size_t>(r) * dist_stride;
-  float* wr = w + static_cast<size_t>(r) * s;
-  float t = 1.0f;
-  for (int i = 0; i < s; ++i) {
-    const float a = alpha_at(sg, dd, i, s, scale);
-    wr[i] = a * t;
-    t = t * fmaxf(1.0f - a, kEps);
-  }
-}
 
 // One lane's sample of a window: alpha and transmittance T.
 struct Sample {
@@ -90,6 +71,24 @@ __device__ __forceinline__ Sample window_fwd(const float* sg, const float* dd, i
   const Sample out{a, carry * excl};
   carry *= __shfl_sync(0xffffffffu, incl, 31);
   return out;
+}
+
+__global__ void __launch_bounds__(kFwdWarps * 32)
+    composite_fwd_kernel(const float* __restrict__ sigma, const float* __restrict__ dists,
+                         float* __restrict__ w, int r_total, int s, int dist_stride, float scale) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r = blockIdx.x * kFwdWarps + warp;
+  if (r >= r_total) return;  // the whole warp
+  const float* sg = sigma + static_cast<size_t>(r) * s;
+  const float* dd = dists + static_cast<size_t>(r) * dist_stride;
+  float* wr = w + static_cast<size_t>(r) * s;
+  float carry = 1.0f;
+#pragma unroll 4
+  for (int i0 = 0; i0 < s; i0 += 32) {
+    const int i = i0 + lane;
+    const Sample x = window_fwd(sg, dd, i, s, scale, lane, carry);
+    if (i < s) wr[i] = x.a * x.t;
+  }
 }
 
 // The reverse step of window w: suffix_i = (sum of g_k w_k over the later
@@ -161,8 +160,8 @@ __global__ void __launch_bounds__(kBwdWarps * 32)
 
 extern "C" int lrf_composite_fwd(const void* sigma, const void* dists, void* w, int r, int s,
                                  int dist_stride, float scale, void* stream) {
-  const int blocks = (r + kThreads - 1) / kThreads;
-  composite_fwd_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int blocks = (r + kFwdWarps - 1) / kFwdWarps;
+  composite_fwd_kernel<<<blocks, kFwdWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(sigma), static_cast<const float*>(dists),
       static_cast<float*>(w), r, s, dist_stride, scale);
   return static_cast<int>(cudaGetLastError());

@@ -50,8 +50,9 @@ SIGNATURES = {
     # sorted idx (int64), sorted g, g_is_bf16, tile starts (int64 [n_tiles + 1]),
     # out, out_is_bf16, C, n_rows, tile_rows, n_tiles, stream
     "lrf_segment_sum_merged": (_P, _P, _I, _P, _P, _I, _I, _L, _I, _L, _P),
-    # idx (int64), g, g_is_bf16, out (f32), P, C, n_rows, stream
-    "lrf_segsum_small": (_P, _P, _I, _P, _L, _I, _L, _P),
+    # idx (int64), g, g_is_bf16, partials (f32), out (f32), P, C, n_rows,
+    # tile_rows, n_ranges, range_len, stream
+    "lrf_segsum_small": (_P, _P, _I, _P, _P, _L, _I, _L, _I, _I, _L, _P),
     # rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3,
     # b3, out, P, G, t_bf16, m_bf16, SM count, stream
     "lrf_march_fwd": (_P,) * 16 + (_L, _I, _I, _I, _I, _P),

@@ -1,14 +1,21 @@
 """Row gathers for the small line tables.
 
-K3: `segment_sum_small` launches the CUDA kernel in csrc/segsum_small.cu
+K3: `segment_sum_small` launches the CUDA kernels in csrc/segsum_small.cu
 (an f32 segment sum whose output tile stays in shared memory; see the note
 there for what bounds it on the card), replacing the Pallas TPU kernel
 localrf_tpu/ops/pallas/segsum.py `segment_sum_matmul`. `take_rows` is the
 row gather whose backward is that segment sum (`--line_bwd segsum`);
-`segment_sum_small_plain` (an f32 `index_add_`) is the CPU path and the
-on-card reference. The atomic adds run in no fixed order: against the plain
-version the result agrees to rtol 1e-4 / atol 1e-5 of its largest entry
-(thousands of points sum into each line row).
+`segment_sum_small_plain` (an f32 `index_add_`) is the CPU path.
+
+The kernel sums in an order that the shapes alone fix (`segsum_plan`):
+point range by point range, each row's points in point order from 0, then
+the ranges' partial tables in range order from 0, every add an f32 add.
+`segment_sum_small_ordered` sums in that same order in plain PyTorch, so
+the kernel equals it bit for bit, and two launches equal each other; it
+is the reference of the tests and of chip_smoke, never a path of the step.
+Against `segment_sum_small_plain`, whose adds run in index order, the sum
+agrees to rtol 1e-4 / atol 1e-5 of its largest entry (thousands of points
+sum into each line row).
 
 JAX's K3 returns an f32 gradient even for a bf16 table, where PyTorch's
 autograd would cast a Function's gradient to its input's dtype. So
@@ -24,6 +31,8 @@ points per line row.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from . import _build
@@ -33,10 +42,80 @@ LAUNCHES = {"segment_sum_small": 0}
 MAX_C = 64  # the kernel's payload width (csrc/segsum_small.cu kMaxC): a quad line row
 _PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
 
+# K3's plan: an f32 accumulator of at most ACC_FLOATS values (160 KB, one
+# [640, 64] line table) per block; at most BLOCKS blocks (one per SM of an
+# H100, fixed here so that the order never depends on the card), ranges of
+# at least MIN_RANGE points, in multiples of RANGE_ALIGN (so that every
+# stage's indices and payload rows start on a 16-byte boundary for the
+# kernel's bulk copies), and at most SCRATCH_FLOATS (32 MB) of partial
+# tables
+ACC_FLOATS = 40_960
+BLOCKS = 132
+MIN_RANGE = 1024
+RANGE_ALIGN = 32
+SCRATCH_FLOATS = 8 * 2**20
+
+
+class SegsumPlan(NamedTuple):
+    """K3's schedule, from (P, n_rows, C) alone: row tiles of `tile_rows`
+    rows (`n_tiles`), point ranges [k * range_len, (k + 1) * range_len)
+    (`n_ranges`, none empty). Only the ranges set the summation order."""
+
+    tile_rows: int
+    n_tiles: int
+    n_ranges: int
+    range_len: int
+
+
+def segsum_plan(p: int, n_rows: int, c: int) -> SegsumPlan:
+    c = max(c, 1)
+    tile_rows = max(1, min(n_rows, ACC_FLOATS // c))
+    n_tiles = -(-n_rows // tile_rows)
+    n_ranges = max(1, min(-(-p // MIN_RANGE), BLOCKS // max(n_tiles, 1),
+                          SCRATCH_FLOATS // max(n_rows * c, 1)))
+    per_range = -(-p // n_ranges)
+    range_len = max(1, -(-per_range // RANGE_ALIGN)) * RANGE_ALIGN
+    return SegsumPlan(tile_rows, n_tiles, max(1, -(-p // range_len)), range_len)
+
 
 def segment_sum_small_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
     """out[n_rows, C] f32 = sum_{p: idx_p == r} g_p, accumulated in f32."""
     return segment_sum_plain(idx, g, n_rows, torch.float32)
+
+
+def _range_sum(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """[n_rows, C] f32: each row's points of this range summed in point
+    order from 0 (indices outside [0, n_rows) skipped). The k-th points of
+    all rows are added in one step: their rows are distinct."""
+    part = torch.zeros((n_rows, g.shape[1]), dtype=torch.float32, device=g.device)
+    pts = torch.nonzero((idx >= 0) & (idx < n_rows)).flatten()
+    if not pts.numel():
+        return part
+    rows, order = torch.sort(idx[pts], stable=True)
+    pts = pts[order]  # grouped by row, each row's points in point order
+    counts = torch.bincount(rows, minlength=n_rows)
+    rank = torch.arange(rows.numel(), device=g.device) - (torch.cumsum(counts, 0) - counts)[rows]
+    rank, by_rank = torch.sort(rank, stable=True)
+    for sel in torch.split(by_rank, torch.bincount(rank).tolist()):
+        part[rows[sel]] += g[pts[sel]]
+    return part
+
+
+def segment_sum_small_ordered(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K3's function summed in the kernel's order (`segsum_plan`'s ranges,
+    each row's points in point order, then the ranges in order), so equal
+    to the kernel bit for bit. A reference, slow: one step per rank of a
+    point within its row and range."""
+    p, c = g.shape
+    out = torch.zeros((n_rows, c), dtype=torch.float32, device=g.device)
+    if not (p and n_rows and c):
+        return out
+    plan = segsum_plan(p, n_rows, c)
+    g32 = g.to(torch.float32)
+    for k in range(plan.n_ranges):
+        lo, hi = k * plan.range_len, min((k + 1) * plan.range_len, p)
+        out += _range_sum(idx[lo:hi], g32[lo:hi], n_rows)
+    return out
 
 
 def _segment_sum_small_cuda(idx, g, n_rows: int) -> torch.Tensor:
@@ -52,14 +131,22 @@ def _segment_sum_small_cuda(idx, g, n_rows: int) -> torch.Tensor:
         raise ValueError(f"segment_sum_small takes rows of at most {MAX_C} values, got {g.shape[1]}")
     idx, g = idx.contiguous(), g.contiguous()
     p, c = g.shape
-    out = torch.zeros((n_rows, c), dtype=torch.float32, device=g.device)
-    if p and n_rows and c:
-        with torch.cuda.device(g.device):
-            _build.launch(
-                "lrf_segsum_small", idx.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
-                out.data_ptr(), p, c, n_rows, _build.stream_ptr(g.device),
-            )
-        LAUNCHES["segment_sum_small"] += 1
+    if not (p and n_rows and c):
+        return torch.zeros((n_rows, c), dtype=torch.float32, device=g.device)
+    # the kernel's bulk copies start on 16-byte boundaries
+    idx = idx.clone() if idx.data_ptr() % 16 else idx
+    g = g.clone() if g.data_ptr() % 16 else g
+    plan = segsum_plan(p, n_rows, c)
+    out = torch.empty((n_rows, c), dtype=torch.float32, device=g.device)
+    partials = out if plan.n_ranges == 1 else torch.empty(
+        (plan.n_ranges, n_rows, c), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        _build.launch(
+            "lrf_segsum_small", idx.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
+            partials.data_ptr(), out.data_ptr(), p, c, n_rows, plan.tile_rows, plan.n_ranges,
+            plan.range_len, _build.stream_ptr(g.device),
+        )
+    LAUNCHES["segment_sum_small"] += 1
     return out
 
 

@@ -1,25 +1,28 @@
-"""Time K1, K2 and K4 of two checkouts on one card, in turns.
+"""Time K1, K2, K3 and K4 of two checkouts on one card, in turns.
 
     python3 localrf_tpu_torch/scripts/kernel_ab.py --parent DIR [--chunks]
 
 DIR holds another checkout of the repository (for example the parent
 commit, unpacked with `git archive` into a directory that .gitignore
 lists). The script records the plane indices of one real training step at
-64^3 and 640^3 with this checkout (chip_smoke.real_plane_indices), then
+64^3 and 640^3 and the line indices of one real 640^3 segsum step with
+this checkout (chip_smoke.real_plane_indices, real_line_indices), then
 runs itself as a worker four times, parent, this checkout, this checkout,
 parent, each on the same inputs: K1 forward and backward at [4096, 72]
 (the shared [1, 72] dist row) and [4096, 332] (per-ray dists), K2
-bf16 -> bf16 on uniform and real-step indices at both plane shapes, and K4
+bf16 -> bf16 on uniform and real-step indices at both plane shapes, K3
+bf16 -> f32 on uniform indices at 64 and 640 line rows and on the
+real-step line indices, and K4
 forward and backward (bf16 tables and MLP, chip_smoke.march_inputs of that
 checkout: G 64, P 4096 x 72 and G 640, P 4096 x 332, line rows x0 drawn
 uniformly; K4-bwd also with x0 sorted within each ray's samples, as a
 march gives them). A time is a CUDA graph of 20 calls (K4: 10) replayed
 (as a captured training step launches them), per call; each worker also
-lists the device time of every CUDA kernel a K2 or K4-bwd call ran
+lists the device time of every CUDA kernel a K2, K3 or K4-bwd call ran
 (torch.profiler). With --chunks each worker also trains
 the chunk path through that checkout's chip_smoke helpers (a 146-slot
 pixel pool, chunks of 16 replayed CUDA graphs): at 64^3 and at 640^3 on the
-default and the fused-march paths, one chunk to capture, then 3 timed
+default, the fused-march and the segsum-lines paths, one chunk to capture, then 3 timed
 (ms/step, host clock ending in a synchronize) with the peak allocated
 bytes. Prints the card, one JSON line per worker, and the mean of each
 checkout's two workers. Needs a CUDA card.
@@ -83,8 +86,8 @@ def kernel_us(fn, reps: int = 5) -> dict:
 
 
 def worker(root: str, indices: str) -> dict:
-    """K1, K2 and K4 of the checkout at `root`: graph-replay ms per case,
-    and the device us of each kernel of a K2 or K4-bwd call."""
+    """K1, K2, K3 and K4 of the checkout at `root`: graph-replay ms per
+    case, and the device us of each kernel of a K2, K3 or K4-bwd call."""
     sys.path.insert(0, root)
     import torch
 
@@ -92,8 +95,9 @@ def worker(root: str, indices: str) -> dict:
     from localrf_tpu_torch.ops.kernels import binned_scatter as k2
     from localrf_tpu_torch.ops.kernels import composite as k1
     from localrf_tpu_torch.ops.kernels import march as k4
+    from localrf_tpu_torch.ops.kernels import segsum as k3
 
-    for mod in (k2, cs):
+    for mod in (k2, k3, cs):
         if not pathlib.Path(mod.__file__).resolve().is_relative_to(pathlib.Path(root).resolve()):
             raise RuntimeError(f"imported {mod.__file__}, not from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -115,6 +119,15 @@ def worker(root: str, indices: str) -> dict:
             key = f"K2 {label} {kind}"
             times[key] = graph_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
             kernels[key] = kernel_us(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
+    for label, n_rows, p in (("64^3", 64, 4096 * 72), ("640^3", 640, 4096 * 332)):
+        g = torch.randn(p, 64, generator=gen, device=dev).to(torch.bfloat16)
+        cases = [("uniform", torch.randint(0, n_rows, (p,), generator=gen, device=dev))]
+        if label == "640^3":
+            cases.append(("real step", real["lines 640^3"]))
+        for kind, idx in cases:
+            key = f"K3 {label} {kind}"
+            times[key] = graph_ms(lambda: k3.segment_sum_small(idx, g, n_rows))
+            kernels[key] = kernel_us(lambda: k3.segment_sum_small(idx, g, n_rows))
     for label, g_rows, s in (("64^3", 64, 72), ("640^3", 640, 332)):
         args, gout = cs.march_inputs(g_rows, 4096 * s, torch.bfloat16, torch.Generator(device=dev).manual_seed(1), dev)
         plain = [a.detach() for a in args]
@@ -133,7 +146,8 @@ def worker(root: str, indices: str) -> dict:
 
 def chunk_worker(root: str) -> dict:
     """ms/step and peak bytes of the chunk path at 64^3 and 640^3 (default,
-    fused march), through the chip_smoke helpers of the checkout at `root`."""
+    fused march, segsum lines), through the chip_smoke helpers of the
+    checkout at `root`."""
     import torch
 
     import chip_smoke as cs
@@ -147,7 +161,7 @@ def chunk_worker(root: str) -> dict:
     ds = cs.make_dataset(cs.W, cs.H, cs.N_FRAMES)
     pool = DevicePixelPool(ds, capacity=cs.POOL_SLOTS, device=dev)
     out = {}
-    for label in ("64^3", "640^3 default", "640^3 fused_march"):
+    for label in ("64^3", "640^3 default", "640^3 fused_march", "640^3 segsum"):
         if label == "64^3":
             model = LocalTensorfs(cs.full_width_config(64), device=dev)
             model.is_refining = True
@@ -174,8 +188,9 @@ def record_indices(path: pathlib.Path) -> None:
 
     dev = torch.device("cuda", 0)
     ds = chip_smoke.make_dataset(chip_smoke.W, chip_smoke.H, chip_smoke.N_FRAMES)
-    real = chip_smoke.real_plane_indices(dev, ds)
-    torch.save({k: idx for k, (idx, _) in real.items()}, path)
+    real = {k: idx for k, (idx, _) in chip_smoke.real_plane_indices(dev, ds).items()}
+    real["lines 640^3"] = chip_smoke.real_line_indices(dev, ds)[0]
+    torch.save(real, path)
 
 
 def main() -> None:

@@ -7,9 +7,13 @@ tests' conftest.py imports jax).
 Tolerances: K1 forward rtol 1e-4 / atol 1e-6 and gradient rtol 1e-3 /
 atol 1e-5 of its largest entry (torch.cumprod multiplies in another order
 on the card); K2 rtol 1e-4 / atol 1e-4 in f32 (atomic-add order), one
-bf16 ulp in bf16 (its adds within a tile run in no fixed order); K3 rtol 1e-4 / atol 1e-5 of the largest
-entry (the same, but some 2,000-4,600 points land on each line row, so
-the f32 rounding of a reordered sum scales with the row's partial sums). K4 against march_core_plain: in f32, out
+bf16 ulp in bf16 (its adds within a tile run in no fixed order); K3 bit
+for bit against its ordered plain version and a second launch (its order
+is fixed by the shapes), and against the plain index_add_ rtol 1e-4 /
+atol 1e-5 of the largest entry (some 2,000-4,600 points land on each line
+row, so the f32 rounding of a reordered sum scales with the row's partial
+sums). apply_mlp's bf16 products within one bf16 ulp of f32 products plus
+the f32 reorder bound. K4 against march_core_plain: in f32, out
 rtol 1e-4 / atol 1e-5 and gradients 1e-4 of their largest entry (sums in
 another order, fused multiply-adds); with a bf16 table or MLP (both: the
 tensor-core kernels, whose bf16 MMAs sum exact products in f32), out atol
@@ -49,7 +53,9 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,s,per_ray", [(4096, 72, False), (4096, 332, True)])
+@pytest.mark.parametrize("r,s,per_ray", [(4096, 72, False), (4096, 332, True),
+                                         # one sample (the terminator alone), and 32 windows
+                                         (4096, 1, False), (4096, 1, True), (512, 1000, True)])
 def test_k1_kernel_matches_plain_on_card(cuda_device, r, s, per_ray):
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     sigma = 2 * torch.rand(r, s, generator=gen, device=cuda_device)
@@ -198,6 +204,89 @@ def test_k3_kernel_matches_plain_on_card(cuda_device, n_rows, p):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5 * float(want.abs().max()))
     with pytest.raises(TypeError):
         k3.segment_sum_small(idx.to(torch.int32), g, n_rows)
+
+
+def _line_rows(gen, kind: str, p: int, n_rows: int, dev) -> torch.Tensor:
+    """Line-table rows: uniform; packed toward the middle rows as a ball's
+    points project onto a line; all on one row; or partly out of range."""
+    if kind == "uniform":
+        return torch.randint(0, n_rows, (p,), generator=gen, device=dev)
+    if kind == "ball":
+        u = torch.rand(2, p, generator=gen, device=dev)
+        return (n_rows / 2 + 0.27 * n_rows * (2 * u[0] - 1) * u[1].sqrt()).long().clamp(0, n_rows - 1)
+    if kind == "hot":
+        return torch.full((p,), n_rows // 3, dtype=torch.int64, device=dev)
+    return torch.randint(-n_rows // 4, n_rows + n_rows // 4, (p,), generator=gen, device=dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,p,c,dtype,kind", [
+    (64, 4096 * 72, 64, "bfloat16", "uniform"), (640, 4096 * 332, 64, "bfloat16", "uniform"),
+    (640, 4096 * 332, 64, "bfloat16", "ball"), (64, 4096 * 72, 64, "bfloat16", "out-of-range"),
+    (640, 4096 * 332, 64, "float32", "ball"), (640, 100_000, 64, "bfloat16", "hot"),
+    # narrow rows (odd C: one channel a lane), a table of three row tiles, no points
+    (640, 50_000, 20, "bfloat16", "out-of-range"), (300, 50_000, 7, "float32", "uniform"),
+    (1500, 200_000, 64, "bfloat16", "ball"), (640, 0, 64, "bfloat16", "uniform"),
+])
+def test_k3_kernel_is_its_ordered_plain_version_on_card(cuda_device, n_rows, p, c, dtype, kind):
+    """K3 sums in the order segsum_plan fixes: equal bit for bit to
+    segment_sum_small_ordered (on copies on the CPU) and to a second
+    launch; one launch counted per call with points."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    idx = _line_rows(gen, kind, p, n_rows, cuda_device)
+    g = torch.randn(p, c, generator=gen, device=cuda_device).to(getattr(torch, dtype))
+    n0 = k3.LAUNCHES["segment_sum_small"]
+    got = k3.segment_sum_small(idx, g, n_rows)
+    assert k3.LAUNCHES["segment_sum_small"] == n0 + int(p > 0)
+    assert got.dtype == torch.float32 and got.shape == (n_rows, c)
+    assert torch.equal(got, k3.segment_sum_small(idx, g, n_rows))
+    assert torch.equal(got.cpu(), k3.segment_sum_small_ordered(idx.cpu(), g.cpu(), n_rows))
+    if p == 0:
+        assert not got.any()
+
+
+@pytest.mark.gpu
+def test_apply_mlp_bf16_products_sum_in_f32_on_card(cuda_device):
+    """apply_mlp's bf16 hidden products (cuBLAS) at the model's widths
+    (27 -> 128 -> 128) on 524,288 points against the same products taken
+    in f32 on the card (TF32 off) and rounded to bf16: within one bf16 ulp
+    plus the f32 reorder bound K 2^-24 sum_k |x_k w_k| (two f32 sums of the
+    same terms in other orders differ by at most that). A sum with bf16
+    partial sums would miss by ~2^-8 of sum_k |x_k w_k|. The output agrees
+    with the f32-product reference to test_apply_mlp's bf16 tolerance."""
+    import torch.nn.functional as F
+
+    from localrf_tpu_torch.models.tensorf import TensorfConfig, apply_mlp, init_mlp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TensorfConfig(grid_size=(640, 640, 640), mlp_dtype="bfloat16")
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    mlp = {k.removeprefix("mlp."): v for k, v in init_mlp(cfg, gen, cuda_device).items()}
+    p = 4096 * 128
+    feat = torch.randn(p, cfg.app_dim, generator=gen, device=cuda_device)
+    vd = torch.nn.functional.normalize(torch.randn(p, 3, generator=gen, device=cuda_device), dim=-1)
+    bf = torch.bfloat16
+
+    def check(x, w):
+        got = torch.matmul(x, w).float()
+        ref = torch.matmul(x.float(), w.float())
+        reorder = x.shape[1] * 2.0**-24 * torch.matmul(x.float().abs(), w.float().abs())
+        ref16 = ref.to(bf).float()
+        mag = torch.maximum(got.abs(), ref16.abs())
+        ulp = torch.where(mag > 0, torch.exp2(torch.floor(torch.log2(mag)) - 7), 2.0**-133)
+        err = (got - ref16).abs()
+        assert (err <= ulp + reorder).all(), f"{int((err > ulp + reorder).sum())} sums off"
+
+    x = feat.to(bf)
+    ref_x = x
+    for i in (1, 2):
+        w, b = mlp[f"w{i}"].to(bf), mlp[f"b{i}"].to(bf)
+        check(x, w)
+        x = F.relu(torch.matmul(x, w) + b)
+        ref_x = F.relu(torch.matmul(ref_x.float(), w.float()).to(bf) + b)
+    w3 = mlp["w3"].to(bf).float()
+    ref = torch.sigmoid(torch.matmul(torch.cat([ref_x, vd.to(bf)], -1).float(), w3) + mlp["b3"])
+    torch.testing.assert_close(apply_mlp(mlp, None, vd, feat, cfg), ref, rtol=2e-2, atol=1e-2)
 
 
 def _march_args(g_rows, p, dtype, dev):

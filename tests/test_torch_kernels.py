@@ -423,6 +423,97 @@ def test_take_rows_grad_is_jax_f32_segsum(rng, dtype):
         k3.take_rows(x.detach().to(torch.bfloat16), T(idx))
 
 
+def _line_idx(rng, kind: str, p: int, n_rows: int) -> np.ndarray:
+    """Line rows: uniform; packed toward the middle as a ball's points
+    project onto a line; a few hot rows; partly out of range."""
+    if kind == "uniform":
+        return rng.integers(0, n_rows, p)
+    if kind == "ball":
+        rad = 0.27 * n_rows * rng.uniform(-1, 1, p) * np.sqrt(rng.uniform(0, 1, p))
+        return np.clip(n_rows / 2 + rad, 0, n_rows - 1).astype(np.int64)
+    if kind == "hot":
+        return rng.choice([n_rows // 3, n_rows // 3 + 1, n_rows - 1], p, p=[0.8, 0.15, 0.05])
+    return rng.integers(-n_rows // 4, n_rows + n_rows // 4, p)
+
+
+def _k3_order_oracle(idx: np.ndarray, g: np.ndarray, n_rows: int) -> np.ndarray:
+    """K3's sum written out point by point in numpy, in the plan's order:
+    each range's rows from 0 in point order, then the ranges in order."""
+    p, c = g.shape
+    plan = k3.segsum_plan(p, n_rows, c)
+    out = np.zeros((n_rows, c), np.float32)
+    for k in range(plan.n_ranges):
+        part = np.zeros((n_rows, c), np.float32)
+        for q in range(k * plan.range_len, min((k + 1) * plan.range_len, p)):
+            if 0 <= idx[q] < n_rows:
+                part[idx[q]] += g[q]
+        out += part
+    return out
+
+
+@pytest.mark.parametrize("n_rows,p,c,payload,kind", [
+    (640, 5000, 64, "float32", "uniform"), (640, 5000, 64, "bfloat16", "ball"),
+    (64, 3000, 64, "bfloat16", "hot"), (640, 4000, 64, "float32", "out-of-range"),
+    (640, 0, 64, "bfloat16", "uniform"),  # no points
+    (100, 2500, 20, "float32", "uniform"), (50, 2000, 7, "bfloat16", "ball"),  # C < 64, odd C
+    (1500, 4000, 64, "bfloat16", "uniform"),  # three row tiles of 640
+    (30, 777, 64, "float32", "hot"),  # one range, P not a multiple of 32
+])
+def test_segment_sum_small_ordered_is_the_plan_order(rng, n_rows, p, c, payload, kind):
+    """segment_sum_small_ordered (the kernel's plain version) equals the sum
+    written out point by point in the plan's order, bit for bit, and the
+    plain index_add_ to rtol 1e-4 / atol 1e-4."""
+    idx = _line_idx(rng, kind, p, n_rows)
+    g = (10 * rng.standard_normal((p, c))).astype(np.float32)
+    if payload == "bfloat16":
+        g = np.asarray(jnp.asarray(g, jnp.bfloat16)).astype(np.float32)
+    got = k3.segment_sum_small_ordered(T(idx), T(g, getattr(torch, payload)), n_rows)
+    assert got.dtype == torch.float32 and got.shape == (n_rows, c)
+    np.testing.assert_array_equal(got.numpy(), _k3_order_oracle(idx, g, n_rows))
+    keep = (idx >= 0) & (idx < n_rows)
+    np.testing.assert_allclose(got.numpy(), _oracle(idx[keep], g[keep], n_rows), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_rows,p,payload,kind", [
+    (640, 5000, "float32", "ball"), (64, 3000, "bfloat16", "uniform"),
+    (1030, 1500, "float32", "uniform"), (700, 2500, "bfloat16", "out-of-range"),
+])
+def test_segment_sum_small_ordered_matches_pallas(rng, n_rows, p, payload, kind):
+    """The ordered plain version against JAX's segment_sum_matmul (interpret
+    mode), at test_segment_sum_small_plain_matches_pallas's tolerance;
+    JAX's kernel skips out-of-range indices too."""
+    idx = _line_idx(rng, kind, p, n_rows)
+    g = rng.standard_normal((p, 64)).astype(np.float32)
+    if payload == "bfloat16":
+        g = np.asarray(jnp.asarray(g, jnp.bfloat16)).astype(np.float32)
+    jdt = jnp.float32 if payload == "float32" else jnp.bfloat16
+    want = jsegsum.segment_sum_matmul(jnp.asarray(idx, jnp.int32), jnp.asarray(g, jdt), n_rows)
+    got = k3.segment_sum_small_ordered(T(idx), T(g, getattr(torch, payload)), n_rows)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
+def test_segsum_plan_is_a_function_of_the_shapes(monkeypatch):
+    """K3's plan reads no device: the same (P, n_rows, C) give the same
+    plan with every card query raising. Its ranges cover the points with
+    none empty, in multiples of 32 points; a block's accumulator fits its
+    160 KB; row tiles cover the table; the blocks and partial tables stay
+    within BLOCKS and SCRATCH_FLOATS (or one range)."""
+    shapes = [(4096 * 332, 640, 64), (4096 * 72, 64, 64), (0, 640, 64), (5, 7, 3), (200_000, 1500, 64),
+              (50_000, 640, 20), (10**6, 40_000, 64), (777, 30, 64)]
+    want = [k3.segsum_plan(*s) for s in shapes]
+    for name in ("device_count", "get_device_properties", "current_device"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a, **k: (_ for _ in ()).throw(AssertionError("card read")))
+    assert [k3.segsum_plan(*s) for s in shapes] == want
+    assert want[0] == k3.SegsumPlan(640, 1, 132, 10_304) and want[1] == k3.SegsumPlan(64, 1, 132, 2240)
+    for (p, n_rows, c), plan in zip(shapes, want):
+        assert plan.range_len % k3.RANGE_ALIGN == 0 and plan.n_ranges >= 1
+        if p:
+            assert (plan.n_ranges - 1) * plan.range_len < p <= plan.n_ranges * plan.range_len
+        assert plan.tile_rows * c <= k3.ACC_FLOATS and plan.n_tiles * plan.tile_rows >= n_rows
+        assert plan.n_ranges == 1 or (plan.n_ranges * plan.n_tiles <= k3.BLOCKS
+                                      and plan.n_ranges * n_rows * c <= k3.SCRATCH_FLOATS)
+
+
 def test_segment_sum_small_cpu_dispatch_and_no_fallback(rng):
     idx = T(rng.integers(0, 10, 50))
     g = T(rng.normal(size=(50, 4)).astype(np.float32))

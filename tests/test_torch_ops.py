@@ -481,11 +481,27 @@ def test_fused_march_features_matches_jax(rng, dt):
     from localrf_tpu.ops.pallas import march as jmarch
     from localrf_tpu_torch.ops.kernels import march as tmarch
 
-    grid = (16, 16, 16)
-    kw = dict(grid_size=grid, fused_march=True, binned_min_rows=100, gather_dtype=dt, mlp_dtype=dt)
+    assert not tmarch.fused_march_supported(ttf.TensorfConfig(grid_size=(16, 16, 12)))
+    f32 = dt == "float32"
+    for k, (got, want) in _fused_march_vs_jax(rng, gather_dtype=dt, mlp_dtype=dt).items():
+        scale = float(want.abs().max())
+        err = float((got - want).abs().max())
+        if k in ("sig", "rgb"):
+            close(got, want, *((1e-4, 1e-5) if f32 else (2e-2, 2e-2)))
+        else:
+            assert err <= (1e-4 if f32 else 6e-2) * scale, f"{k}: {err:.2e} of max {scale:.2e}"
+
+
+def _fused_march_vs_jax(rng, **kw) -> dict:
+    """fused_march_features of the port and of JAX on one random field and
+    600 points with random cotangents: {name: (port, JAX)} as f32 tensors
+    for sig, rgb, every parameter's gradient and the points' ("x")."""
+    from localrf_tpu.ops.pallas import march as jmarch
+    from localrf_tpu_torch.ops.kernels import march as tmarch
+
+    kw = dict(grid_size=(16, 16, 16), fused_march=True, binned_min_rows=100, **kw)
     jcfg, tcfg = jtf.TensorfConfig(**kw), ttf.TensorfConfig(**kw)
     assert tmarch.fused_march_supported(tcfg) and jmarch.fused_march_supported(jcfg)
-    assert not tmarch.fused_march_supported(ttf.TensorfConfig(grid_size=(16, 16, 12)))
     jp, field = _field(cfg=jcfg)
     pts = rng.uniform(-1.05, 1.05, (600, 3)).astype(np.float32)
     vd = rng.normal(size=(600, 3)).astype(np.float32)
@@ -502,18 +518,34 @@ def test_fused_march_features_matches_jax(rng, dt):
     sig, rgb = tmarch.fused_march_features(field, ttf.build_combined_quad_views(field, tcfg), x_t, T(vd), tcfg)
     (_, (sig_j, rgb_j)), (g_pj, g_xj) = jax.jit(jax.value_and_grad(j_fn, argnums=(0, 1), has_aux=True))(
         jp, jnp.asarray(pts))
-    f32 = dt == "float32"
-    close(sig, sig_j, *((1e-4, 1e-5) if f32 else (2e-2, 2e-2)))
-    close(rgb, rgb_j, *((1e-4, 1e-5) if f32 else (2e-2, 2e-2)))
     loss = (sig * T(w_sig)).sum() + (rgb * T(w_rgb)).sum()
     names = [n for n, _ in field.named_parameters()]
     g_t = dict(zip(names + ["x"], torch.autograd.grad(loss, list(field.parameters()) + [x_t], allow_unused=True)))
     want = {**params_from_jax(jax.device_get(g_pj), device="cpu"), "x": T(g_xj)}
-    for k, v in want.items():
-        got = g_t[k].detach().float().numpy()
-        scale = float(v.float().abs().max())
-        err = float(np.abs(got - v.float().numpy()).max())
-        assert err <= (1e-4 if f32 else 6e-2) * scale, f"{k}: {err:.2e} of max {scale:.2e}"
+    out = {"sig": (sig.detach(), T(sig_j)), "rgb": (rgb.detach(), T(rgb_j))}
+    out.update({k: (g_t[k].detach().float(), v.float()) for k, v in want.items()})
+    return out
+
+
+def test_fused_march_with_segsum_lines_matches_jax(rng):
+    """The fused march with the segsum line mode in bf16 (tables and MLP):
+    the port builds f32 quad line views for that mode and casts them to
+    bf16 for K4, JAX casts the lines before building the views; forward
+    values agree as in test_fused_march_features_matches_jax, and the line
+    tables' gradients to 1e-5 of their largest entry (measured: equal; JAX
+    on the CPU adds the two quad-row cotangents of a line row in f32, as
+    the port does, while a bf16 sum would miss by ~2e-3), the other
+    gradients to 6e-2 of their largest entry."""
+    got = _fused_march_vs_jax(rng, gather_dtype="bfloat16", mlp_dtype="bfloat16", line_bwd="segsum")
+    lines = [k for k in got if "_line_" in k]
+    assert len(lines) == 6
+    for k, (port, want) in got.items():
+        scale = float(want.abs().max())
+        err = float((port - want).abs().max())
+        if k in ("sig", "rgb"):
+            close(port, want, 2e-2, 2e-2)
+        else:
+            assert err <= (1e-5 if k in lines else 6e-2) * scale, f"{k}: {err:.2e} of max {scale:.2e}"
 
 
 @pytest.mark.parametrize("dt", ["float32", "bfloat16"])
