@@ -18,10 +18,11 @@
    indices and on the line indices of a real 640^3 segsum step, bit for
    bit against its ordered plain version and against a second launch), K4
    (fused march core, forward and backward; K4-bwd also by its kernels' device
-   us from one profiled call), and K5 (the merged segment sum: no
-   training path calls it, as none does in the JAX package; it is also
-   checked bit for bit against a second launch and timed beside K2 on the
-   same inputs).
+   us from one profiled call), and K5 (the plane segment sum in a fixed
+   order; on K2's uniform and real-step inputs, indices out of range and
+   P = 0: bit for bit against its ordered plain version and a second
+   launch, its two sort levels against merged_bins_plain; timed beside K2,
+   with its kernels' device us from one profiled call).
 3. One small training step card vs CPU (32^3, f32) for the default path,
    the fused march (--fused_march 1) and the segsum lines (--line_bwd
    segsum).
@@ -39,10 +40,12 @@
    captured again after it), and at 640^3 on the default, the fused march
    and the segsum-lines paths. The 64^3, 640^3 default and segsum phases
    first train a chunk with every sum in a fixed order (torch's
-   deterministic algorithms, the plane VJP through K5; K3 sums in a fixed
-   order of its own) and hold it bit for bit against the same 16 steps
-   taken eagerly by a twin model from the same state (not the fused march,
-   whose K4-bwd adds the line gradient atomically). Then, on the path as it runs: the first chunk
+   deterministic algorithms, the plane VJP through K5, captured in the
+   chunk's graphs; K3 sums in a fixed order of its own) and hold it bit for
+   bit against the same 16 steps taken eagerly by a twin model from the
+   same state (not the fused march, whose K4-bwd adds the line gradient
+   atomically); K5's launch count comes from these chunks, reset just
+   before each and read after it. Then, on the path as it runs: the first chunk
    against a twin's eager steps (tolerances at CHUNK_TOL; the chunk's launch
    counts are read before the twin runs), 3 chunks timed, one traced with
    torch.profiler, which must show one graph launch per step whose replays
@@ -96,9 +99,7 @@ K4_TOL = {"out": 1e-2, "grad": 2e-2}
 K3_CASES = ((64, 4096 * 72), (640, 4096 * 332))
 K4_CASES = ((64, 4096 * 72), (640, 4096 * 332))
 
-# K5 against its plain version (sort + f32 index_add_, whose atomic adds
-# run in another order): f32 out as K2, bf16 out within one bf16 ulp
-K5_TOL_F32 = (1e-4, 1e-4)
+# K5 equals its ordered plain version (binned_segment_sum_merged_ordered) bit for bit
 # the chunk path: train.py's --scan_chunk default, and its pixel-pool
 # capacity n_max_frames + n_overlap + 16 at the defaults (100, 30)
 CHUNK = 16
@@ -426,8 +427,7 @@ def check_k2(dev, gen, real: dict) -> list[dict]:
     indices and on the recorded indices of a real step (`real`), with a
     random bf16 payload of 128 channels; its bin kernels against
     tile_bins_plain; timed bf16 -> bf16 beside the plain version and
-    index_add_. Also checked, not timed: indices out of range, and P = 0.
-    K5 runs on each shape's uniform inputs (check_k5)."""
+    index_add_. Also checked, not timed: indices out of range, and P = 0."""
     import torch
 
     from localrf_tpu_torch.ops.kernels import binned_scatter as k2
@@ -458,8 +458,6 @@ def check_k2(dev, gen, real: dict) -> list[dict]:
                 library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, out)),
                 occupied_tiles=int((counts > 0).sum()), max_tile_points=int(counts.max()),
             ))
-        rows.append(check_k5(uniform, g, n_rows, f"{label} uniform: n_rows {n_rows}, P {p}, bf16 -> bf16",
-                             rows[-2]["ms"], main=label == "640^3"))
         # out of range (skipped) and P = 0 (zeros), in both out dtypes
         wild = torch.randint(-n_rows // 4, n_rows + n_rows // 4, (p,), generator=gen, device=dev)
         _check_k2_bins(wild, n_rows)
@@ -477,33 +475,81 @@ def check_k2(dev, gen, real: dict) -> list[dict]:
     return rows
 
 
-def check_k5(idx, g, n_rows: int, shape: str, k2_ms: float, main: bool) -> dict:
-    """K5 against its plain version on K2's inputs, in f32 and bf16 out, bit
-    for bit against a second launch; timed whole (sort, payload gather, tile
-    bounds, kernel) and as the kernel alone on a prepared schedule."""
+def _check_k5_exact(idx, g, n_rows: int, label: str) -> float:
+    """K5 in f32 and bf16 out equal to its ordered plain version and to a
+    second launch, bit for bit; its two sort levels equal to
+    merged_bins_plain (level 2 read from the global scratch: seg_cap 0).
+    Returns max |K5 - ordered plain| (0 once equal)."""
     import torch
 
     from localrf_tpu_torch.ops.kernels import binned_scatter as k2
 
-    out32 = k2.binned_segment_sum_merged(idx, g, n_rows, torch.float32)
-    err32 = _close(out32, k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.float32),
-                   *K5_TOL_F32)
-    out16 = k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)
-    err16 = _within_one_bf16_ulp(out16, k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16))
-    for out, dt in ((out32, torch.float32), (out16, torch.bfloat16)):
-        if not torch.equal(out, k2.binned_segment_sum_merged(idx, g, n_rows, dt)):
-            raise AssertionError(f"segment_sum_merged ({dt}) differs between two launches")
-    sidx, order, starts, tile_rows = k2.merged_schedule(idx, n_rows)
-    g_sorted = g.index_select(0, order)
-    return dict(
-        name="segment_sum_merged", shape=shape, main=main, max_abs_err=max(err32, err16),
-        ms=_time_ms(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)),
-        kernel_ms=_time_ms(
-            lambda: k2._launch_merged(sidx, g_sorted, starts, tile_rows, n_rows, torch.bfloat16)),
-        plain_ms=_time_ms(lambda: k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16)),
-        library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, out16)),
-        k2_ms=k2_ms, tile_rows=tile_rows, n_tiles=starts.shape[0] - 1,
-    )
+    err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        got = k2.binned_segment_sum_merged(idx, g, n_rows, dt)
+        if got.dtype != dt or got.shape != (n_rows, g.shape[1]):
+            raise AssertionError(f"segment_sum_merged {label}: out {got.dtype} {tuple(got.shape)}")
+        want = k2.binned_segment_sum_merged_ordered(idx, g, n_rows, dt)
+        if got.numel():
+            err = max(err, float((got.float() - want.float()).abs().max()))
+        if not torch.equal(got, want):
+            raise AssertionError(f"segment_sum_merged {label} ({dt}): differs from its ordered plain version")
+        if not torch.equal(got, k2.binned_segment_sum_merged(idx, g, n_rows, dt)):
+            raise AssertionError(f"segment_sum_merged {label} ({dt}): two launches differ")
+    want = k2.merged_bins_plain(idx, n_rows, k2.merged_plan(idx.shape[0], g.shape[1], n_rows))
+    n = int(want["starts"][-1])
+    _, sched = k2._merged_cuda(idx, g, n_rows, torch.bfloat16, seg_cap=0)
+    if not (torch.equal(sched["tile_start"].long(), want["starts"])
+            and torch.equal(sched["bins"][:n, 0].long(), want["by_point"])
+            and torch.equal(sched["bins"][:n, 1].long(), want["by_point_row"])
+            and torch.equal(sched["scratch"][:n].long(), want["by_row"])):
+        raise AssertionError(f"segment_sum_merged {label}: its sort levels differ from merged_bins_plain")
+    return err
+
+
+def check_k5(dev, gen, real: dict) -> list[dict]:
+    """K5 at the main path's two plane shapes on uniform random indices and
+    on the recorded indices of a real step (`real`, as K2), with a random
+    bf16 payload of 128 channels: bit for bit against its ordered plain
+    version and a second launch, its sort levels against merged_bins_plain;
+    timed bf16 -> bf16 beside the plain version, index_add_ and K2 on the
+    same inputs, with the device us of each of its kernels (one profiled
+    call: count, scan, scatter, reduce) and the most points in a tile and
+    in a row. Also checked, not timed: indices out of range, and P = 0."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import binned_scatter as k2
+    from localrf_tpu_torch.scripts.kernel_ab import kernel_us
+
+    rows = []
+    for label, n_rows, p in (("64^3", 4096, 4096 * 72), ("640^3", 409_600, 4096 * 332)):
+        g = torch.randn(p, 128, generator=gen, device=dev).to(torch.bfloat16)
+        uniform = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
+        for kind, idx in (("uniform", uniform), ("real step", real[label][0])):
+            shape = f"{label} {kind}: n_rows {n_rows}, P {p}, bf16 -> bf16"
+            err = _check_k5_exact(idx, g, n_rows, shape)
+            out = k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)
+            plan = k2.merged_plan(p, 128, n_rows)
+            rows.append(dict(
+                name="segment_sum_merged", shape=shape, main=label == "640^3" and kind == "real step",
+                max_abs_err=err,
+                ms=_time_ms(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)),
+                plain_ms=_time_ms(lambda: k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16)),
+                library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, out)),
+                k2_ms=_time_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16)),
+                kernel_us=kernel_us(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)),
+                max_tile_points=int(torch.bincount(idx >> plan.shift).max()),
+                max_row_points=int(torch.bincount(idx).max()),
+            ))
+        wild = torch.randint(-n_rows // 4, n_rows + n_rows // 4, (p,), generator=gen, device=dev)
+        _check_k5_exact(wild, g, n_rows, f"{label} out of range")
+        for dt in (torch.float32, torch.bfloat16):
+            empty = k2.binned_segment_sum_merged(wild[:0], g[:0], n_rows, dt)
+            if empty.dtype != dt or empty.shape != (n_rows, 128) or empty.any():
+                raise AssertionError(f"segment_sum_merged with P = 0 ({dt}) is not a zero table")
+        print(f"kernel segment_sum_merged {label} out of range ({int(((wild < 0) | (wild >= n_rows)).sum())}"
+              f" skipped) and P = 0: bit for bit = ordered plain = 2nd launch, bins = merged_bins_plain")
+    return rows
 
 
 def march_inputs(g: int, p: int, dtype, gen, dev) -> tuple[list, "torch.Tensor"]:
@@ -643,8 +689,9 @@ KERNELS = {
     "segment_sum_merged": ("localrf_tpu_torch/csrc/segment_sum_merged.cu",
                            "localrf_tpu/ops/pallas/binned_scatter.py:365"),
 }
-# kernels that no training path calls (checked and timed in phase 2 only)
-OFF_PATH = {"segment_sum_merged"}
+# K5 is on no training path as it runs; with every sum in a fixed order
+# (deterministic_sums) it takes K2's place as the plane gathers' VJP
+FIXED_ORDER = {"segment_sum": "segment_sum_merged"}
 # each launch counter's kernel symbol, as a profiler trace names it
 SYMBOLS = {
     "fused_weights_fwd": "composite_fwd_kernel",
@@ -653,7 +700,7 @@ SYMBOLS = {
     "segment_sum_small": "segsum_small_kernel",
     "march_fwd": "march_fwd_mma_kernel",
     "march_bwd": "march_bwd_mlp_mma_kernel",
-    "segment_sum_merged": "segment_sum_merged_kernel",
+    "segment_sum_merged": "merged_reduce_kernel",
 }
 # the kernels each training path launches (and no other)
 PATH_KERNELS = {
@@ -737,12 +784,14 @@ def _check_losses_and_updates(label: str, losses: list[dict], before: dict, mode
             raise AssertionError(f"{label}: {k} did not change")
 
 
-def _check_launches(label: str, launches: dict, path: str) -> None:
-    """The kernels of `path` launched (count > 0), no other did."""
+def _check_launches(label: str, launches: dict, path: str, fixed_order: bool = False) -> None:
+    """The kernels of `path` launched (count > 0), no other did; with
+    `fixed_order`, K5 in K2's place (FIXED_ORDER)."""
+    kernels = {FIXED_ORDER.get(k, k) for k in PATH_KERNELS[path]} if fixed_order else PATH_KERNELS[path]
     for k, n in launches.items():
-        if k in PATH_KERNELS[path] and n <= 0:
+        if k in kernels and n <= 0:
             raise AssertionError(f"{label}: kernel {k} was not launched by the training step")
-        if k not in PATH_KERNELS[path] and n != 0:
+        if k not in kernels and n != 0:
             raise AssertionError(f"{label}: kernel {k} is off this path but launched {n} times")
 
 
@@ -958,17 +1007,20 @@ def _replan(ds, state: dict, twin, batches: list) -> list:
     return twin_batches
 
 
-def chunk_bit_exact(label: str, make, ds) -> int:
+def chunk_bit_exact(label: str, make, ds, path: str) -> tuple[int, dict]:
     """Under deterministic_sums, a pooled chunk of CHUNK replayed graphs of
     a model from make(True) equals the same steps taken eagerly by a twin
     from make(False), bit for bit: every loss of every step, then every
-    tensor of _state. Returns the number of tensors compared."""
+    tensor of _state. The launch counts, reset just before the chunk and
+    read after the twin's steps, show K5 in K2's place on `path`. Returns
+    the number of tensors compared and those counts."""
     import torch
 
     with deterministic_sums():
         model, twin = make(True), make(False)
         batches, state = _plan(ds, model)
         twin_batches = _replan(ds, state, twin, batches)
+        _reset_launch_counts()
         _run_chunk(model, batches)
         got = model.chunk_metrics
         for i, b in enumerate(twin_batches):
@@ -977,6 +1029,8 @@ def chunk_bit_exact(label: str, make, ds) -> int:
                 if float(got[k][i]) != v:
                     raise AssertionError(f"{label} (fixed-order sums): step {i} {k}:"
                                          f" graph {float(got[k][i])!r} vs eager {v!r}")
+        launches = _launch_counts()
+        _check_launches(f"{label} (fixed-order sums)", launches, path, fixed_order=True)
         mine, theirs = _state(model), _state(twin)
         differ = [k for k in theirs if not _bits_equal(mine[k], theirs[k])]
         if differ or mine.keys() != theirs.keys():
@@ -984,7 +1038,7 @@ def chunk_bit_exact(label: str, make, ds) -> int:
         model.drop_graphs()  # captured with K5 in the step
     del model, twin
     torch.cuda.empty_cache()
-    return len(mine)
+    return len(mine), launches
 
 
 def chunk_against_eager(label: str, model, make_twin, ds, path: str) -> dict:
@@ -1109,7 +1163,7 @@ def run_chunks(label: str, make, ds, path: str) -> tuple[dict, object]:
     Returns (results, the pooled model)."""
     import torch
 
-    n_exact = 0 if path in UNORDERED_SUMS else chunk_bit_exact(label, make, ds)
+    n_exact, exact_launches = (0, {}) if path in UNORDERED_SUMS else chunk_bit_exact(label, make, ds, path)
     model = make(True)
     graphs = model._graphs
     before = _snapshot(model)
@@ -1145,7 +1199,7 @@ def run_chunks(label: str, make, ds, path: str) -> tuple[dict, object]:
     f = model.fields[-1]
     print(f"chunk {label}: not compared bit for bit ({UNORDERED_SUMS[path]})" if path in UNORDERED_SUMS
           else f"chunk {label}: with fixed-order sums, graph and eager equal bit for bit over"
-               f" {CHUNK} steps (every loss, {n_exact} state tensors)")
+               f" {CHUNK} steps (every loss, {n_exact} state tensors; launches {exact_launches})")
     print(f"chunk {label}: grid {f['cfg'].grid_size} occ_m {f['cfg'].occ_m}, {n_graphs} graph(s)"
           f" captured in the first chunk ({first['capture_ms']:.1f} ms for {CHUNK} steps, warm-up and"
           f" capture included; launches {launches}); graph vs eager: worst relative rgb_loss"
@@ -1165,7 +1219,8 @@ def run_chunks(label: str, make, ds, path: str) -> tuple[dict, object]:
     return {"ms": ms, "ms_all": times, "idle": idle, "device_gaps": gaps, "peak": peak,
             "reserved": reserved, "graphs": n_graphs, "captures": graphs.captures,
             "launches": launches, "replayed": replayed, "capture_ms": first["capture_ms"],
-            "worst_rel": first["worst_rel"], "bit_exact_tensors": n_exact}, model
+            "worst_rel": first["worst_rel"], "bit_exact_tensors": n_exact,
+            "exact_launches": exact_launches}, model
 
 
 def chunk_64(ds, dev, pool) -> dict:
@@ -1246,13 +1301,15 @@ def main() -> None:
     real = real_plane_indices(dev, ds)
     real_lines = real_line_indices(dev, ds)
     gen = torch.Generator(device=dev).manual_seed(0)
-    rows = check_k1(dev, gen) + check_k2(dev, gen, real)
+    rows = check_k1(dev, gen) + check_k2(dev, gen, real) + check_k5(dev, gen, real)
     del real
     gen = torch.Generator(device=dev).manual_seed(1)
     rows += check_k3(dev, gen, real_lines) + check_k4(dev, gen)
     del real_lines
     for row in rows:
-        extra = f"  kernel alone {row['kernel_ms']:.4f} ms  K2 {row['k2_ms']:.4f} ms" if "k2_ms" in row else ""
+        extra = (f"  bit for bit = ordered plain = 2nd launch, bins = merged_bins_plain; K2 {row['k2_ms']:.4f}"
+                 f" ms; most points in a tile {row['max_tile_points']}, in a row {row['max_row_points']}"
+                 if "k2_ms" in row else "")
         if "kernel_us" in row:
             extra += "  per kernel us " + ", ".join(f"{k} {v:.1f}" for k, v in row["kernel_us"].items())
         if "occupied_tiles" in row:
@@ -1317,8 +1374,11 @@ def main() -> None:
             "bound_bytes": row["bound_bytes"], "library_ms": row["library_ms"], "shape": row["shape"],
             "replayed": sum(ph["replayed"][name] for ph in chunks.values()),
         }
-        if name in OFF_PATH:
-            entry.update(on_main_path=False, kernel_ms=row["kernel_ms"], k2_ms=row["k2_ms"])
+        if name in FIXED_ORDER.values():
+            # on the fixed-order chunks' path only
+            entry["launches"] = sum(ph["exact_launches"].get(name, 0) for ph in chunks.values())
+            entry.update(path="fixed-order chunks", k2_ms=row["k2_ms"], max_tile_points=row["max_tile_points"],
+                         max_row_points=row["max_row_points"])
         if "kernel_us" in row:
             entry["kernel_us"] = row["kernel_us"]
         kernels.append(entry)

@@ -47,9 +47,11 @@ SIGNATURES = {
     # (zeroed), partials (f32), out, out_is_bf16, C, n_rows, tile_rows,
     # n_tiles, chunk, n_items_max, stream
     "lrf_segment_sum_reduce": (_P, _I, _I) + (_P,) * 9 + (_I, _I, _L, _I, _I, _I, _L, _P),
-    # sorted idx (int64), sorted g, g_is_bf16, tile starts (int64 [n_tiles + 1]),
-    # out, out_is_bf16, C, n_rows, tile_rows, n_tiles, stream
-    "lrf_segment_sum_merged": (_P, _P, _I, _P, _P, _I, _I, _L, _I, _L, _P),
+    # idx, idx_is_i64, g, g_is_bf16, vec, out, out_is_bf16, P, C, n_rows, shift,
+    # n_tiles, range_len, n_ranges, mat_len, mat, block_sums, tile_start, bins,
+    # scratch, seg_cap, stream
+    "lrf_segment_sum_merged": (_P, _I, _P, _I, _I, _P, _I, _L, _I, _L, _I, _I, _L, _I, _L)
+    + (_P,) * 5 + (_I, _P),
     # idx (int64), g, g_is_bf16, partials (f32), out (f32), P, C, n_rows,
     # tile_rows, n_ranges, range_len, stream
     "lrf_segsum_small": (_P, _P, _I, _P, _P, _L, _I, _L, _I, _I, _L, _P),

@@ -19,17 +19,23 @@ The adds within a tile run in no fixed order: against the plain version the
 f32 result agrees to rtol 1e-4 / atol 1e-4, and a bf16 result to one bf16
 ulp.
 
-K5: `binned_segment_sum_merged` launches the CUDA kernel in
+K5: `binned_segment_sum_merged` launches the CUDA kernels in
 csrc/segment_sum_merged.cu, replacing the Pallas TPU kernel
-`binned_segment_sum_merged` (the merged-split v2 of the same file): the
-indices are sorted (stable) and the payload put in sorted order here, as
-the JAX wrapper does, then one block per tile of output rows sums its
-sorted range in order and writes every row once in the out dtype. No
-training path calls it (none does in the JAX package either); it is K2's
-function with a fixed summation order, so it is deterministic.
-`binned_segment_sum_merged_plain` (the same sort, an f32 `index_add_` and
-a cast) is the CPU path and the on-card reference; on the CPU it sums in
-the kernel's order.
+`binned_segment_sum_merged` (the merged-split v2 of the same file): K2's
+function in one fixed order, each row's points added in increasing point
+id from 0.0 in f32 and the row written once in the out dtype, so it is
+deterministic. The card sorts the point ids by hand (a stable counting
+sort by tile of output rows, then by row within a tile's block) and reads
+the payload once, in place, by id; a warp sums each row (see the note in
+the .cu for what bounds it). `merged_plan` sizes every buffer from the
+shapes alone, so the call is capturable in a CUDA graph; `merged_bins_plain`
+is the two sort levels in plain PyTorch (the kernels' on-card reference).
+`binned_segment_sum_merged_ordered` sums in K5's order in plain PyTorch on
+any device: the kernel equals it bit for bit.
+`binned_segment_sum_merged_plain` (a stable sort, an f32 `index_add_` and a
+cast) is the CPU path; on the CPU it equals the ordered version bit for
+bit. No training path calls K5 (none does in the JAX package either);
+fixed-order training sends the plane gathers' VJP through it.
 """
 from __future__ import annotations
 
@@ -176,61 +182,106 @@ def segment_sum(idx: torch.Tensor, g: torch.Tensor, n_rows: int, out_dtype=torch
     return _segment_sum_cuda(idx, g, n_rows, out_dtype)
 
 
-# K5 sizes its tiles to about this many sorted points: each block walks its
-# tile's points in order, so a tile must be short enough that the blocks
-# fill the card and long enough to amortise the block's start
-MERGED_POINTS_PER_TILE = 256
-MERGED_MAX_TILE_ROWS = 1024
+# K5's plan: tiles of at most MERGED_MAX_ROWS rows (a power of two, K2's
+# tile_rows where that is smaller: 64 for rows of 128); level-1 ranges of
+# MERGED_RANGE points, longer where P would make more than MERGED_RANGES of
+# them; matrix and scan in chunks of SCAN_CHUNK ints; a tile segment of at
+# most MERGED_SEG_CAP points sorted by row in shared memory (longer ones in
+# a global scratch); at most MERGED_MAX_TILES tiles (a block keeps a counter
+# per tile in shared memory: 227 KB)
+MERGED_MAX_ROWS = 256
+MERGED_RANGE = 2048
+MERGED_RANGES = 4096
+SCAN_CHUNK = 4096
+MERGED_SEG_CAP = 8192
+MERGED_MAX_TILES = 58_112
 
 
-def merged_schedule(idx: torch.Tensor, n_rows: int):
-    """K5's schedule: (sorted idx int64, order, starts int64 [n_tiles + 1],
-    tile_rows). Tile t holds rows [t * tile_rows, (t + 1) * tile_rows) and
-    the sorted points starts[t] <= p < starts[t + 1]; indices outside
-    [0, n_rows) fall outside every tile."""
-    p = idx.shape[0]
-    tile_rows = max(1, min(MERGED_MAX_TILE_ROWS, MERGED_POINTS_PER_TILE * n_rows // max(p, 1)))
-    sorted_idx, order = torch.sort(idx.to(torch.int64), stable=True)
-    n_tiles = -(-n_rows // tile_rows)
-    bounds = torch.clamp(
-        torch.arange(n_tiles + 1, dtype=torch.int64, device=idx.device) * tile_rows, max=n_rows
-    )
-    return sorted_idx, order, torch.searchsorted(sorted_idx, bounds), tile_rows
+class MergedPlan(NamedTuple):
+    """K5's schedule sizes, from the shapes alone: tiles of 2**shift rows
+    (`n_tiles`), point ranges [k * range_len, (k + 1) * range_len)
+    (`n_ranges`), and the [n_tiles, n_ranges] count matrix padded to
+    `mat_len` ints. The order of the sum does not depend on it."""
+
+    tile_rows: int
+    shift: int
+    n_tiles: int
+    range_len: int
+    n_ranges: int
+    mat_len: int
+
+
+def merged_plan(p: int, c: int, n_rows: int) -> MergedPlan:
+    rows = min(tile_plan(p, c, n_rows).tile_rows, MERGED_MAX_ROWS)
+    shift = rows.bit_length() - 1
+    n_tiles = max(1, -(-n_rows >> shift))
+    range_len = max(MERGED_RANGE, 256 * -(-p // (256 * MERGED_RANGES)))
+    n_ranges = max(1, -(-p // range_len))
+    mat_len = -(-n_tiles * n_ranges // SCAN_CHUNK) * SCAN_CHUNK
+    return MergedPlan(1 << shift, shift, n_tiles, range_len, n_ranges, mat_len)
+
+
+def row_ordered_sum(idx: torch.Tensor, g32: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """[n_rows, C] f32: each row's points summed in point order from 0.0
+    (indices outside [0, n_rows) skipped). The k-th points of all rows are
+    added in one step (their rows are distinct, so each add is exact), one
+    step per rank of a point within its row: a reference, slow."""
+    part = torch.zeros((n_rows, g32.shape[1]), dtype=torch.float32, device=g32.device)
+    pts = torch.nonzero((idx >= 0) & (idx < n_rows)).flatten()
+    if not pts.numel():
+        return part
+    rows, order = torch.sort(idx[pts].to(torch.int64), stable=True)
+    pts = pts[order]  # grouped by row, each row's points in point order
+    counts = torch.bincount(rows, minlength=n_rows)
+    rank = torch.arange(rows.numel(), device=g32.device) - (torch.cumsum(counts, 0) - counts)[rows]
+    rank, by_rank = torch.sort(rank, stable=True)
+    for sel in torch.split(by_rank, torch.bincount(rank).tolist()):
+        part[rows[sel]] += g32[pts[sel]]
+    return part
 
 
 def binned_segment_sum_merged_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
                                     out_dtype=torch.float32) -> torch.Tensor:
-    """K5's function in plain PyTorch: the stable sort, the payload in sorted
-    order, an f32 `index_add_` and one cast. idx int32/int64 in [0, n_rows)."""
-    sorted_idx, order = torch.sort(idx.to(torch.int64), stable=True)
-    return segment_sum_plain(sorted_idx, g.index_select(0, order), n_rows, out_dtype)
+    """K5's function in plain PyTorch: a stable sort of the indices (those
+    outside [0, n_rows) sent to a spare row n_rows, dropped at the end), an
+    f32 `index_add_` and one cast; no host sync. On the CPU index_add_ adds
+    in index order, so this is K5's order."""
+    idx = idx.to(torch.int64)
+    spare = torch.full_like(idx, n_rows)
+    sorted_idx, order = torch.sort(torch.where((idx >= 0) & (idx < n_rows), idx, spare), stable=True)
+    return segment_sum_plain(sorted_idx, g.index_select(0, order), n_rows + 1, out_dtype)[:n_rows]
 
 
-def _launch_merged(sorted_idx, g_sorted, starts, tile_rows: int, n_rows: int, out_dtype):
-    """The K5 kernel on a schedule from `merged_schedule`."""
-    c = g_sorted.shape[1]
-    out = torch.empty((n_rows, c), dtype=out_dtype, device=g_sorted.device)
-    if n_rows and c:
-        with torch.cuda.device(g_sorted.device):
-            _build.launch(
-                "lrf_segment_sum_merged", sorted_idx.data_ptr(), g_sorted.data_ptr(),
-                int(g_sorted.dtype == torch.bfloat16), starts.data_ptr(), out.data_ptr(),
-                int(out_dtype == torch.bfloat16), c, n_rows, tile_rows, starts.shape[0] - 1,
-                _build.stream_ptr(g_sorted.device),
-            )
-        LAUNCHES["segment_sum_merged"] += 1
-    return out
+def binned_segment_sum_merged_ordered(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
+                                      out_dtype=torch.float32) -> torch.Tensor:
+    """K5's function summed in K5's order on any device (`row_ordered_sum`),
+    then cast once: the kernel's bit-for-bit reference on the card."""
+    return row_ordered_sum(idx, g.to(torch.float32), n_rows).to(out_dtype)
 
 
-def binned_segment_sum_merged(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
-                              out_dtype=torch.float32) -> torch.Tensor:
-    """out[n_rows, C] = sum_{p: idx_p == r} g_p, accumulated in f32 and written
-    once in `out_dtype` (float32 or bfloat16), in a fixed order. CPU tensors
-    take `binned_segment_sum_merged_plain`; CUDA tensors launch K5."""
-    if g.device.type == "cpu":
-        return binned_segment_sum_merged_plain(idx, g, n_rows, out_dtype)
-    if g.device.type != "cuda":
-        raise ValueError(f"binned_segment_sum_merged: no kernel for device {g.device}")
+def merged_bins_plain(idx: torch.Tensor, n_rows: int, plan: MergedPlan) -> dict:
+    """K5's two sort levels in plain PyTorch: starts int64 [n_tiles + 1]
+    (tile t's segment is [starts[t], starts[t + 1])); by_point [binned]
+    (each tile's in-range point ids in increasing id, tiles in order) and
+    by_point_row (their rows within the tile); by_row [binned] (each tile's
+    ids by row, each row's in increasing id)."""
+    idx = idx.to(torch.int64)
+    pts = torch.nonzero((idx >= 0) & (idx < n_rows)).flatten()
+    rows = idx[pts]
+    tiles = rows >> plan.shift
+    by_point = pts[torch.sort(tiles, stable=True).indices]
+    counts = torch.bincount(tiles, minlength=plan.n_tiles)[: plan.n_tiles]
+    zero = torch.zeros(1, dtype=torch.int64, device=idx.device)
+    return dict(starts=torch.cat([zero, torch.cumsum(counts, 0)]), by_point=by_point,
+                by_point_row=idx[by_point] & (plan.tile_rows - 1),
+                by_row=pts[torch.sort(rows, stable=True).indices])
+
+
+def _merged_cuda(idx, g, n_rows: int, out_dtype, seg_cap: int = MERGED_SEG_CAP) -> tuple[torch.Tensor, dict]:
+    """K5 on the current stream: (out, the schedule's int32 buffers:
+    tile_start [n_tiles + 1], bins [P, 2] = (id, row within the tile) of
+    which the first tile_start[-1] are live, scratch [P]: a tile segment's
+    ids by row where it is longer than `seg_cap`)."""
     if idx.dim() != 1 or g.dim() != 2 or idx.shape[0] != g.shape[0]:
         raise ValueError(f"idx [P] and g [P, C] expected, got {list(idx.shape)}, {list(g.shape)}")
     if idx.dtype not in (torch.int32, torch.int64):
@@ -239,9 +290,48 @@ def binned_segment_sum_merged(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
         raise TypeError(f"binned_segment_sum_merged supports float32/bfloat16, got {g.dtype} -> {out_dtype}")
     if idx.device != g.device:
         raise ValueError("idx and g must be on the same device")
-    sorted_idx, order, starts, tile_rows = merged_schedule(idx, n_rows)
-    g_sorted = g.index_select(0, order).contiguous()
-    return _launch_merged(sorted_idx, g_sorted, starts, tile_rows, n_rows, out_dtype)
+    idx, g = idx.contiguous(), g.contiguous()
+    p, c = g.shape
+    if p >= 2**31:
+        raise ValueError(f"binned_segment_sum_merged bins point ids as int32: P = {p} is too many")
+    plan = merged_plan(p, c, n_rows)
+    if plan.n_tiles > MERGED_MAX_TILES:
+        raise ValueError(f"binned_segment_sum_merged: {n_rows} rows make {plan.n_tiles} tiles of"
+                         f" {plan.tile_rows}, more than {MERGED_MAX_TILES}")
+    out = torch.empty((n_rows, c), dtype=out_dtype, device=g.device)
+    # the matrix first: the scan reads it 16 bytes at a time
+    sizes = {"mat": plan.mat_len, "bins": 2 * p, "block_sums": plan.mat_len // SCAN_CHUNK,
+             "tile_start": plan.n_tiles + 1, "scratch": p}
+    ints = torch.empty(sum(sizes.values()), dtype=torch.int32, device=g.device)
+    sched = dict(zip(sizes, torch.split(ints, list(sizes.values()))))
+    if not out.numel():
+        return out, sched
+    elem = g.element_size()
+    vec = 4 if c % 4 == 0 and g.data_ptr() % (4 * elem) == 0 else 1
+    with torch.cuda.device(g.device):
+        _build.launch(
+            "lrf_segment_sum_merged", idx.data_ptr(), int(idx.dtype == torch.int64), g.data_ptr(),
+            int(g.dtype == torch.bfloat16), vec, out.data_ptr(), int(out_dtype == torch.bfloat16), p, c,
+            n_rows, plan.shift, plan.n_tiles, plan.range_len, plan.n_ranges, plan.mat_len,
+            *(sched[k].data_ptr() for k in ("mat", "block_sums", "tile_start", "bins", "scratch")),
+            seg_cap, _build.stream_ptr(g.device),
+        )
+    LAUNCHES["segment_sum_merged"] += 1
+    sched["bins"] = sched["bins"].view(p, 2)
+    return out, sched
+
+
+def binned_segment_sum_merged(idx: torch.Tensor, g: torch.Tensor, n_rows: int,
+                              out_dtype=torch.float32) -> torch.Tensor:
+    """out[n_rows, C] = sum_{p: idx_p == r} g_p, accumulated in f32 in point
+    order within each row and written once in `out_dtype` (float32 or
+    bfloat16); indices outside [0, n_rows) are skipped. CPU tensors take
+    `binned_segment_sum_merged_plain`; CUDA tensors launch K5."""
+    if g.device.type == "cpu":
+        return binned_segment_sum_merged_plain(idx, g, n_rows, out_dtype)
+    if g.device.type != "cuda":
+        raise ValueError(f"binned_segment_sum_merged: no kernel for device {g.device}")
+    return _merged_cuda(idx, g, n_rows, out_dtype)[0]
 
 
 class _TakeRowsBinned(torch.autograd.Function):

@@ -36,7 +36,7 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .binned_scatter import segment_sum_plain
+from .binned_scatter import row_ordered_sum, segment_sum_plain
 
 LAUNCHES = {"segment_sum_small": 0}
 MAX_C = 64  # the kernel's payload width (csrc/segsum_small.cu kMaxC): a quad line row
@@ -83,24 +83,6 @@ def segment_sum_small_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> 
     return segment_sum_plain(idx, g, n_rows, torch.float32)
 
 
-def _range_sum(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """[n_rows, C] f32: each row's points of this range summed in point
-    order from 0 (indices outside [0, n_rows) skipped). The k-th points of
-    all rows are added in one step: their rows are distinct."""
-    part = torch.zeros((n_rows, g.shape[1]), dtype=torch.float32, device=g.device)
-    pts = torch.nonzero((idx >= 0) & (idx < n_rows)).flatten()
-    if not pts.numel():
-        return part
-    rows, order = torch.sort(idx[pts], stable=True)
-    pts = pts[order]  # grouped by row, each row's points in point order
-    counts = torch.bincount(rows, minlength=n_rows)
-    rank = torch.arange(rows.numel(), device=g.device) - (torch.cumsum(counts, 0) - counts)[rows]
-    rank, by_rank = torch.sort(rank, stable=True)
-    for sel in torch.split(by_rank, torch.bincount(rank).tolist()):
-        part[rows[sel]] += g[pts[sel]]
-    return part
-
-
 def segment_sum_small_ordered(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
     """K3's function summed in the kernel's order (`segsum_plan`'s ranges,
     each row's points in point order, then the ranges in order), so equal
@@ -114,7 +96,7 @@ def segment_sum_small_ordered(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -
     g32 = g.to(torch.float32)
     for k in range(plan.n_ranges):
         lo, hi = k * plan.range_len, min((k + 1) * plan.range_len, p)
-        out += _range_sum(idx[lo:hi], g32[lo:hi], n_rows)
+        out += row_ordered_sum(idx[lo:hi], g32[lo:hi], n_rows)
     return out
 
 

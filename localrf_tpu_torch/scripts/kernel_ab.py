@@ -1,4 +1,4 @@
-"""Time K1, K2, K3 and K4 of two checkouts on one card, in turns.
+"""Time K1, K2, K3, K4 and K5 of two checkouts on one card, in turns.
 
     python3 localrf_tpu_torch/scripts/kernel_ab.py --parent DIR [--chunks]
 
@@ -12,17 +12,20 @@ parent, each on the same inputs: K1 forward and backward at [4096, 72]
 (the shared [1, 72] dist row) and [4096, 332] (per-ray dists), K2
 bf16 -> bf16 on uniform and real-step indices at both plane shapes, K3
 bf16 -> f32 on uniform indices at 64 and 640 line rows and on the
-real-step line indices, and K4
+real-step line indices, K5 bf16 -> bf16 on K2's inputs, and K4
 forward and backward (bf16 tables and MLP, chip_smoke.march_inputs of that
 checkout: G 64, P 4096 x 72 and G 640, P 4096 x 332, line rows x0 drawn
 uniformly; K4-bwd also with x0 sorted within each ray's samples, as a
 march gives them). A time is a CUDA graph of 20 calls (K4: 10) replayed
 (as a captured training step launches them), per call; each worker also
-lists the device time of every CUDA kernel a K2, K3 or K4-bwd call ran
-(torch.profiler). With --chunks each worker also trains
+lists the device time of every CUDA kernel a K2, K3, K5 or K4-bwd call
+ran (torch.profiler). With --chunks each worker also trains
 the chunk path through that checkout's chip_smoke helpers (a 146-slot
 pixel pool, chunks of 16 replayed CUDA graphs): at 64^3 and at 640^3 on the
-default, the fused-march and the segsum-lines paths, one chunk to capture, then 3 timed
+default, the fused-march and the segsum-lines paths, and at 640^3 on the
+default path with every sum in a fixed order (that checkout's
+deterministic_sums: the plane gathers' VJP through K5, three calls a
+step), one chunk to capture, then 3 timed
 (ms/step, host clock ending in a synchronize) with the peak allocated
 bytes. Prints the card, one JSON line per worker, and the mean of each
 checkout's two workers. Needs a CUDA card.
@@ -31,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import pathlib
 import subprocess
@@ -86,8 +90,8 @@ def kernel_us(fn, reps: int = 5) -> dict:
 
 
 def worker(root: str, indices: str) -> dict:
-    """K1, K2, K3 and K4 of the checkout at `root`: graph-replay ms per
-    case, and the device us of each kernel of a K2, K3 or K4-bwd call."""
+    """K1, K2, K3, K4 and K5 of the checkout at `root`: graph-replay ms per
+    case, and the device us of each kernel of a K2, K3, K5 or K4-bwd call."""
     sys.path.insert(0, root)
     import torch
 
@@ -119,6 +123,9 @@ def worker(root: str, indices: str) -> dict:
             key = f"K2 {label} {kind}"
             times[key] = graph_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
             kernels[key] = kernel_us(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
+            key = f"K5 {label} {kind}"
+            times[key] = graph_ms(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16))
+            kernels[key] = kernel_us(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16))
     for label, n_rows, p in (("64^3", 64, 4096 * 72), ("640^3", 640, 4096 * 332)):
         g = torch.randn(p, 64, generator=gen, device=dev).to(torch.bfloat16)
         cases = [("uniform", torch.randint(0, n_rows, (p,), generator=gen, device=dev))]
@@ -146,8 +153,8 @@ def worker(root: str, indices: str) -> dict:
 
 def chunk_worker(root: str) -> dict:
     """ms/step and peak bytes of the chunk path at 64^3 and 640^3 (default,
-    fused march, segsum lines), through the chip_smoke helpers of the
-    checkout at `root`."""
+    fused march, segsum lines, and default with fixed-order sums), through
+    the chip_smoke helpers of the checkout at `root`."""
     import torch
 
     import chip_smoke as cs
@@ -161,7 +168,9 @@ def chunk_worker(root: str) -> dict:
     ds = cs.make_dataset(cs.W, cs.H, cs.N_FRAMES)
     pool = DevicePixelPool(ds, capacity=cs.POOL_SLOTS, device=dev)
     out = {}
-    for label in ("64^3", "640^3 default", "640^3 fused_march", "640^3 segsum"):
+    for label in ("64^3", "640^3 default", "640^3 fused_march", "640^3 segsum",
+                  "640^3 default fixed-order"):
+        fixed = cs.deterministic_sums() if label.endswith("fixed-order") else contextlib.nullcontext()
         if label == "64^3":
             model = LocalTensorfs(cs.full_width_config(64), device=dev)
             model.is_refining = True
@@ -171,8 +180,9 @@ def chunk_worker(root: str) -> dict:
         model.attach_pool(pool)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        cs._run_chunk(model, model.plan_chunk(ds, True, cs.CHUNK))  # warm-up and capture
-        times = [cs._run_chunk(model, model.plan_chunk(ds, True, cs.CHUNK)) / cs.CHUNK for _ in range(3)]
+        with fixed:
+            cs._run_chunk(model, model.plan_chunk(ds, True, cs.CHUNK))  # warm-up and capture
+            times = [cs._run_chunk(model, model.plan_chunk(ds, True, cs.CHUNK)) / cs.CHUNK for _ in range(3)]
         out[label] = {"ms_per_step": sorted(times)[1], "all": times,
                       "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         del model

@@ -18,11 +18,11 @@ rtol 1e-4 / atol 1e-5 and gradients 1e-4 of their largest entry (sums in
 another order, fused multiply-adds); with a bf16 table or MLP (both: the
 tensor-core kernels, whose bf16 MMAs sum exact products in f32), out atol
 1e-2 and gradients 2e-2 of their largest entry (a reordered f32 sum can
-flip one bf16 rounding of a hidden activation). K5 against its plain
-version: rtol 1e-4 / atol 1e-4 in f32 (the plain index_add_ adds atomically
-in another order), one bf16 ulp in bf16, and bit for bit against itself
-(its order is fixed). A captured chunk against the same steps taken
-eagerly from the same state: losses rtol 1e-6 on the first step (the
+flip one bf16 rounding of a hidden activation). K5 bit for bit against
+its ordered plain version and a second launch, and its two sort levels
+equal to merged_bins_plain (its order is fixed); against the plain
+index_add_ rtol 1e-4 / atol 1e-4 in f32 (another order). A captured chunk
+against the same steps taken eagerly from the same state: losses rtol 1e-6 on the first step (the
 forward has no atomics) and 1e-3 after (K2's atomic adds reorder f32 sums
 in the gradients, which Adam's first ~lr*sign(g) steps amplify); with
 every sum in a fixed order, bit for bit.
@@ -363,25 +363,127 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, g_rows, p, dtype, mlp_dtyp
         k4.march_core(args[0][:, :-1], *args[1:], mlp_dtype)
 
 
+# (n_rows, P, index kind, index dtype, payload dtype)
+K5_CARD_CASES = [
+    (4096, 4096 * 72, "uniform", torch.int64, torch.bfloat16),  # the 64^3 plane
+    (409_600, 4096 * 332, "uniform", torch.int64, torch.bfloat16),  # the 640^3 plane
+    (2048, 100_000, "hot", torch.int64, torch.bfloat16),  # every point in 60 rows
+    (409_600, 300_000, "out-of-range", torch.int64, torch.bfloat16),
+    (1000, 0, "uniform", torch.int64, torch.bfloat16),  # P = 0
+    (1000, 50_000, "uniform", torch.int64, torch.bfloat16),  # n_rows not a multiple of the tile
+    (4096, 150_000, "one-row", torch.int64, torch.bfloat16),  # one row holds 100k points
+    (1_000_000, 500_000, "uniform", torch.int64, torch.bfloat16),  # a 1M-row table
+    (4096, 100_000, "uniform", torch.int64, torch.float32),  # an f32 payload
+    (409_600, 300_000, "uniform", torch.int32, torch.bfloat16),  # int32 indices
+]
+
+
+def _k5_inputs(dev, n_rows, p, kind, idx_dtype, g_dtype, c=128):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if kind == "hot":
+        idx = torch.randint(0, 60, (p,), generator=gen, device=dev)
+    elif kind == "out-of-range":
+        idx = torch.randint(-n_rows // 4, n_rows + n_rows // 4, (p,), generator=gen, device=dev)
+    else:
+        idx = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
+    if kind == "one-row":
+        idx[torch.randperm(p, generator=gen, device=dev)[:100_000]] = 7
+    g = torch.randn(p, c, generator=gen, device=dev).to(g_dtype)
+    return idx.to(idx_dtype), g
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n_rows,p,hot", [(4096, 4096 * 72, False), (409_600, 4096 * 332, False),
-                                          (2048, 100_000, True)])
-def test_k5_kernel_matches_plain_and_is_deterministic(cuda_device, n_rows, p, hot):
-    gen = torch.Generator(device=cuda_device).manual_seed(0)
-    hi = 60 if hot else n_rows
-    idx = torch.randint(0, hi, (p,), generator=gen, device=cuda_device)
-    g = torch.randn(p, 128, generator=gen, device=cuda_device).to(torch.bfloat16)
-    n0 = k2.LAUNCHES["segment_sum_merged"]
-    got = k2.binned_segment_sum_merged(idx, g, n_rows)
-    assert k2.LAUNCHES["segment_sum_merged"] == n0 + 1
-    torch.testing.assert_close(got, k2.binned_segment_sum_merged_plain(idx, g, n_rows),
-                               rtol=1e-4, atol=1e-4)
-    got16 = k2.binned_segment_sum_merged(idx.to(torch.int32), g, n_rows, torch.bfloat16)
-    want16 = k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16)
-    gf, wf = got16.float().cpu().numpy(), want16.float().cpu().numpy()
-    assert (np.abs(gf - wf) <= bf16_ulp(np.maximum(np.abs(gf), np.abs(wf)))).all()
-    assert torch.equal(k2.binned_segment_sum_merged(idx, g, n_rows), got)
-    assert torch.equal(k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16), got16)
+@pytest.mark.parametrize("n_rows,p,kind,idx_dtype,g_dtype", K5_CARD_CASES)
+def test_k5_kernel_matches_plain_and_is_deterministic(cuda_device, n_rows, p, kind, idx_dtype, g_dtype):
+    """K5 equals its ordered plain version bit for bit (f32 and bf16 out) and
+    a second launch; each call launches once."""
+    idx, g = _k5_inputs(cuda_device, n_rows, p, kind, idx_dtype, g_dtype)
+    for dt in (torch.float32, torch.bfloat16):
+        n0 = k2.LAUNCHES["segment_sum_merged"]
+        got = k2.binned_segment_sum_merged(idx, g, n_rows, dt)
+        assert k2.LAUNCHES["segment_sum_merged"] == n0 + 1
+        assert got.dtype == dt and got.shape == (n_rows, 128)
+        assert torch.equal(got, k2.binned_segment_sum_merged_ordered(idx, g, n_rows, dt))
+        assert torch.equal(k2.binned_segment_sum_merged(idx, g, n_rows, dt), got)
+        if dt == torch.float32 and kind != "one-row":
+            keep = (idx >= 0) & (idx < n_rows)
+            torch.testing.assert_close(got, k2.segment_sum_plain(idx[keep], g[keep], n_rows),
+                                       rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [8, 20, 200])
+def test_k5_kernel_narrow_and_wide_rows_on_card(cuda_device, c):
+    """Rows of 8 (256-row tiles, two lanes of 4), 20 (not a whole number of
+    4-value pieces: one value a lane) and 200 values (32-row tiles, two
+    passes of the lanes over the channels): bit for bit against the ordered
+    plain version, f32 and bf16 payloads."""
+    for g_dtype in (torch.float32, torch.bfloat16):
+        idx, g = _k5_inputs(cuda_device, 5000, 60_000, "out-of-range", torch.int64, g_dtype, c=c)
+        for dt in (torch.float32, torch.bfloat16):
+            got = k2.binned_segment_sum_merged(idx, g, 5000, dt)
+            assert torch.equal(got, k2.binned_segment_sum_merged_ordered(idx, g, 5000, dt))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,p,kind", [(4096, 4096 * 72, "uniform"), (409_600, 300_000, "out-of-range"),
+                                           (2048, 100_000, "hot"), (1000, 0, "uniform")])
+def test_k5_bins_are_merged_bins_plain_on_card(cuda_device, n_rows, p, kind):
+    """K5's two sort levels equal merged_bins_plain (torch.equal): the tile
+    starts, each tile's (id, row) in increasing id (level 1) and its ids by
+    row (level 2, read from the global scratch: seg_cap 0 sends every tile
+    there), and the sum has the same bits as with the segments sorted in
+    shared memory."""
+    idx, g = _k5_inputs(cuda_device, n_rows, p, kind, torch.int64, torch.bfloat16)
+    want = k2.merged_bins_plain(idx, n_rows, k2.merged_plan(p, 128, n_rows))
+    n = int(want["starts"][-1])
+    ref = k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)
+    out, sched = k2._merged_cuda(idx, g, n_rows, torch.bfloat16, seg_cap=0)
+    assert torch.equal(sched["tile_start"].long(), want["starts"])
+    assert torch.equal(sched["bins"][:n, 0].long(), want["by_point"])
+    assert torch.equal(sched["bins"][:n, 1].long(), want["by_point_row"])
+    assert torch.equal(sched["scratch"][:n].long(), want["by_row"])
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_k5_captured_replay_equals_eager_call(cuda_device):
+    """A K5 call captured in a CUDA graph (no host sync, every buffer sized
+    from the shapes) and replayed on new values equals the eager call."""
+    idx, g = _k5_inputs(cuda_device, 409_600, 4096 * 332, "uniform", torch.int64, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k2.binned_segment_sum_merged(idx, g, 409_600, torch.bfloat16)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = k2.binned_segment_sum_merged(idx, g, 409_600, torch.bfloat16)
+    new_idx, new_g = _k5_inputs(cuda_device, 409_600, 4096 * 332, "out-of-range", torch.int64, torch.bfloat16)
+    idx.copy_(new_idx)
+    g.copy_(new_g)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, k2.binned_segment_sum_merged(idx, g, 409_600, torch.bfloat16))
+
+
+@pytest.mark.gpu
+def test_k5_calls_no_library_sort(cuda_device, monkeypatch):
+    """K5's card path sorts by hand: with torch.sort, torch.argsort,
+    torch.searchsorted and Tensor.index_select made to raise, a call still
+    runs and gives the ordered version's bits."""
+    idx, g = _k5_inputs(cuda_device, 409_600, 300_000, "out-of-range", torch.int64, torch.bfloat16)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("K5 called a library sort, search or gather")
+
+    with monkeypatch.context() as m:
+        for owner, name in ((torch, "sort"), (torch, "argsort"), (torch, "searchsorted"),
+                            (torch.Tensor, "sort"), (torch.Tensor, "argsort"),
+                            (torch.Tensor, "index_select")):
+            m.setattr(owner, name, refuse)
+        got = k2.binned_segment_sum_merged(idx, g, 409_600, torch.bfloat16)
+    assert torch.equal(got, k2.binned_segment_sum_merged_ordered(idx, g, 409_600, torch.bfloat16))
 
 
 def _chunk_models(dev, n: int):

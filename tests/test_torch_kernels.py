@@ -1,6 +1,6 @@
 """Port kernels: the plain PyTorch versions of K1 (compositing weights), K2
 (segment sum), K3 (small-table segment sum), K4 (fused march core) and K5
-(merged segment sum, and its schedule and walk written out in numpy)
+(merged segment sum; its order and its two sort levels written out as loops)
 against the Pallas kernels they replace, run in interpret mode on the CPU,
 at the shapes of tests/test_pallas_composite.py, tests/test_binned_scatter.py
 and tests/test_fused_march.py; the CPU dispatch of the wrappers; and the
@@ -297,33 +297,89 @@ def test_segment_sum_merged_bf16_out(rng):
         assert (np.abs(got - want) <= bf16_ulp(np.maximum(np.abs(got), np.abs(want)))).all()
 
 
-@pytest.mark.parametrize("n_rows,p,dist", K5_CASES + [(300, 5000, "out-of-range")])
-def test_segment_sum_merged_schedule_walk(rng, n_rows, p, dist):
-    """K5's schedule (merged_schedule) and the kernel's walk, written out in
-    numpy: every tile's sorted points lie in its rows, each tile writes all
-    its rows (zeros where no point lands), indices outside [0, n_rows) are
-    skipped, and the f32 sums equal the plain version bit for bit (both add
-    in sorted order)."""
+K5_ORDER_CASES = K5_CASES + [(300, 5000, "out-of-range")]
+
+
+def _k5_order_idx(rng, n_rows, p, dist):
     if dist == "out-of-range":
-        idx = rng.integers(-20, n_rows + 20, size=p)
-    else:
-        idx = _k5_idx(rng, n_rows, p, dist)
+        return rng.integers(-20, n_rows + 20, size=p)
+    return _k5_idx(rng, n_rows, p, dist)
+
+
+@pytest.mark.parametrize("n_rows,p,dist", K5_ORDER_CASES)
+def test_merged_bins_plain_matches_numpy_loop(rng, n_rows, p, dist):
+    """K5's two sort levels (merged_bins_plain, the kernels' reference)
+    against a loop: each tile's in-range points in increasing id, then
+    each tile's points by row, each row's in increasing id; tile starts
+    from the counts; out-of-range indices in no tile."""
+    idx = _k5_order_idx(rng, n_rows, p, dist)
+    plan = k2.merged_plan(p, 128, n_rows)
+    assert plan.tile_rows == 64 and plan.n_tiles == -(-n_rows // 64)
+    got = k2.merged_bins_plain(T(idx), n_rows, plan)
+    per_tile = [[] for _ in range(plan.n_tiles)]
+    for q in range(p):
+        if 0 <= idx[q] < n_rows:
+            per_tile[idx[q] // plan.tile_rows].append(q)
+    by_point = [q for pts in per_tile for q in pts]
+    by_row = [q for pts in per_tile for q in sorted(pts, key=lambda q: idx[q])]
+    starts = np.cumsum([0] + [len(pts) for pts in per_tile])
+    np.testing.assert_array_equal(got["starts"].numpy(), starts)
+    np.testing.assert_array_equal(got["by_point"].numpy(), by_point)
+    np.testing.assert_array_equal(got["by_point_row"].numpy(), idx[by_point] % plan.tile_rows)
+    np.testing.assert_array_equal(got["by_row"].numpy(), by_row)
+
+
+@pytest.mark.parametrize("n_rows,p,dist", K5_ORDER_CASES)
+def test_segment_sum_merged_ordered_is_the_point_order_sum(rng, n_rows, p, dist):
+    """K5's order, written as a loop: each row's points added in increasing
+    id from 0.0 in f32, out-of-range indices skipped. The ordered version
+    (the kernel's reference on the card) equals it bit for bit, and so does
+    the CPU plain version (index_add_ adds in index order on the CPU), in
+    f32 and in bf16 out."""
+    idx = _k5_order_idx(rng, n_rows, p, dist)
     g = rng.standard_normal((p, 128), dtype=np.float32)
-    sidx, order, starts, tile_rows = k2.merged_schedule(T(idx), n_rows)
-    sidx, order, starts = sidx.numpy(), order.numpy(), starts.numpy()
-    gs = g[order]
-    out = np.full((n_rows, 128), np.nan, np.float32)
-    for t in range(len(starts) - 1):
-        lo, hi = t * tile_rows, min((t + 1) * tile_rows, n_rows)
-        seg = sidx[starts[t] : starts[t + 1]]
-        assert ((seg >= lo) & (seg < hi)).all()
-        out[lo:hi] = 0.0
-        for q in range(starts[t], starts[t + 1]):
-            out[sidx[q]] = out[sidx[q]] + gs[q]
-    keep = (idx >= 0) & (idx < n_rows)
-    assert starts[-1] - starts[0] == keep.sum()
-    want = k2.binned_segment_sum_merged_plain(T(idx[keep]), T(g[keep]), n_rows)
-    np.testing.assert_array_equal(out, want.numpy())
+    want = np.zeros((n_rows, 128), np.float32)
+    for q in range(p):
+        if 0 <= idx[q] < n_rows:
+            want[idx[q]] = want[idx[q]] + g[q]
+    for dt in (torch.float32, torch.bfloat16):
+        got = k2.binned_segment_sum_merged_ordered(T(idx), T(g), n_rows, dt)
+        assert got.dtype == dt
+        assert torch.equal(got, T(want).to(dt))
+        assert torch.equal(k2.binned_segment_sum_merged_plain(T(idx), T(g), n_rows, dt), got)
+        assert torch.equal(k2.binned_segment_sum_merged(T(idx).to(torch.int32), T(g), n_rows, dt), got)
+
+
+@pytest.mark.parametrize("p,c,n_rows,tile_rows,range_len", [
+    (4096 * 72, 128, 4096, 64, 2048),  # the 64^3 plane
+    (4096 * 332, 128, 409_600, 64, 2048),  # the 640^3 plane
+    (20_000_000, 8, 1000, 256, 5120),  # many points: longer ranges; narrow rows: 256-row tiles
+])
+def test_merged_plan_from_shapes(p, c, n_rows, tile_rows, range_len):
+    """K5's plan: power-of-two tiles (K2's 64 rows for rows of 128), ranges
+    set from P alone, the count matrix padded to whole scan chunks."""
+    plan = k2.merged_plan(p, c, n_rows)
+    assert (plan.tile_rows, 1 << plan.shift, plan.range_len) == (tile_rows, tile_rows, range_len)
+    assert plan.n_tiles == -(-n_rows // tile_rows) and plan.n_ranges == -(-p // range_len)
+    assert plan.n_ranges <= k2.MERGED_RANGES
+    assert plan.mat_len % k2.SCAN_CHUNK == 0 and 0 <= plan.mat_len - plan.n_tiles * plan.n_ranges < k2.SCAN_CHUNK
+    assert k2.merged_plan(p, c, 7).range_len == range_len
+
+
+@pytest.mark.parametrize("case", ["too many tiles", "float indices", "shapes"])
+def test_merged_cuda_rejects_what_the_kernel_does_not_take(case):
+    """K5's card wrapper checks its inputs before it allocates or launches
+    (so on any device): a table of more tiles than a block can count in
+    shared memory, non-integer indices, mismatched shapes."""
+    idx, g, n_rows = torch.zeros(10, dtype=torch.int64), torch.zeros(10, 128), 100
+    if case == "too many tiles":
+        n_rows = 64 * (k2.MERGED_MAX_TILES + 1)
+    elif case == "float indices":
+        idx = idx.float()
+    else:
+        g = g[:9]
+    with pytest.raises(TypeError if case == "float indices" else ValueError):
+        k2._merged_cuda(idx, g, n_rows, torch.float32)
 
 
 def test_segment_sum_merged_cpu_dispatch(rng):
