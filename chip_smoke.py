@@ -374,10 +374,10 @@ def real_line_indices(dev, ds) -> tuple:
 
 
 def real_plane_indices(dev, ds) -> dict:
-    """The first plane segment sum's indices of one step at each main-path
-    shape: the full-width model at 64^3 (dense march, 4096 x 72 points on a
-    4,096-row plane) and model_640 (default path, the ball's 4096 x 332
-    compacted points on a 409,600-row plane)."""
+    """The three plane segment sums' (idx, n_rows) of one step at each
+    main-path shape: the full-width model at 64^3 (dense march, 4096 x 72
+    points on a 4,096-row plane) and model_640 (default path, the ball's
+    4096 x 332 compacted points on a 409,600-row plane)."""
     import torch
 
     from localrf_tpu_torch.models.local import LocalTensorfs
@@ -385,10 +385,10 @@ def real_plane_indices(dev, ds) -> dict:
     m64 = LocalTensorfs(full_width_config(64), device=dev)
     m64.is_refining = True
     m64.rf_iter[-1] = 2
-    out = {"64^3": record_plane_sums(m64, ds)[0]}
+    out = {"64^3": record_plane_sums(m64, ds)}
     del m64
     m640 = model_640(dev, "default")
-    out["640^3"] = record_plane_sums(m640, ds)[0]
+    out["640^3"] = record_plane_sums(m640, ds)
     del m640
     torch.cuda.empty_cache()
     return out
@@ -424,8 +424,8 @@ def _check_k2_bins(idx, n_rows: int) -> None:
 def check_k2(dev, gen, real: dict) -> list[dict]:
     """K2 against segment_sum_plain (f32 out to K2_TOL_F32, bf16 out to one
     bf16 ulp) at the main path's two plane shapes, on uniform random
-    indices and on the recorded indices of a real step (`real`), with a
-    random bf16 payload of 128 channels; its bin kernels against
+    indices and on the first recorded plane sum of a real step (`real`),
+    with a random bf16 payload of 128 channels; its bin kernels against
     tile_bins_plain; timed bf16 -> bf16 beside the plain version and
     index_add_. Also checked, not timed: indices out of range, and P = 0."""
     import torch
@@ -434,7 +434,7 @@ def check_k2(dev, gen, real: dict) -> list[dict]:
 
     rows = []
     for label, n_rows, p in (("64^3", 4096, 4096 * 72), ("640^3", 409_600, 4096 * 332)):
-        r_idx, r_rows = real[label]
+        r_idx, r_rows = real[label][0]
         if r_idx.shape[0] != p or r_rows != n_rows:
             raise AssertionError(f"{label}: the step's plane sum has P {r_idx.shape[0]} on {r_rows} rows")
         g = torch.randn(p, 128, generator=gen, device=dev).to(torch.bfloat16)
@@ -509,13 +509,14 @@ def _check_k5_exact(idx, g, n_rows: int, label: str) -> float:
 
 def check_k5(dev, gen, real: dict) -> list[dict]:
     """K5 at the main path's two plane shapes on uniform random indices and
-    on the recorded indices of a real step (`real`, as K2), with a random
-    bf16 payload of 128 channels: bit for bit against its ordered plain
-    version and a second launch, its sort levels against merged_bins_plain;
-    timed bf16 -> bf16 beside the plain version, index_add_ and K2 on the
-    same inputs, with the device us of each of its kernels (one profiled
-    call: count, scan, scatter, reduce) and the most points in a tile and
-    in a row. Also checked, not timed: indices out of range, and P = 0."""
+    on each of the three recorded plane sums of a real step (`real`), with
+    a random bf16 payload of 128 channels: bit for bit against its ordered
+    plain version and a second launch, its sort levels against
+    merged_bins_plain; timed bf16 -> bf16 beside the plain version,
+    index_add_ and K2 on the same inputs, with the device us of each of its
+    kernels (one profiled call: count, scan, scatter, reduce) and the most
+    points in a tile and in a row. Also checked, not timed: indices out of
+    range, and P = 0."""
     import torch
 
     from localrf_tpu_torch.ops.kernels import binned_scatter as k2
@@ -524,14 +525,18 @@ def check_k5(dev, gen, real: dict) -> list[dict]:
     rows = []
     for label, n_rows, p in (("64^3", 4096, 4096 * 72), ("640^3", 409_600, 4096 * 332)):
         g = torch.randn(p, 128, generator=gen, device=dev).to(torch.bfloat16)
-        uniform = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
-        for kind, idx in (("uniform", uniform), ("real step", real[label][0])):
+        cases = [("uniform", torch.randint(0, n_rows, (p,), generator=gen, device=dev))]
+        for k, (r_idx, r_rows) in enumerate(real[label]):
+            if r_idx.shape[0] != p or r_rows != n_rows:
+                raise AssertionError(f"{label}: plane sum {k} has P {r_idx.shape[0]} on {r_rows} rows")
+            cases.append((f"real step sum {k}", r_idx))
+        for kind, idx in cases:
             shape = f"{label} {kind}: n_rows {n_rows}, P {p}, bf16 -> bf16"
             err = _check_k5_exact(idx, g, n_rows, shape)
             out = k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)
             plan = k2.merged_plan(p, 128, n_rows)
             rows.append(dict(
-                name="segment_sum_merged", shape=shape, main=label == "640^3" and kind == "real step",
+                name="segment_sum_merged", shape=shape, main=label == "640^3" and kind == "real step sum 0",
                 max_abs_err=err,
                 ms=_time_ms(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16)),
                 plain_ms=_time_ms(lambda: k2.binned_segment_sum_merged_plain(idx, g, n_rows, torch.bfloat16)),
@@ -1011,9 +1016,10 @@ def chunk_bit_exact(label: str, make, ds, path: str) -> tuple[int, dict]:
     """Under deterministic_sums, a pooled chunk of CHUNK replayed graphs of
     a model from make(True) equals the same steps taken eagerly by a twin
     from make(False), bit for bit: every loss of every step, then every
-    tensor of _state. The launch counts, reset just before the chunk and
-    read after the twin's steps, show K5 in K2's place on `path`. Returns
-    the number of tensors compared and those counts."""
+    tensor of _state. The launch counts of the chunk (warm-up and capture)
+    and of the twin's steps are read apart, each right after its own run,
+    and each must show K5 in K2's place on `path`. Returns the number of
+    tensors compared and the chunk's counts."""
     import torch
 
     with deterministic_sums():
@@ -1022,15 +1028,17 @@ def chunk_bit_exact(label: str, make, ds, path: str) -> tuple[int, dict]:
         twin_batches = _replan(ds, state, twin, batches)
         _reset_launch_counts()
         _run_chunk(model, batches)
+        launches = _launch_counts()
+        _check_launches(f"{label} (fixed-order sums)", launches, path, fixed_order=True)
         got = model.chunk_metrics
+        _reset_launch_counts()
         for i, b in enumerate(twin_batches):
             twin.optimizer_step(b, optimize_poses=True)
             for k, v in twin.last_metrics.items():
                 if float(got[k][i]) != v:
                     raise AssertionError(f"{label} (fixed-order sums): step {i} {k}:"
                                          f" graph {float(got[k][i])!r} vs eager {v!r}")
-        launches = _launch_counts()
-        _check_launches(f"{label} (fixed-order sums)", launches, path, fixed_order=True)
+        _check_launches(f"{label} (fixed-order sums) eager twin", _launch_counts(), path, fixed_order=True)
         mine, theirs = _state(model), _state(twin)
         differ = [k for k in theirs if not _bits_equal(mine[k], theirs[k])]
         if differ or mine.keys() != theirs.keys():

@@ -53,6 +53,12 @@
 // points on one row. Staging a tile's payload rows in shared memory by
 // cp.async (4 stages of 64 rows, the warps summing from there) was slower
 // on every input, the sum switched off included.
+// What limits its size: a count block keeps one counter per tile in shared
+// memory, so a table has at most 58,112 tiles (3.7M rows in tiles of 64;
+// lrf_segment_sum_merged_workspace says -1 past it), and the count matrix
+// grows as tiles x ranges: near that limit at 4,096 ranges it holds 238M
+// ints (0.95 GB) that every call zeroes and scans, and a scatter block has
+// room for one warp's counters only.
 // Every grid and buffer is sized from the shapes alone (no host sync), so
 // the call is capturable in a CUDA graph. No atomics touch a sum, so two
 // launches give the same bits.
@@ -73,9 +79,8 @@ constexpr int kScanChunk = kScanThreads * kScanItems;
 constexpr int kScanBlocksThreads = 1024;
 constexpr int kScatterWarps = 4;  // ranges per scatter block, at most
 constexpr int kScatterRounds = 4;  // rounds of 32 points a warp loads ahead
-constexpr int kReduceThreads = 512;
+constexpr int kReduceThreads = 512;  // also the most rows a tile may have: a thread a row
 constexpr int kReduceWarps = kReduceThreads / 32;
-constexpr int kMaxTileRows = 256;
 constexpr int kSmemMax = 232448;  // a block's dynamic shared memory on sm_90
 
 template <typename I>
@@ -537,19 +542,27 @@ cudaError_t launch_reduce(const int* tile_start, const int2* bins, int* scratch,
   return cudaGetLastError();
 }
 
+// The count matrix padded to whole scan chunks, in ints.
+int64_t mat_len(int n_tiles, int n_ranges) {
+  const int64_t n = static_cast<int64_t>(n_tiles) * n_ranges;
+  return (n + kScanChunk - 1) / kScanChunk * kScanChunk;
+}
+
 template <typename I>
 cudaError_t launch_bins(const I* idx, int64_t p, int64_t n_rows, int shift, int n_tiles,
-                        int64_t range_len, int n_ranges, int64_t mat_len, int* mat, int* block_sums,
-                        int* tile_start, int2* bins, cudaStream_t s) {
+                        int64_t range_len, int n_ranges, int* workspace, int* tile_start, int2* bins,
+                        cudaStream_t s) {
   const int count_smem = n_tiles * static_cast<int>(sizeof(int));  // one warp's counters too
-  if (count_smem > kSmemMax) return cudaErrorInvalidValue;
-  cudaError_t err = cudaMemsetAsync(mat, 0, mat_len * sizeof(int), s);
+  const int64_t n_mat = mat_len(n_tiles, n_ranges);
+  int* mat = workspace;
+  int* block_sums = workspace + n_mat;
+  cudaError_t err = cudaMemsetAsync(mat, 0, n_mat * sizeof(int), s);
   if (err == cudaSuccess) err = allow_smem(merged_count_kernel<I>);
   if (err == cudaSuccess) err = allow_smem(merged_scatter_kernel<I>);
   if (err != cudaSuccess) return err;
   merged_count_kernel<I><<<n_ranges, kCountThreads, count_smem, s>>>(
       idx, p, n_rows, shift, n_tiles, range_len, n_ranges, mat);
-  const int n_chunks = static_cast<int>(mat_len / kScanChunk);
+  const int n_chunks = static_cast<int>(n_mat / kScanChunk);
   merged_scan_sum_kernel<<<n_chunks, kScanThreads, 0, s>>>(mat, block_sums);
   merged_scan_blocks_kernel<<<1, kScanBlocksThreads, 0, s>>>(block_sums, n_chunks, tile_start + n_tiles);
   merged_scan_kernel<<<n_chunks, kScanThreads, 0, s>>>(mat, block_sums, n_ranges, n_tiles, tile_start);
@@ -574,36 +587,45 @@ cudaError_t launch_reduce_out(const int* tile_start, const int2* bins, int* scra
 
 }  // namespace
 
+// Ints of the workspace a call needs for n_tiles tiles and n_ranges point
+// ranges (the count matrix, padded to whole scan chunks, then one sum per
+// chunk), or -1 where a block cannot count that many tiles in shared memory
+// (more than kSmemMax / 4 = 58,112: 3.7M rows in tiles of 64).
+extern "C" int64_t lrf_segment_sum_merged_workspace(int n_tiles, int n_ranges) {
+  if (n_tiles < 1 || n_ranges < 1 || n_tiles > kSmemMax / static_cast<int>(sizeof(int))) return -1;
+  const int64_t n_mat = mat_len(n_tiles, n_ranges);
+  return n_mat + n_mat / kScanChunk;
+}
+
 // idx [P] (int64, or int32), g [P, C] (bf16 or f32; 8 or 16-byte aligned
 // rows where vec == 4), out [n_rows, C]; the plan's shift (tile rows =
-// 1 << shift), n_tiles, range_len, n_ranges and mat_len (a multiple of 4096);
-// int32 buffers: mat [mat_len] (16-byte aligned), block_sums [mat_len /
-// 4096], tile_start [n_tiles + 1], bins [P] int2 and scratch [P]; at most
-// kSmemMax / 4 tiles (one block's counter each in shared memory). seg_cap:
-// the longest tile segment the reduce sorts in shared memory (longer ones
-// go through scratch).
+// 1 << shift, at most kReduceThreads), n_tiles, range_len and n_ranges;
+// int32 buffers: workspace [workspace_len] (16-byte aligned; at least
+// lrf_segment_sum_merged_workspace(n_tiles, n_ranges)), tile_start
+// [n_tiles + 1], bins [P] int2 and scratch [P]. seg_cap: the longest tile
+// segment the reduce sorts in shared memory (longer ones go through
+// scratch).
 extern "C" int lrf_segment_sum_merged(const void* idx, int idx_is_i64, const void* g, int g_is_bf16,
                                       int vec, void* out, int out_is_bf16, int64_t p, int c,
                                       int64_t n_rows, int shift, int n_tiles, int64_t range_len,
-                                      int n_ranges, int64_t mat_len, void* mat, void* block_sums,
+                                      int n_ranges, void* workspace, int64_t workspace_len,
                                       void* tile_start, void* bins, void* scratch, int seg_cap,
                                       void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (shift < 0 || (1 << shift) > kMaxTileRows || n_tiles < 1 || n_ranges < 1 || range_len < 1 ||
-      static_cast<int64_t>(n_ranges) * range_len < p || mat_len % kScanChunk ||
-      mat_len < static_cast<int64_t>(n_tiles) * n_ranges || (vec != 1 && (vec != 4 || c % 4)) ||
-      seg_cap < 0 || p >= (int64_t{1} << 31) || c < 1) {
+  const int64_t need = lrf_segment_sum_merged_workspace(n_tiles, n_ranges);
+  if (shift < 0 || (1 << shift) > kReduceThreads || need < 0 || workspace_len < need ||
+      range_len < 1 || static_cast<int64_t>(n_ranges) * range_len < p ||
+      (vec != 1 && (vec != 4 || c % 4)) || seg_cap < 0 || p >= (int64_t{1} << 31) || c < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto* m = static_cast<int*>(mat);
-  auto* bs = static_cast<int*>(block_sums);
+  auto* ws = static_cast<int*>(workspace);
   auto* ts = static_cast<int*>(tile_start);
   auto* b = static_cast<int2*>(bins);
   cudaError_t err =
       idx_is_i64 ? launch_bins(static_cast<const int64_t*>(idx), p, n_rows, shift, n_tiles, range_len,
-                               n_ranges, mat_len, m, bs, ts, b, s)
+                               n_ranges, ws, ts, b, s)
                  : launch_bins(static_cast<const int32_t*>(idx), p, n_rows, shift, n_tiles, range_len,
-                               n_ranges, mat_len, m, bs, ts, b, s);
+                               n_ranges, ws, ts, b, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* sc = static_cast<int*>(scratch);
   err = g_is_bf16 ? launch_reduce_out(ts, b, sc, static_cast<const __nv_bfloat16*>(g), out, out_is_bf16,

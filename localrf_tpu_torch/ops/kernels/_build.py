@@ -48,10 +48,12 @@ SIGNATURES = {
     # n_tiles, chunk, n_items_max, stream
     "lrf_segment_sum_reduce": (_P, _I, _I) + (_P,) * 9 + (_I, _I, _L, _I, _I, _I, _L, _P),
     # idx, idx_is_i64, g, g_is_bf16, vec, out, out_is_bf16, P, C, n_rows, shift,
-    # n_tiles, range_len, n_ranges, mat_len, mat, block_sums, tile_start, bins,
+    # n_tiles, range_len, n_ranges, workspace, workspace_len, tile_start, bins,
     # scratch, seg_cap, stream
-    "lrf_segment_sum_merged": (_P, _I, _P, _I, _I, _P, _I, _L, _I, _L, _I, _I, _L, _I, _L)
-    + (_P,) * 5 + (_I, _P),
+    "lrf_segment_sum_merged": (_P, _I, _P, _I, _I, _P, _I, _L, _I, _L, _I, _I, _L, _I, _P, _L)
+    + (_P,) * 3 + (_I, _P),
+    # n_tiles, n_ranges -> ints of K5's workspace (int64), -1 past its limits
+    "lrf_segment_sum_merged_workspace": (_I, _I),
     # idx (int64), g, g_is_bf16, partials (f32), out (f32), P, C, n_rows,
     # tile_rows, n_ranges, range_len, stream
     "lrf_segsum_small": (_P, _P, _I, _P, _P, _L, _I, _L, _I, _I, _L, _P),
@@ -65,6 +67,9 @@ SIGNATURES = {
     # -> length of the march backward's packed parameter gradient
     "lrf_march_n_params": (),
 }
+
+# entry points that return a value, not an error code
+RESTYPES = {"lrf_segment_sum_merged_workspace": ctypes.c_int64}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -153,7 +158,7 @@ def library() -> ctypes.CDLL:
             for name, argtypes in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
+                fn.restype = RESTYPES.get(name, ctypes.c_int)
             lib.lrf_error_string.argtypes = [ctypes.c_int]
             lib.lrf_error_string.restype = ctypes.c_char_p
             _lib = lib

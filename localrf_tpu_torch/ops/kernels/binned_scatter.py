@@ -27,7 +27,11 @@ id from 0.0 in f32 and the row written once in the out dtype, so it is
 deterministic. The card sorts the point ids by hand (a stable counting
 sort by tile of output rows, then by row within a tile's block) and reads
 the payload once, in place, by id; a warp sums each row (see the note in
-the .cu for what bounds it). `merged_plan` sizes every buffer from the
+the .cu for what bounds it). A table may have at most 58,112 tiles (3.7M
+rows of 128 in tiles of 64: a count block keeps a counter per tile in
+shared memory), and the [tiles, ranges] count matrix that every call
+zeroes and scans grows with n_rows x P (17 MB at the 640^3 plane, ~0.95
+GB near that limit). `merged_plan` sizes every buffer from the
 shapes alone, so the call is capturable in a CUDA graph; `merged_bins_plain`
 is the two sort levels in plain PyTorch (the kernels' on-card reference).
 `binned_segment_sum_merged_ordered` sums in K5's order in plain PyTorch on
@@ -185,30 +189,26 @@ def segment_sum(idx: torch.Tensor, g: torch.Tensor, n_rows: int, out_dtype=torch
 # K5's plan: tiles of at most MERGED_MAX_ROWS rows (a power of two, K2's
 # tile_rows where that is smaller: 64 for rows of 128); level-1 ranges of
 # MERGED_RANGE points, longer where P would make more than MERGED_RANGES of
-# them; matrix and scan in chunks of SCAN_CHUNK ints; a tile segment of at
-# most MERGED_SEG_CAP points sorted by row in shared memory (longer ones in
-# a global scratch); at most MERGED_MAX_TILES tiles (a block keeps a counter
-# per tile in shared memory: 227 KB)
+# them; a tile segment of at most MERGED_SEG_CAP points sorted by row in
+# shared memory (longer ones in a global scratch). The kernels' own limits
+# (the scan's chunk, the most tiles a block can count) stay in the .cu:
+# `lrf_segment_sum_merged_workspace` applies them.
 MERGED_MAX_ROWS = 256
 MERGED_RANGE = 2048
 MERGED_RANGES = 4096
-SCAN_CHUNK = 4096
 MERGED_SEG_CAP = 8192
-MERGED_MAX_TILES = 58_112
 
 
 class MergedPlan(NamedTuple):
     """K5's schedule sizes, from the shapes alone: tiles of 2**shift rows
-    (`n_tiles`), point ranges [k * range_len, (k + 1) * range_len)
-    (`n_ranges`), and the [n_tiles, n_ranges] count matrix padded to
-    `mat_len` ints. The order of the sum does not depend on it."""
+    (`n_tiles`) and point ranges [k * range_len, (k + 1) * range_len)
+    (`n_ranges`). The order of the sum does not depend on it."""
 
     tile_rows: int
     shift: int
     n_tiles: int
     range_len: int
     n_ranges: int
-    mat_len: int
 
 
 def merged_plan(p: int, c: int, n_rows: int) -> MergedPlan:
@@ -216,9 +216,13 @@ def merged_plan(p: int, c: int, n_rows: int) -> MergedPlan:
     shift = rows.bit_length() - 1
     n_tiles = max(1, -(-n_rows >> shift))
     range_len = max(MERGED_RANGE, 256 * -(-p // (256 * MERGED_RANGES)))
-    n_ranges = max(1, -(-p // range_len))
-    mat_len = -(-n_tiles * n_ranges // SCAN_CHUNK) * SCAN_CHUNK
-    return MergedPlan(1 << shift, shift, n_tiles, range_len, n_ranges, mat_len)
+    return MergedPlan(1 << shift, shift, n_tiles, range_len, max(1, -(-p // range_len)))
+
+
+def _merged_workspace(plan: MergedPlan) -> int:
+    """Ints of K5's workspace (its count matrix and scan sums) for `plan`,
+    or -1 where the table has more tiles than the kernels can count."""
+    return _build.library().lrf_segment_sum_merged_workspace(plan.n_tiles, plan.n_ranges)
 
 
 def row_ordered_sum(idx: torch.Tensor, g32: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -281,7 +285,9 @@ def _merged_cuda(idx, g, n_rows: int, out_dtype, seg_cap: int = MERGED_SEG_CAP) 
     """K5 on the current stream: (out, the schedule's int32 buffers:
     tile_start [n_tiles + 1], bins [P, 2] = (id, row within the tile) of
     which the first tile_start[-1] are live, scratch [P]: a tile segment's
-    ids by row where it is longer than `seg_cap`)."""
+    ids by row where it is longer than `seg_cap`). Only the card tests and
+    chip_smoke set `seg_cap` (0 sends every segment through the scratch,
+    which they read); every other call takes MERGED_SEG_CAP."""
     if idx.dim() != 1 or g.dim() != 2 or idx.shape[0] != g.shape[0]:
         raise ValueError(f"idx [P] and g [P, C] expected, got {list(idx.shape)}, {list(g.shape)}")
     if idx.dtype not in (torch.int32, torch.int64):
@@ -295,13 +301,14 @@ def _merged_cuda(idx, g, n_rows: int, out_dtype, seg_cap: int = MERGED_SEG_CAP) 
     if p >= 2**31:
         raise ValueError(f"binned_segment_sum_merged bins point ids as int32: P = {p} is too many")
     plan = merged_plan(p, c, n_rows)
-    if plan.n_tiles > MERGED_MAX_TILES:
+    n_ws = _merged_workspace(plan)
+    if n_ws < 0:
         raise ValueError(f"binned_segment_sum_merged: {n_rows} rows make {plan.n_tiles} tiles of"
-                         f" {plan.tile_rows}, more than {MERGED_MAX_TILES}")
+                         f" {plan.tile_rows}, more than its count kernel holds in shared memory")
     out = torch.empty((n_rows, c), dtype=out_dtype, device=g.device)
-    # the matrix first: the scan reads it 16 bytes at a time
-    sizes = {"mat": plan.mat_len, "bins": 2 * p, "block_sums": plan.mat_len // SCAN_CHUNK,
-             "tile_start": plan.n_tiles + 1, "scratch": p}
+    # the workspace first (the scan reads it 16 bytes at a time), in whole
+    # 16 bytes (the int2 bins follow it)
+    sizes = {"workspace": -(-n_ws // 4) * 4, "bins": 2 * p, "tile_start": plan.n_tiles + 1, "scratch": p}
     ints = torch.empty(sum(sizes.values()), dtype=torch.int32, device=g.device)
     sched = dict(zip(sizes, torch.split(ints, list(sizes.values()))))
     if not out.numel():
@@ -312,8 +319,8 @@ def _merged_cuda(idx, g, n_rows: int, out_dtype, seg_cap: int = MERGED_SEG_CAP) 
         _build.launch(
             "lrf_segment_sum_merged", idx.data_ptr(), int(idx.dtype == torch.int64), g.data_ptr(),
             int(g.dtype == torch.bfloat16), vec, out.data_ptr(), int(out_dtype == torch.bfloat16), p, c,
-            n_rows, plan.shift, plan.n_tiles, plan.range_len, plan.n_ranges, plan.mat_len,
-            *(sched[k].data_ptr() for k in ("mat", "block_sums", "tile_start", "bins", "scratch")),
+            n_rows, plan.shift, plan.n_tiles, plan.range_len, plan.n_ranges, sched["workspace"].data_ptr(),
+            sizes["workspace"], *(sched[k].data_ptr() for k in ("tile_start", "bins", "scratch")),
             seg_cap, _build.stream_ptr(g.device),
         )
     LAUNCHES["segment_sum_merged"] += 1

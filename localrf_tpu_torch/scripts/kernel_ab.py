@@ -12,7 +12,8 @@ parent, each on the same inputs: K1 forward and backward at [4096, 72]
 (the shared [1, 72] dist row) and [4096, 332] (per-ray dists), K2
 bf16 -> bf16 on uniform and real-step indices at both plane shapes, K3
 bf16 -> f32 on uniform indices at 64 and 640 line rows and on the
-real-step line indices, K5 bf16 -> bf16 on K2's inputs, and K4
+real-step line indices, K5 bf16 -> bf16 on K2's inputs and on the step's
+other two plane sums ("real step" is the first of three), and K4
 forward and backward (bf16 tables and MLP, chip_smoke.march_inputs of that
 checkout: G 64, P 4096 x 72 and G 640, P 4096 x 332, line rows x0 drawn
 uniformly; K4-bwd also with x0 sorted within each ray's samples, as a
@@ -123,6 +124,8 @@ def worker(root: str, indices: str) -> dict:
             key = f"K2 {label} {kind}"
             times[key] = graph_ms(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
             kernels[key] = kernel_us(lambda: k2.segment_sum(idx, g, n_rows, torch.bfloat16))
+        for kind, idx in (("uniform", uniform), ("real step", real[label]),
+                          ("real step sum 1", real[f"{label} sum 1"]), ("real step sum 2", real[f"{label} sum 2"])):
             key = f"K5 {label} {kind}"
             times[key] = graph_ms(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16))
             kernels[key] = kernel_us(lambda: k2.binned_segment_sum_merged(idx, g, n_rows, torch.bfloat16))
@@ -198,7 +201,9 @@ def record_indices(path: pathlib.Path) -> None:
 
     dev = torch.device("cuda", 0)
     ds = chip_smoke.make_dataset(chip_smoke.W, chip_smoke.H, chip_smoke.N_FRAMES)
-    real = {k: idx for k, (idx, _) in chip_smoke.real_plane_indices(dev, ds).items()}
+    real = {}
+    for label, sums in chip_smoke.real_plane_indices(dev, ds).items():
+        real.update({label if k == 0 else f"{label} sum {k}": idx for k, (idx, _) in enumerate(sums)})
     real["lines 640^3"] = chip_smoke.real_line_indices(dev, ds)[0]
     torch.save(real, path)
 

@@ -366,6 +366,7 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, g_rows, p, dtype, mlp_dtyp
 # (n_rows, P, index kind, index dtype, payload dtype)
 K5_CARD_CASES = [
     (4096, 4096 * 72, "uniform", torch.int64, torch.bfloat16),  # the 64^3 plane
+    (4096, 4096 * 72, "hot-tile", torch.int64, torch.bfloat16),  # one tile of 40k points, as in a real 64^3 step
     (409_600, 4096 * 332, "uniform", torch.int64, torch.bfloat16),  # the 640^3 plane
     (2048, 100_000, "hot", torch.int64, torch.bfloat16),  # every point in 60 rows
     (409_600, 300_000, "out-of-range", torch.int64, torch.bfloat16),
@@ -388,6 +389,9 @@ def _k5_inputs(dev, n_rows, p, kind, idx_dtype, g_dtype, c=128):
         idx = torch.randint(0, n_rows, (p,), generator=gen, device=dev)
     if kind == "one-row":
         idx[torch.randperm(p, generator=gen, device=dev)[:100_000]] = 7
+    if kind == "hot-tile":  # 40k points in rows 64..127, skewed to row 64
+        u = torch.rand(40_000, generator=gen, device=dev)
+        idx[torch.randperm(p, generator=gen, device=dev)[:40_000]] = 64 + (64 * u**4).long()
     g = torch.randn(p, c, generator=gen, device=dev).to(g_dtype)
     return idx.to(idx_dtype), g
 
@@ -427,7 +431,8 @@ def test_k5_kernel_narrow_and_wide_rows_on_card(cuda_device, c):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("n_rows,p,kind", [(4096, 4096 * 72, "uniform"), (409_600, 300_000, "out-of-range"),
-                                           (2048, 100_000, "hot"), (1000, 0, "uniform")])
+                                           (2048, 100_000, "hot"), (1000, 0, "uniform"),
+                                           (4096, 4096 * 72, "hot-tile")])
 def test_k5_bins_are_merged_bins_plain_on_card(cuda_device, n_rows, p, kind):
     """K5's two sort levels equal merged_bins_plain (torch.equal): the tile
     starts, each tile's (id, row) in increasing id (level 1) and its ids by
@@ -444,6 +449,22 @@ def test_k5_bins_are_merged_bins_plain_on_card(cuda_device, n_rows, p, kind):
     assert torch.equal(sched["bins"][:n, 1].long(), want["by_point_row"])
     assert torch.equal(sched["scratch"][:n].long(), want["by_row"])
     assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_k5_workspace_is_the_padded_matrix_and_its_chunk_sums(cuda_device):
+    """The kernels size K5's workspace: the [tiles, ranges] count matrix
+    padded to whole scan chunks of 4,096 ints, then one sum per chunk; -1
+    past the 58,112 tiles a block counts in its 227 KB of shared memory, and
+    the wrapper then raises before it allocates."""
+    plan = k2.merged_plan(4096 * 332, 128, 409_600)  # the 640^3 plane: 6,400 x 664
+    n_mat = -(-6400 * 664 // 4096) * 4096
+    assert k2._merged_workspace(plan) == n_mat + n_mat // 4096
+    assert k2._merged_workspace(plan._replace(n_tiles=58_112, n_ranges=1)) == 4096 * 15 + 15
+    assert k2._merged_workspace(plan._replace(n_tiles=58_113, n_ranges=1)) == -1
+    idx = torch.zeros(10, dtype=torch.int64, device=cuda_device)
+    with pytest.raises(ValueError, match="tiles"):
+        k2.binned_segment_sum_merged(idx, torch.zeros(10, 128, device=cuda_device), 64 * 58_113)
 
 
 @pytest.mark.gpu

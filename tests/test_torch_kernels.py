@@ -357,23 +357,26 @@ def test_segment_sum_merged_ordered_is_the_point_order_sum(rng, n_rows, p, dist)
 ])
 def test_merged_plan_from_shapes(p, c, n_rows, tile_rows, range_len):
     """K5's plan: power-of-two tiles (K2's 64 rows for rows of 128), ranges
-    set from P alone, the count matrix padded to whole scan chunks."""
+    set from P alone (the count matrix's padding is the kernels' own:
+    test_k5_workspace_is_the_padded_matrix_and_its_chunk_sums on the card)."""
     plan = k2.merged_plan(p, c, n_rows)
     assert (plan.tile_rows, 1 << plan.shift, plan.range_len) == (tile_rows, tile_rows, range_len)
     assert plan.n_tiles == -(-n_rows // tile_rows) and plan.n_ranges == -(-p // range_len)
     assert plan.n_ranges <= k2.MERGED_RANGES
-    assert plan.mat_len % k2.SCAN_CHUNK == 0 and 0 <= plan.mat_len - plan.n_tiles * plan.n_ranges < k2.SCAN_CHUNK
     assert k2.merged_plan(p, c, 7).range_len == range_len
 
 
 @pytest.mark.parametrize("case", ["too many tiles", "float indices", "shapes"])
-def test_merged_cuda_rejects_what_the_kernel_does_not_take(case):
+def test_merged_cuda_rejects_what_the_kernel_does_not_take(case, monkeypatch):
     """K5's card wrapper checks its inputs before it allocates or launches
     (so on any device): a table of more tiles than a block can count in
-    shared memory, non-integer indices, mismatched shapes."""
+    shared memory (the kernel library's answer, -1, stood in for here: the
+    card test test_k5_workspace_is_the_padded_matrix_and_its_chunk_sums
+    asks the library), non-integer indices, mismatched shapes."""
     idx, g, n_rows = torch.zeros(10, dtype=torch.int64), torch.zeros(10, 128), 100
     if case == "too many tiles":
-        n_rows = 64 * (k2.MERGED_MAX_TILES + 1)
+        n_rows = 64 * 58_113
+        monkeypatch.setattr(k2, "_merged_workspace", lambda plan: -1 if plan.n_tiles > 58_112 else 0)
     elif case == "float indices":
         idx = idx.float()
     else:
