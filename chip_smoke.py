@@ -11,7 +11,8 @@
    CUDA graph of 20 calls, replayed; CUDA events), beside its bound (bytes over the card's memory rate or operations over
    its peak rate, whichever is larger) and, where one PyTorch call computes
    the same function, that call (index_add_ for the segment sums):
-   K1 (compositing weights; also on near-opaque samples), K2 (plane
+   K1 (compositing weights; also on near-opaque samples, and the forward
+   timed at a blended eval chunk's [2048, 332]), K2 (plane
    segment sum; on uniform indices and on the plane indices of a real step
    at 64^3 and 640^3, its bin schedule against tile_bins_plain, with
    indices out of range and with P = 0), K3 (line segment sum; on uniform
@@ -25,7 +26,8 @@
    with its kernels' device us from one profiled call).
 3. One small training step card vs CPU (32^3, f32) for the default path,
    the fused march (--fused_march 1) and the segsum lines (--line_bwd
-   segsum).
+   segsum); and a small spawn card vs CPU: a 32^3 f32 model spawns a field,
+   slides, takes one step on it and renders one 40x30 blended frame.
 4. Eager steps: trains the full-width TensoRF-VM model through the port's
    entry points (LocalTensorfs.optimizer_step on SyntheticDataset batches
    of 4096 rays over 960x540 frames): 5 steps from 64^3 (alpha refresh,
@@ -55,6 +57,28 @@
 6. After each training phase: every loss finite, parameters changed, and the
    kernels of that phase's path launched while the others were not (launch
    counts reset just before).
+7. Spawn and eval: a dataset of 12 frames, 5 active, a 146-slot pool.
+   Field 0 is at 640^3 with the ball alpha volume (as model_640); it trains
+   a chunk, then 4 frames are appended one at a time, a chunk after each.
+   LocalTensorfs.append_rf(4) spawns field 1 (a fresh 64^3 field), the
+   dataset's and the model's windows slide to its first frame, 2 frames are
+   appended (linked to field 1, the pose gate on for them only). Checked:
+   field 0's params on the host (unchanged through what follows) and its
+   optimizer gone, its bytes freed on the card, the graphs dropped and
+   their pool released (empty_cache, cuBLAS's workspaces cleared), graphs
+   captured again after the spawn. Field 1 trains on the chunk path of 5
+   (run_chunks: bit for bit under fixed-order sums, so K5 runs; against a
+   twin's eager steps; 3 timed, 1 profiled), twins cloned from the
+   post-spawn state. Then 960x540 eval frames through forward_eval (chunk
+   4096), each timed: one in the cross-fade (both fields at weight 0.5),
+   against the plain compositing (pallas_composite off) and against the
+   sum over fields of w_k * render_frame_k; one of field 0 alone (also
+   profiled: idle share); render_chunk over 2 views against those frames;
+   one of field 1 alone with floater_thresh 0.5 (no K1); PSNR and SSIM on
+   the card against the (random) dataset frames; card memory before and
+   after clear_eval_cache; K1-fwd launches counted per frame (one per chunk
+   and field). Last, one 960x540 frame of model_640 on the fused march
+   (K4-fwd and K1-fwd a chunk) against the same frame unfused.
 
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
@@ -97,6 +121,9 @@ K4_TOL = {"out": 1e-2, "grad": 2e-2}
 # 4096 x 72 samples at 64^3, 640 rows with 4096 x 332 at 640^3; K3's payload
 # rows are 64 bf16 (2C), K4 runs bf16 tables and MLP
 K3_CASES = ((64, 4096 * 72), (640, 4096 * 332))
+# K1-fwd in an eval chunk of a blended 960x540 frame: 4096 rays shared by
+# two fields, 2048 each, 332 compacted samples at 640^3
+EVAL_K1_SHAPE = "eval [2048,332], dists [2048,332]"
 K4_CASES = ((64, 4096 * 72), (640, 4096 * 332))
 
 # K5 equals its ordered plain version (binned_segment_sum_merged_ordered) bit for bit
@@ -285,7 +312,9 @@ def check_k1(dev, gen) -> list[dict]:
     dists332 = 0.01 + 0.49 * torch.rand(4096, 332, generator=gen, device=dev)
     cases = [("64^3 [4096,72], dists [1,72]", 4096, 72, dists72, False),
              ("640^3 [4096,332] near-opaque", 4096, 332, dists332, False),
-             ("640^3 [4096,332], dists [4096,332]", 4096, 332, dists332, True)]
+             ("640^3 [4096,332], dists [4096,332]", 4096, 332, dists332, True),
+             # an eval chunk of a two-field blended frame at 640^3: no backward
+             (EVAL_K1_SHAPE, 2048, 332, dists332[:2048].contiguous(), False)]
     rows = []
     for label, r, s, dists, main in cases:
         sigma = 2.0 * torch.rand(r, s, generator=gen, device=dev)
@@ -305,6 +334,15 @@ def check_k1(dev, gen) -> list[dict]:
                 raise AssertionError("near-opaque K1 case: T never underflowed")
             print(f"kernel fused_weights      {label:38s} err fwd {err_f:.3e} bwd {err_b:.3e}")
             continue
+        fwd_row = dict(
+            name="fused_weights_fwd", shape=label, main=main, max_abs_err=err_f,
+            ms=_time_ms(lambda: k1._launch_fwd(sigma, dists, 25.0)),
+            plain_ms=_time_ms(lambda: k1.fused_weights_plain(sigma, dists, 25.0)), library_ms=None,
+            **_bound(_nbytes(sigma, dists, w_k)),
+        )
+        rows.append(fwd_row)
+        if label == EVAL_K1_SHAPE:
+            continue
 
         def bwd_plain():
             x = sigma.clone().requires_grad_(True)
@@ -314,12 +352,6 @@ def check_k1(dev, gen) -> list[dict]:
             x = sigma.clone().requires_grad_(True)
             k1.fused_weights_plain(x, dists, 25.0)
 
-        rows.append(dict(
-            name="fused_weights_fwd", shape=label, main=main, max_abs_err=err_f,
-            ms=_time_ms(lambda: k1._launch_fwd(sigma, dists, 25.0)),
-            plain_ms=_time_ms(lambda: k1.fused_weights_plain(sigma, dists, 25.0)), library_ms=None,
-            **_bound(_nbytes(sigma, dists, w_k)),
-        ))
         rows.append(dict(
             name="fused_weights_bwd", shape=label, main=main, max_abs_err=err_b,
             ms=_time_ms(lambda: k1._launch_bwd(sigma, dists, cot, 25.0)),
@@ -735,8 +767,9 @@ def _reset_launch_counts() -> None:
             counts[k] = 0
 
 
-def make_dataset(w: int, h: int, n_frames: int, seed: int = 0):
-    """Random frames with depth and flow supervision, made in bulk."""
+def make_dataset(w: int, h: int, n_frames: int, seed: int = 0, n_init: int | None = None):
+    """Random frames with depth and flow supervision, made in bulk; the
+    first n_init (default all) active."""
     from localrf_tpu_torch.data.dataset import SyntheticDataset
 
     rng = np.random.default_rng(seed)
@@ -746,7 +779,7 @@ def make_dataset(w: int, h: int, n_frames: int, seed: int = 0):
         invdepths=(0.1 + 0.9 * rng.random(shape, dtype=np.float32)),
         fwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32), fwd_mask=np.ones(shape, np.float32),
         bwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32), bwd_mask=np.ones(shape, np.float32),
-        n_init_frames=n_frames, test_frame_every=0,
+        n_init_frames=n_frames if n_init is None else n_init, test_frame_every=0,
     )
 
 
@@ -761,8 +794,8 @@ def full_width_config(grid: int, path: str = "default", **local_kw):
         grid_size=(grid, grid, grid), pallas_composite=True,
         gather_dtype="bfloat16", mlp_dtype="bfloat16", **PATH_TF[path],
     )
-    return LocalConfig(WH=(W, H), n_init_frames=N_FRAMES, n_views=N_VIEWS,
-                       batch_size=BATCH, tensorf=tf, **local_kw)
+    kw = dict(WH=(W, H), n_init_frames=N_FRAMES, n_views=N_VIEWS, batch_size=BATCH)
+    return LocalConfig(tensorf=tf, **{**kw, **local_kw})
 
 
 def _snapshot(model) -> dict:
@@ -895,25 +928,32 @@ def check_small_step_against_cpu(dev, path: str = "default") -> None:
         raise AssertionError(f"small step ({path}): kernels {missing} did not launch on the card")
 
 
+def _with_ball(model, dev) -> None:
+    """Put a ~8% ball alpha volume at half the grid (320^3 at 640^3) on the
+    model's current field, past the schedule's rescale (rf_iter 10): coarse
+    probe + compaction to 332 samples per ray at 640^3."""
+    import torch
+
+    model.is_refining = True
+    model.rf_iter[-1] = 10
+    model.lr_factor = 0.999
+    f = model.fields[-1]
+    ax = torch.linspace(-1, 1, f["cfg"].grid_size[0] // 2, device=dev)
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    f["alpha_volume"] = ((xx**2 + yy**2 + zz**2) < 0.535**2).to(torch.float32)
+    f["cfg"] = dataclasses.replace(f["cfg"], occ_m=model._occ_m(f["cfg"], True))
+    if f["cfg"].occ_m != 332:
+        raise AssertionError(f"640^3 field: occ_m {f['cfg'].occ_m}, expected 332")
+
+
 def model_640(dev, path: str, **local_kw):
     """The full-width model at 640^3 with a ~8% ball alpha volume at 320^3
     (coarse probe + compaction to 332 samples per ray), the flags of
     `path`, past the schedule's rescale (rf_iter 10)."""
-    import torch
-
     from localrf_tpu_torch.models.local import LocalTensorfs
 
     model = LocalTensorfs(full_width_config(640, path, **local_kw), device=dev)
-    model.is_refining = True
-    model.rf_iter[-1] = 10
-    model.lr_factor = 0.999
-    ax = torch.linspace(-1, 1, 320, device=dev)
-    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
-    f = model.fields[-1]
-    f["alpha_volume"] = ((xx**2 + yy**2 + zz**2) < 0.535**2).to(torch.float32)
-    f["cfg"] = dataclasses.replace(f["cfg"], occ_m=model._occ_m(f["cfg"], True))
-    if f["cfg"].occ_m != 332:
-        raise AssertionError(f"640^3 slice: occ_m {f['cfg'].occ_m}, expected 332")
+    _with_ball(model, dev)
     return model
 
 
@@ -1088,17 +1128,22 @@ def chunk_against_eager(label: str, model, make_twin, ds, path: str) -> dict:
 
 
 def profile_chunk(model, batches) -> dict:
-    """One chunk under torch.profiler: the kernels each step's graph launch
-    ran (a kernel of a graph carries its cudaGraphLaunch's correlation id),
-    the card's busy time (the union of its kernel and copy intervals), and
-    the chunk's host time."""
+    """One chunk under torch.profiler (profile_run)."""
+    return profile_run(lambda: _run_chunk(model, batches))
+
+
+def profile_run(run) -> dict:
+    """run() (which returns its host ms, ending after the card finished)
+    under torch.profiler: the kernels each graph launch ran (a kernel of a
+    graph carries its cudaGraphLaunch's correlation id), the card's busy
+    time (the union of its kernel and copy intervals), and the host time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall_ms = _run_chunk(model, batches)
+        wall_ms = run()
     events = prof.profiler.kineto_results.events()
     launches = sorted((e for e in events if e.name() == "cudaGraphLaunch"), key=lambda e: e.start_ns())
     step_of = {e.correlation_id(): k for k, e in enumerate(launches)}
@@ -1160,10 +1205,11 @@ def check_replay_trace(label: str, trace: dict, path: str, n_steps: int) -> dict
     return {key: _kernels_in(total, key) for key in SYMBOLS}
 
 
-def run_chunks(label: str, make, ds, path: str) -> tuple[dict, object]:
+def run_chunks(label: str, make, ds, path: str, model=None) -> tuple[dict, object]:
     """The chunk path on `path`, models from make(with_pool): a chunk held
     bit for bit against eager steps under fixed-order sums
-    (chunk_bit_exact; not on UNORDERED_SUMS paths); then, on the path as it runs, a pooled model's first
+    (chunk_bit_exact; not on UNORDERED_SUMS paths); then, on the path as it
+    runs, a pooled model's (`model`, by default make(True)) first
     chunk (captures) against a twin's eager steps (chunk_against_eager),
     N_TIMED timed chunks and one chunk under the profiler. Checks losses,
     updates, the first chunk's launch counts, and that no chunk after the
@@ -1172,7 +1218,7 @@ def run_chunks(label: str, make, ds, path: str) -> tuple[dict, object]:
     import torch
 
     n_exact, exact_launches = (0, {}) if path in UNORDERED_SUMS else chunk_bit_exact(label, make, ds, path)
-    model = make(True)
+    model = make(True) if model is None else model
     graphs = model._graphs
     before = _snapshot(model)
     first = chunk_against_eager(label, model, lambda: make(False), ds, path)
@@ -1280,6 +1326,403 @@ def chunk_640(ds, dev, pool, path: str) -> dict:
     return out
 
 
+# the spawn and eval phase: SPAWN_FRAMES frames, the first SPAWN_INIT
+# active; SPAWN_ADDED appended one at a time before the spawn (a chunk of
+# SPAWN_PRE_STEPS steps after each), the spawn cross-fading over them, and
+# SPAWN_AFTER appended after it (linked to the new field)
+SPAWN_FRAMES, SPAWN_INIT, SPAWN_ADDED, SPAWN_AFTER, SPAWN_PRE_STEPS = 12, 5, 4, 2, 4
+# the retiring field's grid (the run's grid after its upsamples) and the run's
+# initial grid, which the new field starts from
+SPAWN_GRIDS = (640, 64)
+# an eval frame against the same frame rendered with the plain compositing:
+# rgb to K1_TOL's rtol and 1e-4 absolute, depth to K1_TOL's rtol and 1e-4
+# of its largest value (a K1 fault moves a weight by O(1)); against the sum
+# over fields of w_k * render_frame_k (the same kernels in the same order),
+# 1e-6
+EVAL_TOL = (K1_TOL["fwd"][0], 1e-4)
+SUM_TOL = (1e-6, 1e-6)
+
+
+def graph_pool_bytes() -> int:
+    """Bytes the caching allocator holds in private pools: those of captured
+    CUDA graphs (the default pool is (0, 0))."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
+
+
+def _memory(label: str) -> dict:
+    import torch
+
+    torch.cuda.synchronize()
+    out = {"allocated": torch.cuda.memory_allocated(), "reserved": torch.cuda.memory_reserved(),
+           "peak": torch.cuda.max_memory_allocated(), "graph_pool": graph_pool_bytes()}
+    print(f"memory {label}: " + ", ".join(f"{k} {v / 2**30:.3f} GiB" for k, v in out.items()))
+    return out
+
+
+def clone_model(model, dev, pool=None):
+    """A twin of `model` in the same state (fields, pose window and its Adam
+    state, intrinsics, schedule, noise generator) with graphs of its own,
+    `pool` attached (or none); the retired fields' host parameters and alpha
+    volumes are shared (read only)."""
+    import copy
+
+    import torch
+
+    from localrf_tpu_torch.models.graph import ChunkGraphs
+
+    shared = [model.pool, model._graphs, model._gen]
+    for f in model.fields[:-1]:
+        shared += [f["params"], f["alpha_volume"]]
+    twin = copy.deepcopy(model, {id(x): x for x in shared if x is not None})
+    twin._gen = torch.Generator(device=dev)
+    twin._gen.set_state(model._gen.get_state())
+    twin._graphs = ChunkGraphs(dev) if torch.device(dev).type == "cuda" else None
+    twin.pool = None
+    if pool is not None:
+        twin.attach_pool(pool)
+    return twin
+
+
+@contextlib.contextmanager
+def _field_cfgs(model, **kw):
+    """Every field's TensorfConfig with `kw` replaced, restored after."""
+    saved = [f["cfg"] for f in model.fields]
+    for f in model.fields:
+        f["cfg"] = dataclasses.replace(f["cfg"], **kw)
+    try:
+        yield
+    finally:
+        for f, cfg in zip(model.fields, saved):
+            f["cfg"] = cfg
+
+
+def _eval(model, ids, views, counts: dict | None, **kw) -> tuple:
+    """forward_eval of `ids` in `views` at 960x540 with train.py's chunk
+    (the batch size), host ms ending after the card finished. With
+    `counts`, this is the main path: the launch counts are set to 0 just
+    before and its own are added to `counts` (and returned)."""
+    import torch
+
+    torch.cuda.synchronize()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    rgb, depth, _, _ = model.forward_eval(ids, np.asarray(views), W, H, chunk=BATCH, **kw)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = _launch_counts()
+    if counts is not None:
+        for k, n in launches.items():
+            counts[k] = counts.get(k, 0) + n
+    if not (torch.isfinite(rgb).all() and torch.isfinite(depth).all()):
+        raise AssertionError(f"eval of views {list(views)}: non-finite output")
+    if float(rgb.min()) < 0 or float(rgb.max()) > 1:
+        raise AssertionError(f"eval of views {list(views)}: rgb outside [0, 1]")
+    return rgb, depth, ms, launches
+
+
+def _expect_launches(label: str, launches: dict, want: dict) -> None:
+    """Exactly `want` launches of each kernel ({} = none of any)."""
+    got = {k: n for k, n in launches.items() if n}
+    if got != want:
+        raise AssertionError(f"{label}: kernel launches {got}, expected {want}")
+
+
+def _blend_of_fields(model, view: int) -> tuple:
+    """The frame of `view` as the sum over its fields of w_k *
+    render_frame_k (the chunk forward_eval gives each field, the last chunk
+    padded with ray id 0), then exposed and clipped like forward_eval."""
+    import torch
+
+    from localrf_tpu_torch.models.step import render_frame
+
+    dev = model.device
+    bw = model.blending_weights[view]
+    fields = [k for k in range(len(model.fields)) if bw[k] != 0]
+    chunk = BATCH // len(fields)
+    n, n_chunks = W * H, -(-W * H // chunk)
+    ids = torch.cat([torch.arange(n, device=dev), torch.zeros(n_chunks * chunk - n, dtype=torch.int64,
+                                                               device=dev)]).reshape(n_chunks, chunk)
+    c2w = model.get_cam2world([view])[0]
+    rgb = torch.zeros((n, 3), device=dev)
+    depth = torch.zeros((n,), device=dev)
+    for k in fields:
+        f = model.fields[k]
+        c2rf = c2w.copy()
+        c2rf[:3, 3] += model.world2rf[k]
+        r, d = render_frame(
+            model._eval_params(f), f["cfg"], ids, torch.from_numpy(c2rf).to(dev),
+            torch.tensor(model.focal(W), dtype=torch.float32, device=dev),
+            torch.from_numpy(model.center(W, H)).to(dev), w=W, h=H,
+            refine=1.0 if model.is_refining else 0.0, alpha_volume=f["alpha_volume"],
+        )
+        rgb += r[:n] * float(bw[k])
+        depth += d[:n] * float(bw[k])
+    exposure = torch.from_numpy(model.exp_all[view]).to(dev)
+    return torch.clamp(rgb @ exposure.T, 0.0, 1.0), depth
+
+
+def _frame_metrics(rgb, ds, view: int) -> tuple[float, float]:
+    """PSNR and SSIM of a rendered frame against the dataset's frame, on the
+    card (the data is random: the values show only that the metrics run)."""
+    import torch
+
+    from localrf_tpu_torch.utils.metrics import rgb_psnr, rgb_ssim
+
+    gt = torch.from_numpy(ds._src["rgbs"][view]).to(rgb.device)
+    img = rgb.reshape(H, W, 3)
+    return rgb_psnr(img, gt), rgb_ssim(img, gt, 1.0)
+
+
+def spawn_and_eval(dev) -> tuple[dict, dict]:
+    """The spawn and eval phase (module docstring, 7): field 0 at 640^3
+    trains through frame appends, field 1 spawns, the window slides, field 1
+    trains in chunks (run_chunks), then blended eval frames. Returns (the
+    post-spawn chunk results, the eval frames' launch counts)."""
+    import torch
+
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+    from localrf_tpu_torch.models.local import LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import init_tensorf
+    from localrf_tpu_torch.optim import pytree_adam_init
+
+    ds = make_dataset(W, H, SPAWN_FRAMES, seed=3, n_init=SPAWN_INIT)
+    pool = DevicePixelPool(ds, capacity=POOL_SLOTS, device=dev)
+    model = LocalTensorfs(full_width_config(SPAWN_GRIDS[1], n_init_frames=SPAWN_INIT), device=dev)
+    f0 = model.fields[0]  # the retiring field: the run's 64^3 grid upsampled to 640^3
+    f0["cfg"] = f0["cfg"].with_grid((SPAWN_GRIDS[0],) * 3)
+    f0["params"] = init_tensorf(f0["cfg"], model._gen, dev)
+    f0["opt"] = pytree_adam_init(f0["params"], model.cfg.moment_dtype)
+    _with_ball(model, dev)
+    model.attach_pool(pool)
+
+    def pre_spawn_chunk():
+        _run_chunk(model, model.plan_chunk(ds, True, SPAWN_PRE_STEPS))
+        if not np.isfinite(model.chunk_metrics["total_loss"]).all():
+            raise AssertionError(f"spawn: non-finite loss on field 0 {model.chunk_metrics}")
+
+    pre_spawn_chunk()
+    for _ in range(SPAWN_ADDED):
+        model.append_frame()
+        ds.activate_frames()
+        pool.sync()
+        pre_spawn_chunk()
+    mem = {"before": _memory("spawn: before it (field 0 at 640^3 with its graphs)")}
+    if not mem["before"]["graph_pool"]:
+        raise AssertionError("spawn: no graph memory before the spawn")
+    f0_bytes = _nbytes(*f0["params"].parameters(), *f0["opt"].m.values(), *f0["opt"].v.values())
+    captures = model._graphs.captures
+
+    model.append_rf(SPAWN_ADDED)
+    first = int(np.argmax(model.blending_weights[:, -1] > 0))
+    ds.deactivate_frames(first)
+    model.set_window_start(first)
+    pool.sync()
+    retired = model.fields[0]
+    if retired["opt"] is not None or any(p.device.type != "cpu" for p in retired["params"].parameters()):
+        raise AssertionError("spawn: field 0's params are not on the host, or it kept its optimizer")
+    if len(model._graphs):
+        raise AssertionError("spawn: the graphs were not dropped")
+    host = {k: p.detach().clone() for k, p in retired["params"].named_parameters()}
+    for _ in range(SPAWN_AFTER):
+        model.append_frame()
+        ds.activate_frames()
+        pool.sync()
+    gate = model._gate()[: model.win_len]
+    if model.pose_linked_rf[-SPAWN_AFTER:] != [1] * SPAWN_AFTER or gate.tolist() != (
+            [False] * (model.win_len - SPAWN_AFTER) + [True] * SPAWN_AFTER):
+        raise AssertionError(f"spawn: links {model.pose_linked_rf}, gate {gate.tolist()}")
+    if sorted(pool.slot_of_frame) != list(range(first, model.n_frames)):
+        raise AssertionError(f"spawn: pool holds frames {sorted(pool.slot_of_frame)}")
+    print(f"spawn: field 1 over the last {SPAWN_ADDED} of {first + SPAWN_ADDED} frames, blending"
+          f" weights {model.blending_weights[:, 1].tolist()}, window from frame {model.win_start},"
+          f" links {model.pose_linked_rf}, world2rf {model.world2rf[1].tolist()}")
+    # field 0's params and Adam moments left the card; its graphs' pool is
+    # cached by the allocator (free, reused on demand) until empty_cache
+    mem["after"] = _memory("spawn: after it (field 0 on the host, graphs dropped)")
+    freed = mem["before"]["allocated"] - mem["after"]["allocated"]
+    if freed < f0_bytes - 2**26:
+        raise AssertionError(f"spawn: {freed} bytes freed, field 0 held {f0_bytes} on the card")
+    torch.cuda.empty_cache()
+    mem["emptied"] = _memory("spawn: after it and empty_cache")
+    # cuBLAS keeps a workspace per stream: the capture stream's was taken
+    # from the graphs' pool, and nothing else may hold it
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    mem["no_workspaces"] = _memory("spawn: after it, cuBLAS's workspaces cleared")
+    if mem["no_workspaces"]["graph_pool"]:
+        raise AssertionError("spawn: the dropped graphs' pool is still held")
+    torch.cuda.reset_peak_memory_stats()
+
+    # field 1 (64^3, dense march) in chunks: twins from a frozen copy of
+    # the post-spawn state
+    frozen = clone_model(model, dev)
+    out, model = run_chunks("spawn: field 1 at 64^3", lambda with_pool: clone_model(
+        frozen, dev, pool if with_pool else None), ds, "default", model=model)
+    del frozen
+    if model._graphs.captures <= captures:
+        raise AssertionError("spawn: no graph captured after the spawn")
+    mem["chunks"] = _memory("spawn: after field 1's chunks (with its graphs)")
+    for k, p in retired["params"].named_parameters():
+        if not torch.equal(p, host[k]):
+            raise AssertionError(f"spawn: field 0's host {k} changed")
+    out["memory"] = mem
+    model.drop_graphs()
+    torch.cuda.empty_cache()
+
+    # eval frames of 960x540
+    bw = model.blending_weights
+    v_blend = int(np.argmin(np.abs(bw[:, 1] - 0.5)))
+    v_old, v_new = first // 2, model.n_frames - 1
+    if not (0 < bw[v_blend]).all() or not (bw[v_blend] < 1).all() or bw[v_old, 1] or bw[v_new, 0]:
+        raise AssertionError(f"spawn: no blended frame, or a frame of one field, in {bw.tolist()}")
+    ids = np.arange(W * H)
+    counts: dict = {}
+    frames = {}
+    alloc0 = torch.cuda.memory_allocated()
+    rgb_b, depth_b, frames["blended"], lb = _eval(model, ids, [v_blend], counts)
+    _expect_launches("eval blended", lb, {"fused_weights_fwd": 2 * -(-W * H // (BATCH // 2))})
+    with _field_cfgs(model, pallas_composite=False):
+        rgb_p, depth_p, _, lp = _eval(model, ids, [v_blend], None)
+    _expect_launches("eval blended, plain compositing", lp, {})
+    err_plain = (_close(rgb_b, rgb_p, *EVAL_TOL),
+                 _close(depth_b, depth_p, EVAL_TOL[0], EVAL_TOL[1] * float(depth_p.abs().max())))
+    rgb_s, depth_s = _blend_of_fields(model, v_blend)
+    err_sum = (_close(rgb_b, rgb_s, *SUM_TOL), _close(depth_b, depth_s, SUM_TOL[0], SUM_TOL[1]))
+    rgb_o, depth_o, frames["field 0"], lo = _eval(model, ids, [v_old], counts)
+    _expect_launches("eval field 0", lo, {"fused_weights_fwd": -(-W * H // BATCH)})
+    trace = profile_run(lambda: _eval(model, ids, [v_old], None)[2])
+    top = "; ".join(f"{name.removeprefix('void ')[:80]} {ns / 1e6:.1f}"
+                    for name, ns in trace["ns_by_name"].most_common(6))
+    print(f"eval field 0, profiled: {trace['wall_ms']:.1f} ms host, {trace['busy_ms']:.1f} busy on the"
+          f" card: idle share {1 - trace['busy_ms'] / trace['wall_ms']:.3f}; card ms by kernel: {top}")
+    sub = np.random.default_rng(0).choice(W * H, BATCH // 2, replace=False)
+    rgb_m, depth_m, frames["render_chunk, 2 views"], lm = _eval(
+        model, np.concatenate([sub, sub]), [v_blend, v_old], counts)
+    _expect_launches("eval 2 views", lm, {"fused_weights_fwd": 2 * -(-BATCH // (BATCH // 2))})
+    sub_t = torch.from_numpy(sub).to(dev)
+    err_multi = max(_close(rgb_m, torch.cat([rgb_b[sub_t], rgb_o[sub_t]]), *EVAL_TOL),
+                    _close(depth_m, torch.cat([depth_b[sub_t], depth_o[sub_t]]), EVAL_TOL[0],
+                           EVAL_TOL[1] * float(depth_b.abs().max())))
+    rgb_f, _, frames["floater 0.5"], lf = _eval(model, ids, [v_new], counts, floater_thresh=0.5)
+    _expect_launches("eval floater_thresh", lf, {})
+    cached = torch.cuda.memory_allocated()
+    del rgb_p, depth_p, rgb_s, depth_s
+    model.clear_eval_cache()
+    cleared = torch.cuda.memory_allocated()
+    for label, rgb, view in (("blended", rgb_b, v_blend), ("field 0", rgb_o, v_old),
+                             ("floater 0.5", rgb_f, v_new)):
+        psnr, ssim = _frame_metrics(rgb, ds, view)
+        print(f"eval {label} (frame {view}, weights {bw[view].tolist()}): {frames[label]:.1f} ms,"
+              f" PSNR {psnr:.3f} SSIM {ssim:.4f} against the random frame")
+    print(f"eval render_chunk over frames {v_blend} and {v_old} ({BATCH // 2} pixels each):"
+          f" {frames['render_chunk, 2 views']:.1f} ms, max err against the frames {err_multi:.3e}")
+    print(f"eval blended: max err against the plain compositing rgb {err_plain[0]:.3e} depth"
+          f" {err_plain[1]:.3e}; against the sum over fields of w_k * render_frame_k rgb {err_sum[0]:.3e}"
+          f" depth {err_sum[1]:.3e}")
+    print(f"eval memory: allocated {alloc0 / 2**30:.3f} GiB before the frames, {cached / 2**30:.3f} with"
+          f" field 0 cached, {cleared / 2**30:.3f} after clear_eval_cache; launches {counts}")
+    out["eval"] = {"ms": frames, "cache_bytes": cached - cleared, "err_plain": err_plain,
+                   "err_sum": err_sum, "err_multi": err_multi,
+                   "field0_idle": 1 - trace["busy_ms"] / trace["wall_ms"]}
+    del model, pool
+    torch.cuda.empty_cache()
+    return out, counts
+
+
+def fused_eval(dev) -> dict:
+    """One 960x540 eval frame of model_640 on the fused march (K4-fwd and
+    K1-fwd a chunk) against the same frame with the fused march off, rgb to
+    K4_TOL["out"] and depth to K4_TOL["out"] of itself. Returns the frame's
+    launch counts."""
+    import torch
+
+    model = model_640(dev, "fused_march")
+    ids = np.arange(W * H)
+    counts: dict = {}
+    rgb, depth, ms, launches = _eval(model, ids, [0], counts)
+    n = -(-W * H // BATCH)
+    _expect_launches("eval fused march", launches, {"fused_weights_fwd": n, "march_fwd": n})
+    with _field_cfgs(model, fused_march=False):
+        rgb_u, depth_u, ms_u, _ = _eval(model, ids, [0], None)
+    err = (_close(rgb, rgb_u, 0.0, K4_TOL["out"]), _close(depth, depth_u, K4_TOL["out"], K4_TOL["out"]))
+    print(f"eval fused march 640^3: {ms:.1f} ms/frame ({ms_u:.1f} with the fused march off), launches"
+          f" {launches}; max err against the unfused frame rgb {err[0]:.3e} depth {err[1]:.3e}")
+    del model
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_spawn_eval_against_cpu(dev) -> None:
+    """A small f32 model (32^3) on the card and on the CPU spawns a field
+    over 2 frames, slides, appends a frame and takes one step on the new
+    field from the same weights, batch and noise (losses to rtol 1e-4);
+    then, from the card's state after the step (an Adam step moves a
+    near-zero gradient by ~lr * sign(g), and the card's atomic adds may
+    flip that sign), each renders one 40x30 blended frame, held to rtol
+    1e-4 / atol 1e-4."""
+    import torch
+
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import TensorfConfig, TensorfField
+    from localrf_tpu_torch.optim import pytree_adam_init
+
+    w, h = 40, 30
+    ds = make_dataset(w, h, 8, seed=2, n_init=4)
+    tf = TensorfConfig(grid_size=(32, 32, 32), pallas_composite=True, binned_min_rows=500)
+    cfg = LocalConfig(WH=(w, h), n_init_frames=4, n_views=4, batch_size=512, n_overlap=2, tensorf=tf)
+    gpu, cpu = LocalTensorfs(cfg, device=dev), LocalTensorfs(cfg, device="cpu")
+
+    def copy_field():
+        p = TensorfField({k: v.detach().to("cpu", copy=True)
+                          for k, v in gpu.fields[-1]["params"].named_parameters()})
+        cpu.fields[-1]["params"], cpu.fields[-1]["opt"] = p, pytree_adam_init(p)
+
+    copy_field()
+    t = np.random.default_rng(2).uniform(-0.3, 0.3, (6, 3)).astype(np.float32)
+    for m in (gpu, cpu):
+        for _ in range(2):
+            m.append_frame()
+        m.t_all[:] = t
+        m._build_window()
+        m.append_rf(2)
+    copy_field()
+    first = int(np.argmax(gpu.blending_weights[:, -1] > 0))
+    ds.activate_frames(3)
+    ds.deactivate_frames(first)
+    for m in (gpu, cpu):
+        m.set_window_start(first)
+        m.append_frame()
+        m.is_refining = True
+        m.rf_iter[-1] = 2
+    noise = gpu._next_noise(tf)
+    batch = ds.sample(512, True, True, n_views=4)
+    _reset_launch_counts()
+    for m in (gpu, cpu):
+        m._next_noise = lambda _, m=m: {k: v.to(m.device) for k, v in noise.items()}
+        m.optimizer_step(batch, optimize_poses=True)
+    for k, v in cpu.last_metrics.items():
+        if not np.isclose(gpu.last_metrics[k], v, rtol=1e-4, atol=1e-6):
+            raise AssertionError(f"small spawn: {k} card {gpu.last_metrics[k]} vs cpu {v}")
+    missing = [k for k, n in _launch_counts().items() if k in PATH_KERNELS["default"] and n <= 0]
+    if missing:
+        raise AssertionError(f"small spawn: kernels {missing} did not launch on the card")
+    copy_field()
+    gpu.sync_window_to_host()
+    cpu.r_all, cpu.t_all, cpu.exp_all = gpu.r_all.copy(), gpu.t_all.copy(), gpu.exp_all.copy()
+    cpu._build_window()
+    view = int(np.argmin(np.abs(gpu.blending_weights[:, 1] - 0.5)))
+    if not (0 < gpu.blending_weights[view]).all():
+        raise AssertionError("small spawn: the frame is not blended")
+    out = [m.forward_eval(np.arange(w * h), np.array([view]), w, h, chunk=600) for m in (gpu, cpu)]
+    err = [_close(a.cpu(), b, 1e-4, 1e-4) for a, b in zip(out[0][:2], out[1][:2])]
+    print(f"small spawn card vs cpu: step total_loss {gpu.last_metrics['total_loss']:.6f} vs"
+          f" {cpu.last_metrics['total_loss']:.6f}; blended frame {view} max err rgb {err[0]:.3e}"
+          f" depth {err[1]:.3e}")
+
+
 def main() -> None:
     # the H100's default cuBLAS workspace (8 x 4 MiB), named so that cuBLAS
     # calls raise no warning under deterministic_sums
@@ -1337,6 +1780,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     for path in PATH_TF:
         check_small_step_against_cpu(dev, path)
+    check_spawn_eval_against_cpu(dev)
 
     # phase 4: the slice at 64^3 — dense march, alpha refresh after the 2nd
     # step, dense cull, upsample to 101^3 after the 3rd
@@ -1368,6 +1812,13 @@ def main() -> None:
     for path in ("default", "fused_march", "segsum"):
         torch.cuda.empty_cache()
         chunks[f"640^3 {path}"] = chunk_640(ds, dev, pool, path)
+    del pool
+    torch.cuda.empty_cache()
+
+    # phase 7: spawn and eval
+    evals = {}
+    chunks["spawn 64^3"], evals["spawn"] = spawn_and_eval(dev)
+    evals["fused march"] = fused_eval(dev)
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -1375,7 +1826,9 @@ def main() -> None:
         (row,) = [r for r in mine if r["main"]]
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": sum(ph["launches"][name] for ph in (*phases.values(), *chunks.values())),
+            "launches": sum(ph["launches"][name] for ph in (*phases.values(), *chunks.values()))
+            + sum(counts.get(name, 0) for counts in evals.values()),
+            "eval_launches": sum(counts.get(name, 0) for counts in evals.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "bound_share": row["bound_ms"] / row["ms"],
@@ -1389,6 +1842,10 @@ def main() -> None:
                          max_row_points=row["max_row_points"])
         if "kernel_us" in row:
             entry["kernel_us"] = row["kernel_us"]
+        for r in mine:
+            if r["shape"] == EVAL_K1_SHAPE:
+                entry.update(eval_shape=r["shape"], eval_ms=r["ms"], eval_plain_ms=r["plain_ms"],
+                             eval_bound_ms=r["bound_ms"])
         kernels.append(entry)
     print(json.dumps({"slice": {
         label: {"ms_per_step": ph["ms"], "peak_bytes": ph["peak"]} for label, ph in phases.items()}}))
@@ -1396,6 +1853,8 @@ def main() -> None:
         label: {k: ph[k] for k in ("ms", "ms_all", "idle", "device_gaps", "peak", "reserved",
                                    "captures", "capture_ms", "worst_rel", "bit_exact_tensors")}
         for label, ph in chunks.items()}}))
+    spawn = chunks["spawn 64^3"]
+    print(json.dumps({"spawn": {"memory": spawn["memory"], "eval": spawn["eval"]}, "eval_launches": evals}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here")
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -120,6 +120,9 @@ class ChunkGraphs:
         self._binding = None
         self._buf: _Buffers | None = None
         self._pool = None
+        # the warm-up stream, one for the life of the executor: cuBLAS caches
+        # a workspace for each stream it ran on
+        self._side = torch.cuda.Stream(self.device)
 
     def __len__(self) -> int:
         return len(self.graphs)
@@ -183,7 +186,7 @@ class ChunkGraphs:
         """Run `step` eagerly on a side stream (this step's update), then
         capture it; raises if either fails."""
         current = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
+        side = self._side
         side.wait_stream(current)
         with torch.cuda.stream(side), _sync_check():
             step()

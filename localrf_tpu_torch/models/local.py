@@ -1,16 +1,19 @@
 """LocalTensorfs: host-side progressive manager over the training step
-(PyTorch port of localrf_tpu/models/local.py, first slice).
+(PyTorch port of localrf_tpu/models/local.py).
 
 Trainable state lives on `device`: a sliding pose window and the active
-field. The host keeps the full per-frame history and the schedule (lr
-decay, refine/regularize flags, gates, upsampling, occupancy refresh).
+field. The host keeps the full per-frame history, the schedule (lr decay,
+refine/regularize flags, gates, upsampling, occupancy refresh) and the
+retired fields, whose parameters move to host memory when the next field
+spawns.
 
-Ported so far: construction, frame append, the first field, the pose
-window, `optimizer_step` / `optimizer_step_poses_only` (one eager step),
-and the chunk path `plan_chunk` -> `run_chunk` (the default `--scan_chunk
-16 --pixel_pool 1` of the JAX package), whose steps replay captured CUDA
-graphs on a card (models/graph.py) and loop on the CPU. Spawning further
-fields, sliding the window and evaluation are still to come (ROADMAP.md).
+Ported: construction, frame append, spawning fields with the cross-fade
+ladder (`append_rf`), sliding the pose window (`set_window_start`),
+`optimizer_step` / `optimizer_step_poses_only` (one eager step), the chunk
+path `plan_chunk` -> `run_chunk` (the default `--scan_chunk 16
+--pixel_pool 1` of the JAX package), whose steps replay captured CUDA
+graphs on a card (models/graph.py) and loop on the CPU, the queries the
+training loop reads, and the blended eval render `forward_eval`.
 """
 from __future__ import annotations
 
@@ -31,6 +34,10 @@ from .step import (
     PoseState,
     StepBranches,
     StepStatics,
+    _apply_exposure,
+    cam2world_from_params,
+    render_chunk,
+    render_frame,
     row,
     stack_noise,
     stack_scalars,
@@ -39,7 +46,14 @@ from .step import (
     train_step,
     train_step_poses_only,
 )
-from .tensorf import TensorfConfig, init_tensorf, update_alpha_volume, upsample_tensorf
+from .tensorf import (
+    TensorfConfig,
+    TensorfField,
+    build_combined_quad_views,
+    init_tensorf,
+    update_alpha_volume,
+    upsample_tensorf,
+)
 
 
 @dataclasses.dataclass
@@ -224,6 +238,15 @@ class LocalTensorfs:
             r_opt=adam("r"), t_opt=adam("t"), e_opt=adam("e"),
         )
 
+    def set_window_start(self, start: int):
+        """Slide the window after frames are deactivated. The window keeps one
+        frame before the first active frame for bwd-flow supervision."""
+        start = max(start - 1, 0)
+        if start != self.win_start:
+            self.sync_window_to_host()
+            self.win_start = start
+            self._build_window()
+
     def _gate(self) -> np.ndarray:
         """Per-window-frame bool: pose/exposure updates only for frames linked
         to the current field while it still trains."""
@@ -276,13 +299,33 @@ class LocalTensorfs:
                 self.pose_opt_all[k] = np.concatenate([self.pose_opt_all[k], rows[k]], axis=0)
         self._build_window()
 
-    def append_rf(self):
-        """Create the first local field. Spawning further fields (blending
-        ladder, offload) is not ported yet."""
-        if self.fields:
-            raise NotImplementedError("only the first local field is ported")
+    def append_rf(self, n_added_frames: int = 1):
+        """Spawn a field. Past the first, the last n_overlap frames cross-fade
+        from the previous field to the new one, the new field is centred on
+        the last frame's position, and the previous field retires: its
+        parameters move to host memory and its optimizer state is dropped."""
         self.sync_window_to_host()
         self.is_refining = False
+        if self.fields:
+            n_overlap = min(n_added_frames, self.cfg.n_overlap, self.blending_weights.shape[0] - 1)
+            # k/n directly, in float64: the last weight is then exactly 1.0
+            # and the retired column's "1 - w" exactly 0.0 for every
+            # n_overlap (JAX local.py:325-329)
+            weights_overlap = np.arange(1, n_overlap + 1, dtype=np.float64) / n_overlap
+            self.blending_weights[-n_overlap:, -1] = 1 - weights_overlap
+            new_col = np.zeros_like(self.blending_weights[:, 0:1])
+            new_col[-n_overlap:, 0] = weights_overlap
+            self.blending_weights = np.concatenate([self.blending_weights, new_col], axis=1)
+            world2rf = -self.t_all[-1].copy()
+            # a captured graph keeps every tensor it read alive in its pool:
+            # drop them before the retired field leaves the card
+            self.drop_graphs()
+            prev = self.fields[-1]
+            prev["params"] = TensorfField(
+                {k: p.detach().cpu() for k, p in prev["params"].named_parameters()})
+            prev["opt"] = None
+        else:
+            world2rf = np.zeros(3, np.float32)
         tf_cfg = self.cfg.tensorf
         params = init_tensorf(tf_cfg, self._gen, self.device)
         self.fields.append({
@@ -291,7 +334,7 @@ class LocalTensorfs:
             "alpha_volume": None,
             "opt": pytree_adam_init(params, self.cfg.moment_dtype),
         })
-        self.world2rf.append(np.zeros(3, np.float32))
+        self.world2rf.append(np.asarray(world2rf, np.float32))
         self.rf_iter.append(0)
 
     # ------------------------------------------------------------------
@@ -589,3 +632,166 @@ class LocalTensorfs:
         self._apply_post_step_events()
         self.rf_iter[-1] = rf_iter_saved
         return self.rf_iter[-1] >= self.n_iters - 1
+
+    # ------------------------------------------------------------------
+    # queries
+    # ------------------------------------------------------------------
+
+    def get_cam2world(self, view_ids=None, starting_id: int = 0) -> np.ndarray:
+        """[N, 3, 4] camera-to-world poses of every frame (host float32)."""
+        self.sync_window_to_host()
+        c2w = cam2world_from_params(torch.from_numpy(self.r_all), torch.from_numpy(self.t_all)).numpy()
+        if view_ids is not None:
+            return c2w[np.asarray(view_ids)]
+        return c2w[starting_id:]
+
+    def get_dist_to_last_rf(self) -> float:
+        """Distance of the window's last frame from the current field's centre."""
+        t_last = self._pose_dev.t[self.win_len - 1].detach().cpu().numpy()
+        return float(np.linalg.norm(t_last + self.world2rf[-1]))
+
+    def focal(self, w: int) -> float:
+        off = float(self.intr.params["focal_offset"])
+        return self.init_focal * off * w / self.W
+
+    def center(self, w: int, h: int) -> np.ndarray:
+        rel = self.intr.params["center_rel"].detach().cpu().numpy()
+        return np.array([w, h], np.float32) * rel
+
+    # ------------------------------------------------------------------
+    # evaluation: blend every field with a nonzero weight
+    # ------------------------------------------------------------------
+
+    def _eval_params(self, f: dict):
+        """A field's parameters on the device: the current field's own; a
+        retired field's host parameters uploaded once and cached, keyed by
+        the identity of the host module (clear_eval_cache drops the copy)."""
+        params = f["params"]
+        if f is self.fields[-1]:
+            return params
+        cached = f.get("_dev_cache")
+        if cached is not None and cached[0] is params:
+            return cached[1]
+        dev = TensorfField({k: p.detach().to(self.device) for k, p in params.named_parameters()})
+        f["_dev_cache"] = (params, dev)
+        return dev
+
+    def _eval_alpha(self, f: dict):
+        """A field's alpha volume for eval: the volume itself, which stays on
+        the device when the field retires."""
+        return f.get("alpha_volume")
+
+    def clear_eval_cache(self):
+        """Drop the device copies of retired fields made by _eval_params (a
+        full copy of each evaluated field's factor grids; call after a
+        render session)."""
+        for f in self.fields:
+            f.pop("_dev_cache", None)
+
+    @torch.no_grad()
+    def forward_eval(
+        self,
+        ray_ids: np.ndarray,
+        view_ids: np.ndarray,
+        w: int,
+        h: int,
+        cam2world: np.ndarray | None = None,
+        world2rf: list[np.ndarray] | None = None,
+        blending_weights: np.ndarray | None = None,
+        chunk: int = 16384,
+        test_id: bool = False,
+        floater_thresh: float = 0.0,
+    ):
+        """Render the rays `ray_ids` (pixel ids, rays_per_view of each view
+        in `view_ids`, view-major) at w x h, blending every field whose
+        weight is nonzero for the views; then exposure (test_id: the mean of
+        the neighbours' exposures) and the clip to [0, 1]. One view renders
+        whole frames through render_frame, several go chunk by chunk through
+        render_chunk; each field renders chunk // n_fields rays at a time.
+        Returns tensors on the model's device: rgb [N, 3], depth [N],
+        directions [N, 3], ij [N, 2]."""
+        self.sync_window_to_host()
+        view_ids = np.asarray(view_ids)
+        if blending_weights is None:
+            blending_weights = self.blending_weights[view_ids]
+        if cam2world is None:
+            cam2world = self.get_cam2world(view_ids)
+        if world2rf is None:
+            world2rf = self.world2rf
+        active_rf_ids = [int(i) for i in np.nonzero(blending_weights.sum(axis=0))[0]]
+        if not active_rf_ids:
+            raise RuntimeError("No valid field for the requested views")
+
+        dev = self.device
+        focal = self.focal(w)
+        center = self.center(w, h)
+        kw = dict(
+            w=w, h=h, floater_thresh=floater_thresh, fov360=(self.cfg.fov == 360),
+            refine=1.0 if self.is_refining else 0.0,
+            focal=torch.tensor(focal, dtype=torch.float32, device=dev),
+            center=torch.from_numpy(center).to(dev),
+        )
+        n_rays = ray_ids.shape[0]
+        rays_per_view = n_rays // len(view_ids)
+        chunk = max(chunk // len(active_rf_ids), 1)
+        n_chunks = (n_rays + chunk - 1) // chunk
+        ids = torch.from_numpy(np.asarray(ray_ids, np.int64)).to(dev)
+        # the last chunk padded with ray id 0: one chunk shape a frame
+        ids_p = torch.cat([ids, ids.new_zeros(n_chunks * chunk - n_rays)])
+        bw = torch.from_numpy(np.asarray(blending_weights, np.float32)).to(dev)  # [V, n_rf]
+        rgbs = torch.zeros((n_rays, 3), device=dev)
+        depths = torch.zeros((n_rays,), device=dev)
+
+        def cam2rf(c2w: np.ndarray, rf_id: int) -> torch.Tensor:
+            c2w = c2w.copy()
+            c2w[..., :3, 3] += world2rf[rf_id]
+            return torch.from_numpy(np.ascontiguousarray(c2w, np.float32)).to(dev)
+
+        if len(view_ids) == 1:
+            ids_p = ids_p.reshape(n_chunks, chunk)
+            for rf_id in active_rf_ids:
+                f = self.fields[rf_id]
+                rgb, depth = render_frame(
+                    self._eval_params(f), f["cfg"], ids_p, cam2rf(cam2world[0], rf_id),
+                    alpha_volume=self._eval_alpha(f), **kw,
+                )
+                rgbs += rgb[:n_rays] * bw[0, rf_id]
+                depths += depth[:n_rays] * bw[0, rf_id]
+        else:
+            bw_exp = bw.repeat_interleave(rays_per_view, dim=0)
+            c2w_exp = np.repeat(cam2world, rays_per_view, axis=0)
+            c2w_exp = np.concatenate([c2w_exp, np.repeat(c2w_exp[-1:], n_chunks * chunk - n_rays, axis=0)])
+            fields = []
+            for rf_id in active_rf_ids:
+                f = self.fields[rf_id]
+                params = self._eval_params(f)
+                fields.append((rf_id, f, params, build_combined_quad_views(params, f["cfg"]),
+                               cam2rf(c2w_exp, rf_id)))
+            for ci in range(n_chunks):
+                sl = slice(ci * chunk, min((ci + 1) * chunk, n_rays))
+                n = sl.stop - sl.start
+                for rf_id, f, params, quad, c2rf in fields:
+                    rgb, depth, _, _ = render_chunk(
+                        params, f["cfg"], ids_p[ci * chunk : (ci + 1) * chunk],
+                        c2rf[ci * chunk : (ci + 1) * chunk], alpha_volume=self._eval_alpha(f),
+                        quad=quad, **kw,
+                    )
+                    rgbs[sl] += rgb[:n] * bw_exp[sl, rf_id, None]
+                    depths[sl] += depth[:n] * bw_exp[sl, rf_id]
+
+        if self.cfg.lr_exposure_init > 0:
+            rgbs = _apply_exposure(
+                rgbs, torch.from_numpy(self.exp_all).to(dev), torch.from_numpy(view_ids.astype(np.int64)).to(dev),
+                rays_per_view, torch.tensor(self.n_frames, device=dev), 1.0 if test_id else 0.0,
+            )
+        rgbs = torch.clamp(rgbs, 0.0, 1.0)
+
+        i = ids % w
+        j = (ids // w) % h
+        # in float64 and rounded once, as JAX's numpy does
+        directions = torch.stack([
+            (i.double() + 0.5 - float(center[0])) / focal,
+            -(j.double() + 0.5 - float(center[1])) / focal,
+            -torch.ones_like(i, dtype=torch.float64),
+        ], dim=-1).float()
+        return rgbs, depths, directions, torch.stack([i, j], dim=-1)

@@ -4,9 +4,10 @@ Contracted stratified sampling, occupancy culling (coarse probe + exact
 compaction, or a dense cull), factored-grid density, softplus, the
 compositing scan (the K1 kernel when cfg.pallas_composite), shading of
 every (compacted) sample from the shared gather or in the fused march core
-(the K4 kernel when cfg.fused_march), white background. Static
-shapes: masked samples are zeroed, not dropped, which gives the same
-composited outputs as the reference's ragged gathers.
+(the K4 kernel when cfg.fused_march), the eval renders' floater
+suppression, white background. Static shapes: masked samples are zeroed,
+not dropped, which gives the same composited outputs as the reference's
+ragged gathers.
 """
 from __future__ import annotations
 
@@ -62,14 +63,20 @@ def render_rays(
     is_train: bool,
     white_bg: bool,
     refine=1.0,
+    floater_thresh: float = 0.0,
     alpha_volume: torch.Tensor | None = None,
     noise: dict | None = None,
     n_samples: int = -1,
+    quad: dict | None = None,
 ):
     """Render a chunk of rays against one field.
 
     rays_o/rays_d: [R, 3] field-space origins and (unnormalized) directions.
-    `noise` (see draw_noise) is required when is_train.
+    `noise` (see draw_noise) is required when is_train. `floater_thresh` > 0
+    (path renders) zeroes every sample before that fraction of the ray's
+    weighted mean sample index; it turns compaction and K1 off, as in JAX.
+    `quad` is the field's build_combined_quad_views, built here when None
+    (an eval frame builds it once for all its chunks).
     Returns (rgb_map [R, 3], depth_map [R]).
     """
     n_total = n_samples if n_samples > 0 else cfg.n_samples
@@ -82,9 +89,10 @@ def render_rays(
     )
     r, s = pts.shape[0], pts.shape[1]
     pts_norm = normalize_coord(pts, cfg)
-    quad = build_combined_quad_views(params, cfg)
+    if quad is None:
+        quad = build_combined_quad_views(params, cfg)
 
-    compact = alpha_volume is not None and 0 < cfg.occ_m < s
+    compact = alpha_volume is not None and 0 < cfg.occ_m < s and floater_thresh == 0.0
     probe = cfg.occ_probe_ds if compact and 1 < cfg.occ_probe_ds < s else 0
     if probe:
         # coarse march probe: one lookup in the ds-pooled + dilated alpha
@@ -168,7 +176,7 @@ def render_rays(
     # last sample excluded from density
     sigma = _zero_last(sigma)
 
-    if cfg.pallas_composite:
+    if cfg.pallas_composite and floater_thresh == 0.0:
         from ..ops.kernels.composite import fused_weights
 
         weight = fused_weights(sigma, dists, cfg.distance_scale)
@@ -178,6 +186,14 @@ def render_rays(
 
     acc_map = torch.sum(weight, dim=-1)
     depth_map = torch.sum(weight * z_vals, dim=-1) / viewdirs_norm[..., 0]
+
+    if floater_thresh > 0:
+        # suppress near-camera floaters: re-weight with every sample before
+        # floater_thresh x the weighted mean sample index made transparent
+        sample_idx = torch.arange(s, dtype=weight.dtype, device=weight.device)[None]
+        idx_map = torch.sum(weight * sample_idx, dim=-1, keepdim=True)
+        alpha = torch.where(sample_idx < idx_map * floater_thresh, 0.0, alpha)
+        weight, _ = alpha2weights(alpha)
 
     # shade every (compacted) sample (in the fused core, or from the shared
     # gather); zero samples below the weight threshold (the reference's

@@ -10,6 +10,9 @@ operations, so a step reads no value back to the host and can be captured
 as a CUDA graph (models/graph.py). Four host branches key the graphs
 (`StepBranches`): the regularizers JAX runs as `lax.cond` on tv_wd, tv_wa
 and l1_w > 0, and the pose-only switch (JAX gates on a traced 0/1).
+
+The eval renders `render_chunk` and `render_frame` run one field over
+fixed-size chunks of rays under `torch.no_grad()`.
 """
 from __future__ import annotations
 
@@ -30,7 +33,7 @@ from ..optim import (
     scale_lr,
 )
 from .render import render_rays
-from .tensorf import TensorfConfig, density_l1, tv_loss_app, tv_loss_density
+from .tensorf import TensorfConfig, build_combined_quad_views, density_l1, tv_loss_app, tv_loss_density
 
 
 class FieldState(NamedTuple):
@@ -481,3 +484,60 @@ def train_chunk_pooled(field, pose, intr, pool: dict, index_seq: dict, scalars_s
         index_seq, scalars_seq, statics, noise_seq, n_steps, alpha_volume, branches_seq, graphs,
         bound=tuple(pool.values()),
     )
+
+
+# ------------------------------ eval ------------------------------
+
+
+def _eval_rays(field_params, cfg: TensorfConfig, ray_idx, cam2rf, focal, center, w, h,
+               floater_thresh, white_bg, fov360, refine, alpha_volume, quad):
+    """Rays of ray_idx (pixel ids) through cam2rf [B, 3, 4], rendered
+    against one field. Returns (rgb, depth, directions, (i, j))."""
+    i, j = ids2pixel(w, h, ray_idx)
+    if fov360:
+        directions = get_ray_directions_360(i, j, w, h)
+    else:
+        directions = get_ray_directions_lean(i, j, focal, center)
+    rays_o, rays_d = get_rays_lean(directions, cam2rf)
+    rgb, depth = render_rays(
+        field_params, cfg, rays_o, rays_d, is_train=False, white_bg=white_bg, refine=refine,
+        floater_thresh=floater_thresh, alpha_volume=alpha_volume, quad=quad,
+    )
+    return rgb, depth, directions, (i, j)
+
+
+@torch.no_grad()
+def render_chunk(field_params, cfg: TensorfConfig, ray_idx: torch.Tensor, cam2rf: torch.Tensor,
+                 focal, center, *, w: int, h: int, floater_thresh: float = 0.0, white_bg: bool = True,
+                 fov360: bool = False, refine=1.0, alpha_volume=None, quad: dict | None = None):
+    """Deterministic eval render of one chunk of pixel ids [B] against one
+    field; cam2rf [1 or B, 3, 4]. `quad` is the field's
+    build_combined_quad_views when the caller already built it. Returns
+    (rgb [B, 3], depth [B], directions [B, 3], ij [B, 2])."""
+    if cam2rf.shape[0] == 1:
+        cam2rf = cam2rf.expand(ray_idx.shape[0], 3, 4)
+    rgb, depth, directions, (i, j) = _eval_rays(
+        field_params, cfg, ray_idx, cam2rf, focal, center, w, h, floater_thresh, white_bg, fov360,
+        refine, alpha_volume, quad)
+    return rgb, depth, directions, torch.stack([i, j], dim=-1)
+
+
+@torch.no_grad()
+def render_frame(field_params, cfg: TensorfConfig, ray_idx: torch.Tensor, cam2rf: torch.Tensor,
+                 focal, center, *, w: int, h: int, floater_thresh: float = 0.0, white_bg: bool = True,
+                 fov360: bool = False, refine=1.0, alpha_volume=None):
+    """Whole-frame eval render against one field: ray_idx [n_chunks, chunk]
+    pixel ids (the last chunk padded), one pose cam2rf [3, 4]. A loop over
+    the chunks with no host sync (JAX's lax.scan); the quad tables are
+    built once for the frame. Returns (rgb [n_chunks * chunk, 3], depth
+    [n_chunks * chunk])."""
+    n_chunks, chunk = ray_idx.shape
+    quad = build_combined_quad_views(field_params, cfg)
+    c2rf = cam2rf[None].expand(chunk, 3, 4)
+    rgb = torch.empty((n_chunks, chunk, 3), device=ray_idx.device)
+    depth = torch.empty((n_chunks, chunk), device=ray_idx.device)
+    for c in range(n_chunks):
+        rgb[c], depth[c], _, _ = _eval_rays(
+            field_params, cfg, ray_idx[c], c2rf, focal, center, w, h, floater_thresh, white_bg,
+            fov360, refine, alpha_volume, quad)
+    return rgb.reshape(-1, 3), depth.reshape(-1)

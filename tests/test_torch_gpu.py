@@ -630,3 +630,70 @@ def test_captured_chunk_bit_exact_with_fixed_order_sums(cuda_device, monkeypatch
             assert torch.equal(_bits(got[k]), _bits(want[k])), k
     finally:
         torch.use_deterministic_algorithms(prev)
+
+
+@pytest.mark.gpu
+def test_spawn_step_and_blended_eval_card_matches_cpu(cuda_device):
+    """A 32^3 f32 model on the card and on the CPU spawns a field, slides,
+    takes one step on it (losses rtol 1e-4) and renders one blended 40x30
+    frame (rtol 1e-4 / atol 1e-4): chip_smoke's check_spawn_eval_against_cpu."""
+    import chip_smoke
+
+    chip_smoke.check_spawn_eval_against_cpu(cuda_device)
+
+
+@pytest.mark.gpu
+def test_eval_frame_launches_k1_once_per_chunk_and_field(cuda_device):
+    """A blended frame of two fields on the card launches K1-fwd once per
+    chunk and field (the last chunk padded: one shape a frame) and no
+    backward kernel; floater_thresh launches none; the cached retired field
+    is dropped by clear_eval_cache."""
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import TensorfConfig
+
+    w, h = 40, 30
+    tf = TensorfConfig(grid_size=(24, 24, 24), pallas_composite=True)
+    m = LocalTensorfs(LocalConfig(WH=(w, h), n_init_frames=3, n_overlap=2, tensorf=tf), device=cuda_device)
+    m.append_frame()
+    m.append_rf(2)
+    view = int(np.argmin(np.abs(m.blending_weights[:, 1] - 0.5)))
+    assert 0 < m.blending_weights[view, 0] < 1
+    for counts in (k1.LAUNCHES, k2.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+    rgb, depth, _, _ = m.forward_eval(np.arange(w * h), np.array([view]), w, h, chunk=512)
+    assert rgb.device.type == "cuda" and torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+    assert k1.LAUNCHES == {"fused_weights_fwd": 2 * 5, "fused_weights_bwd": 0}
+    assert not any(k2.LAUNCHES.values())
+    assert "_dev_cache" in m.fields[0]
+    m.forward_eval(np.arange(w * h), np.array([view]), w, h, chunk=512, floater_thresh=0.5)
+    assert k1.LAUNCHES["fused_weights_fwd"] == 10
+    m.clear_eval_cache()
+    assert "_dev_cache" not in m.fields[0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("floater_thresh", [0.0, 0.5])
+def test_render_frame_makes_no_host_sync(cuda_device, floater_thresh):
+    """render_frame's loop over a frame's chunks waits on the card nowhere
+    (torch's sync check set to "error"), with the coarse probe and
+    compaction of an alpha volume, and with floater_thresh."""
+    from localrf_tpu_torch.models.step import render_frame
+    from localrf_tpu_torch.models.tensorf import TensorfConfig, init_tensorf
+
+    cfg = TensorfConfig(grid_size=(32, 32, 32), pallas_composite=True, occ_m=12)
+    params = init_tensorf(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
+    ax = torch.linspace(-1, 1, 16, device=cuda_device)
+    zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
+    alpha = ((xx**2 + yy**2 + zz**2) < 0.6**2).float()
+    ids = torch.arange(4 * 300, device=cuda_device).reshape(4, 300)
+    args = (params, cfg, ids, torch.eye(3, 4, device=cuda_device),
+            torch.full((), 30.0, device=cuda_device), torch.tensor([20.0, 15.0], device=cuda_device))
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rgb, depth = render_frame(*args, w=40, h=30, floater_thresh=floater_thresh, alpha_volume=alpha)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert rgb.shape == (1200, 3) and depth.shape == (1200,)
+    assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()

@@ -718,6 +718,7 @@ def test_port_imports_no_jax():
         "import localrf_tpu_torch.ops.kernels.composite, localrf_tpu_torch.ops.kernels.binned_scatter\n"
         "import localrf_tpu_torch.ops.kernels.segsum, localrf_tpu_torch.ops.kernels.march\n"
         "import localrf_tpu_torch.data.dataset, localrf_tpu_torch.data.flow_io, localrf_tpu_torch.data.pool\n"
+        "import localrf_tpu_torch.utils.metrics\n"
         "import chip_smoke\n"
         "print(pre, loaded())\n"
     )
