@@ -79,6 +79,22 @@
    after clear_eval_cache; K1-fwd launches counted per frame (one per chunk
    and field). Last, one 960x540 frame of model_640 on the fused march
    (K4-fwd and K1-fwd a chunk) against the same frame unfused.
+8. The CLI: a seeded scene of 8 frames of 960x540 (images/, depth/,
+   flow_ds/) is written to a temp dir and train.reconstruction runs on it
+   through config_parser at the default widths and flags, with the frame
+   count, the iterations per frame and the final grid cut (CLI_CUTS,
+   printed): frame appends, upsamples, alpha refreshes, a spawn, mid-run
+   evals with checkpoints_tmp.th, the final checkpoint, transforms.json,
+   test renders and the smoothed path with its videos. Printed: ms/step
+   (median of the chunks of 16 that captured no graph), eval ms/frame,
+   checkpoint bytes with save and load seconds, peak memory, the run's
+   launch counts (K1, K2; counted at capture). Then: the last
+   checkpoints_tmp.th loaded and one chunk from it under fixed-order sums
+   (K5) bit for bit against a twin of the saved model (cloned when the file
+   was written, its generator reseeded as the loader does); render_test's
+   PNGs byte-equal to the run's own; the JAX package's fixture
+   (tests/fixtures/jax_ckpt_12.th) rendered within FIXTURE_TOL of JAX's CPU
+   frame.
 
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
@@ -1723,6 +1739,269 @@ def check_spawn_eval_against_cpu(dev) -> None:
           f" depth {err[1]:.3e}")
 
 
+# the cli phase: train.py's reconstruction through config_parser at the
+# default widths and flags (batch 4096 in 16 views, n_lamb 8/24, app_dim 27,
+# featureC 128, bf16 tables and MLP, --use_pallas 1 --binned_scatter 1
+# --scan_chunk 16 --pixel_pool 1) on a seeded 960x540 scene written to disk.
+# Cut from the defaults (flag: (this run, default)): the frame count (8
+# frames; with it the initial window, the window that triggers refinement,
+# the cross-fade, the frames between appends and the test-frame stride),
+# the iterations per frame and the final grid; the eval stride follows the
+# shorter run
+CLI_FRAMES = 8
+CLI_CUTS = {
+    "n_init_frames": ("3", "5"),
+    "n_max_frames": ("4", "100"),
+    "n_overlap": ("2", "30"),
+    "add_frames_every": ("16", "100"),
+    "test_frame_every": ("4", "10"),
+    "n_iters_per_frame": ("16", "600"),
+    "n_iters_reg": ("4", "100"),
+    "upsamp_list": (["2", "4"], ["100", "150", "200", "250", "300"]),
+    "update_AlphaMask_list": (["3"], ["100", "200", "300"]),
+    "N_voxel_final": (str(128**3), str(640**3)),
+    "vis_every": ("64", "10000"),
+}
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "fixtures", "jax_ckpt_12")
+# the JAX fixture's frame (JAX on the CPU, f32 tables and MLP) against the
+# port's on the card: K1-fwd and the MLP sum in another order
+FIXTURE_TOL = (1e-4, 1e-4)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def write_scene(root: str, w: int, h: int, n_frames: int, seed: int = 0) -> None:
+    """A seeded scene on disk as the datasets read it: images/ (jpg),
+    depth/ (uint16 png inverse depth), flow_ds/ (fwd/bwd flow at half
+    resolution, the uint16 png codec)."""
+    import cv2
+
+    from localrf_tpu_torch.data.flow_io import encode_flow
+
+    rng = np.random.default_rng(seed)
+    for d in ("images", "depth", "flow_ds"):
+        os.makedirs(os.path.join(root, d))
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    for i in range(n_frames):
+        wave = np.sin(2 * np.pi * (3 * xx + 2 * yy + 0.05 * i))[..., None] * np.array([0.25, 0.2, 0.15])
+        img = np.clip(0.5 + wave + rng.normal(0, 0.05, (h, w, 3)), 0, 1)
+        cv2.imwrite(f"{root}/images/{i:06d}.jpg", (img[..., ::-1] * 255).astype(np.uint8))
+        inv = 0.3 + 0.5 * yy + 0.1 * rng.random((h, w))
+        cv2.imwrite(f"{root}/depth/{i:06d}.png", (inv / inv.max() * 65535).astype(np.uint16))
+        for kind in ("fwd", "bwd"):
+            flow = rng.normal(0, 1, (h // 2, w // 2, 2)).astype(np.float32)
+            cv2.imwrite(f"{root}/flow_ds/{kind}_{i:06d}.png", encode_flow(flow, np.ones((h // 2, w // 2), bool)))
+
+
+def _live_state(model) -> dict:
+    """_state with only the pose window's live rows (its padding rows are
+    never read, and a gated-off update leaves NaN in them)."""
+    out = _state(model)
+    n = model.win_len
+    for name, val in model._pose_dev._asdict().items():
+        if isinstance(val, tuple):
+            out.update({f"{name}.{i}": x[:n] for i, x in enumerate(val)})
+        else:
+            out[name] = val[:n]
+    return out
+
+
+@contextlib.contextmanager
+def _patched(obj, name: str, wrap):
+    """obj.name replaced by wrap(original) inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def cli_phase(dev, w: int = W, h: int = H) -> tuple[dict, dict]:
+    """`reconstruction` as `python -m localrf_tpu_torch.train` runs it, then
+    a resume from its tmp checkpoint, its render-only entry and the JAX
+    fixture. Returns (results, the run's launch counts)."""
+    import tempfile
+
+    import torch
+
+    from localrf_tpu_torch import checkpoint, train
+    from localrf_tpu_torch.config import config_parser
+    from localrf_tpu_torch.data.dataset import LocalRFDataset
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+    from localrf_tpu_torch.models.local import LocalTensorfs
+
+    cuda = torch.device(dev).type == "cuda"
+    tmp = tempfile.TemporaryDirectory()
+    scene, log = f"{tmp.name}/scene", f"{tmp.name}/log"
+    t0 = time.perf_counter()
+    write_scene(scene, w, h, CLI_FRAMES)
+    scene_s = time.perf_counter() - t0
+    cuts = [a for k, (v, _) in CLI_CUTS.items() for a in (f"--{k}", *(v if isinstance(v, list) else [v]))]
+    argv = ["--datadir", scene, "--logdir", log, "--device", str(dev), *cuts]
+    print(f"cli: {CLI_FRAMES} frames of {w}x{h} written in {scene_s:.1f} s; cut from the defaults: "
+          + ", ".join(f"--{k} {v} (default {d})" for k, (v, d) in CLI_CUTS.items()))
+
+    chunks, frames, saves, twin = [], [], [], {}
+
+    def timed_chunk(run_chunk):
+        def run(self, batches, optimize_poses):
+            before = self._graphs.captures if self._graphs is not None else 0
+            _sync(dev)
+            t = time.perf_counter()
+            out = run_chunk(self, batches, optimize_poses)
+            _sync(dev)
+            captured = (self._graphs.captures if self._graphs is not None else 0) - before
+            chunks.append((len(batches), (time.perf_counter() - t) * 1e3, captured,
+                           self.fields[-1]["cfg"].grid_size[0]))
+            return out
+        return run
+
+    def timed_eval(forward_eval):
+        def run(self, ray_ids, view_ids, w_, h_, **kw):
+            _sync(dev)
+            t = time.perf_counter()
+            out = forward_eval(self, ray_ids, view_ids, w_, h_, **kw)
+            _sync(dev)
+            frames.append((w_ * h_, (time.perf_counter() - t) * 1e3))
+            return out
+        return run
+
+    def noted_save(save):
+        def run(model, path, extra=None):
+            if path.endswith("checkpoints_tmp.th"):  # the state the file holds, as a twin
+                twin.clear()
+                twin.update(model=clone_model(model, dev), extra=dict(extra))
+            t = time.perf_counter()
+            save(model, path, extra)
+            saves.append((os.path.basename(path), time.perf_counter() - t, os.path.getsize(path)))
+        return run
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    with (_patched(LocalTensorfs, "run_chunk", timed_chunk), _patched(LocalTensorfs, "forward_eval", timed_eval),
+          _patched(train, "save_checkpoint", noted_save)):
+        model, metrics = train.reconstruction(config_parser(argv))
+    run_s = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak = torch.cuda.max_memory_allocated() if cuda else 0
+    _check_launches("cli run", launches, "default")
+
+    # what the run went through, and what it wrote
+    f0 = model.fields[0]
+    if (len(model.fields) < 2 or f0["alpha_volume"] is None or f0["cfg"].grid_size == model.cfg.tensorf.grid_size
+            or not twin):
+        raise AssertionError(f"cli: expected a spawn, an upsample, an alpha refresh and a mid-run eval; fields"
+                             f" {[f['cfg'].grid_size for f in model.fields]}, alpha {f0['alpha_volume'] is not None},"
+                             f" tmp checkpoint {bool(twin)}")
+    with open(f"{log}/transforms.json") as f:
+        tr = json.load(f)
+    if len(tr["frames"]) != CLI_FRAMES or (tr["w"], tr["h"]) != (w, h):
+        raise AssertionError(f"cli: transforms.json has {len(tr['frames'])} frames of {tr['w']}x{tr['h']}")
+    pngs = {p: open(f"{log}/test/rgb_maps/{p}", "rb").read() for p in sorted(os.listdir(f"{log}/test/rgb_maps"))}
+    videos = [v for v in ("video", "posevideo", "depthvideo") if os.path.isfile(f"{log}/smooth_spline/{v}.mp4")]
+    if not pngs or not os.listdir(f"{log}/smooth_spline/rgb_maps") or not metrics:
+        raise AssertionError(f"cli: missing outputs (test renders {sorted(pngs)}, metrics {metrics})")
+    if not all(np.isfinite([m["mse"], m["ssim"], m["lpips_randinit"]]).all() for m in metrics.values()):
+        raise AssertionError(f"cli: non-finite eval metrics {metrics}")
+    steady = [(ms / n, grid) for n, ms, captured, grid in chunks if n == CHUNK and not captured]
+    if not steady:
+        raise AssertionError(f"cli: no chunk of {CHUNK} steps ran without a capture: {chunks}")
+    ms_step = float(np.median([ms for ms, _ in steady]))
+    by_grid = {g: float(np.median([ms for ms, gg in steady if gg == g])) for g in sorted({g for _, g in steady})}
+    full = [ms for px, ms in frames if px == w * h]
+    print(f"cli run: {run_s:.1f} s, {sum(c[0] for c in chunks)} steps in {len(chunks)} chunks"
+          f" ({sum(1 for c in chunks if c[2])} captured graphs); fields {[f['cfg'].grid_size for f in model.fields]},"
+          f" rf_iter {model.rf_iter}; {len(steady)} steady chunks of {CHUNK}: median {ms_step:.3f} ms/step"
+          f" ({[(round(x, 3), g) for x, g in steady]}; by grid {by_grid}); peak allocated {peak / 2**30:.3f} GiB;"
+          f" launches {launches}")
+    print(f"cli eval: {len(frames)} frames, {w}x{h} median {np.median(full) if full else float('nan'):.1f} ms/frame;"
+          f" by size {sorted({px: round(ms, 1) for px, ms in frames}.items())}; metrics {metrics}; videos {videos}")
+    print(f"cli checkpoints: " + "; ".join(f"{n} {b} B saved in {s:.3f} s" for n, s, b in saves))
+
+    # resume: the tmp checkpoint loaded, one chunk under fixed-order sums,
+    # bit for bit with a twin of the saved model (its generator as the
+    # loader sets it)
+    args = config_parser(argv)
+    t0 = time.perf_counter()
+    loaded, extra = checkpoint.load_checkpoint(f"{log}/checkpoints_tmp.th", return_extra=True, device=dev)
+    load_s = time.perf_counter() - t0
+    saved = twin["model"]
+    saved._gen = torch.Generator(device=dev).manual_seed(saved.cfg.seed + 1)
+    if extra != twin["extra"]:
+        raise AssertionError(f"cli resume: extra {extra} vs saved {twin['extra']}")
+    ds = LocalRFDataset(scene, split="train", downsampling=args.downsampling, test_frame_every=args.test_frame_every,
+                        load_depth=True, load_flow=True, n_init_frames=args.n_init_frames,
+                        subsequence=args.subsequence, frame_step=args.frame_step)
+    b0, b1 = extra["active_bounds"]
+    ds.activate_frames(b1 - ds.active_frames_bounds[1])
+    if b0:
+        ds.deactivate_frames(b0)
+    pool = DevicePixelPool(ds, capacity=args.n_max_frames + args.n_overlap + 16, device=dev)
+    loaded.attach_pool(pool)
+    saved.attach_pool(pool)
+    with deterministic_sums():
+        batches = loaded.plan_chunk(ds, True, CHUNK)
+        _reset_launch_counts()
+        loaded.run_chunk(batches, optimize_poses=True)
+        resume_launches = _launch_counts()
+        saved.run_chunk(batches, optimize_poses=True)
+        for k, v in saved.chunk_metrics.items():
+            if not np.array_equal(loaded.chunk_metrics[k], v):
+                raise AssertionError(f"cli resume: {k} {loaded.chunk_metrics[k]} vs the twin's {v}")
+        mine, theirs = _live_state(loaded), _live_state(saved)
+        differ = [k for k in theirs if not _bits_equal(mine[k], theirs[k])]
+        if differ or mine.keys() != theirs.keys() or loaded.rf_iter != saved.rf_iter:
+            raise AssertionError(f"cli resume: the loaded model and the twin differ in {differ}")
+        loaded.drop_graphs()
+        saved.drop_graphs()
+    if not resume_launches.get("segment_sum_merged") or resume_launches.get("segment_sum"):
+        raise AssertionError(f"cli resume: K5 did not take K2's place ({resume_launches})")
+    print(f"cli resume: checkpoints_tmp.th loaded in {load_s:.3f} s at iteration {extra['iteration']},"
+          f" window {extra['active_bounds']}; a chunk of {len(batches)} steps under fixed-order sums equals the"
+          f" twin's bit for bit ({len(mine)} tensors); launches {resume_launches}")
+    del loaded, saved, pool, twin["model"]
+
+    # render-only: the final checkpoint's test renders, byte for byte the run's
+    for p in pngs:
+        os.remove(f"{log}/test/rgb_maps/{p}")
+    n_frames = len(frames)
+    t0 = time.perf_counter()
+    with _patched(LocalTensorfs, "forward_eval", timed_eval):
+        train.render_test(config_parser(argv + ["--render_only", "1", "--render_path", "0"]))
+    render_s = time.perf_counter() - t0
+    again = {p: open(f"{log}/test/rgb_maps/{p}", "rb").read() for p in sorted(os.listdir(f"{log}/test/rgb_maps"))}
+    if again != pngs:
+        raise AssertionError(f"cli render-only: PNGs differ from the run's: "
+                             f"{[p for p in pngs if again.get(p) != pngs[p]]}")
+    print(f"cli render-only: {len(pngs)} PNGs byte-equal to the run's in {render_s:.1f} s"
+          f" ({[round(ms, 1) for _, ms in frames[n_frames:]]} ms a frame)")
+
+    # the JAX package's fixture, on this device
+    fx = np.load(f"{FIXTURE}_frame.npz")
+    jm = checkpoint.load_checkpoint(f"{FIXTURE}.th", device=dev)
+    view, chunk = int(fx["view"]), int(fx["chunk"])
+    fw, fh = jm.W, jm.H
+    rgb, depth, _, _ = jm.forward_eval(np.arange(fw * fh), np.array([view]), fw, fh, chunk=chunk)
+    err = (_close(rgb.cpu(), torch.from_numpy(fx["rgb"]), *FIXTURE_TOL),
+           _close(depth.cpu(), torch.from_numpy(fx["depth"]), *FIXTURE_TOL))
+    print(f"cli JAX fixture: {os.path.basename(FIXTURE)}.th ({len(jm.fields)} fields) view {view} at {fw}x{fh}"
+          f" against JAX's CPU frame: max err rgb {err[0]:.3e} depth {err[1]:.3e}")
+    tmp.cleanup()
+    out = {"run_s": run_s, "ms_per_step": ms_step, "ms_per_step_by_grid": by_grid, "steady_chunks": steady,
+           "eval_ms": frames,
+           "checkpoints": saves, "load_s": load_s, "peak": peak, "render_only_s": render_s,
+           "fixture_err": err, "resume_launches": resume_launches, "steps": sum(c[0] for c in chunks)}
+    return out, launches
+
+
 def main() -> None:
     # the H100's default cuBLAS workspace (8 x 4 MiB), named so that cuBLAS
     # calls raise no warning under deterministic_sums
@@ -1820,6 +2099,10 @@ def main() -> None:
     chunks["spawn 64^3"], evals["spawn"] = spawn_and_eval(dev)
     evals["fused march"] = fused_eval(dev)
 
+    # phase 8: the CLI (reconstruction, resume, render-only, the JAX fixture)
+    torch.cuda.empty_cache()
+    cli, cli_launches = cli_phase(dev)
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -1827,7 +2110,8 @@ def main() -> None:
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(ph["launches"][name] for ph in (*phases.values(), *chunks.values()))
-            + sum(counts.get(name, 0) for counts in evals.values()),
+            + sum(counts.get(name, 0) for counts in evals.values()) + cli_launches[name],
+            "cli_launches": cli_launches[name],
             "eval_launches": sum(counts.get(name, 0) for counts in evals.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -1837,7 +2121,8 @@ def main() -> None:
         }
         if name in FIXED_ORDER.values():
             # on the fixed-order chunks' path only
-            entry["launches"] = sum(ph["exact_launches"].get(name, 0) for ph in chunks.values())
+            entry["launches"] = (sum(ph["exact_launches"].get(name, 0) for ph in chunks.values())
+                                 + cli["resume_launches"].get(name, 0))
             entry.update(path="fixed-order chunks", k2_ms=row["k2_ms"], max_tile_points=row["max_tile_points"],
                          max_row_points=row["max_row_points"])
         if "kernel_us" in row:
@@ -1855,6 +2140,7 @@ def main() -> None:
         for label, ph in chunks.items()}}))
     spawn = chunks["spawn 64^3"]
     print(json.dumps({"spawn": {"memory": spawn["memory"], "eval": spawn["eval"]}, "eval_launches": evals}))
+    print(json.dumps({"cli": cli, "cli_launches": cli_launches}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here")
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -53,3 +53,12 @@ def pose_from_jax(pose, device="cuda") -> PoseState:
         t_opt=adam_from_jax(pose.t_opt, device),
         e_opt=adam_from_jax(pose.e_opt, device),
     )
+
+
+def lpips_params_from_jax(params: dict, device="cuda") -> dict:
+    """JAX utils/lpips.py params ({"convs": [{"w", "b"}], "lins": [...]})
+    -> the port's (utils/lpips.py), the same layout as tensors."""
+    return {
+        "convs": [{k: _tensor(v, device) for k, v in c.items()} for c in params["convs"]],
+        "lins": [_tensor(v, device) for v in params["lins"]],
+    }

@@ -69,6 +69,22 @@ def inverse_pose(pose: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def get_cam2cams(cam2worlds: torch.Tensor, indices: torch.Tensor, offset: int) -> torch.Tensor:
+    """Relative pose from camera `i` to camera `i+offset` (clamped at ends);
+    the shape of inverse_pose's result."""
+    idx = torch.clamp(indices + offset, 0, cam2worlds.shape[0] - 1)
+    world2cam = inverse_pose(cam2worlds[idx])
+    rot = torch.matmul(world2cam[:, :3, :3], cam2worlds[indices, :3, :3])
+    t = torch.matmul(world2cam[:, :3, :3], cam2worlds[indices, :3, 3:])[..., 0]
+    t = t + world2cam[:, :3, 3]
+    out = torch.cat([rot, t[..., None]], dim=-1)
+    return torch.cat([out, torch.zeros_like(world2cam[:, 3:])], dim=1)
+
+
+def get_fwd_bwd_cam2cams(cam2worlds: torch.Tensor, indices: torch.Tensor):
+    return get_cam2cams(cam2worlds, indices, 1), get_cam2cams(cam2worlds, indices, -1)
+
+
 def pts2px(pts: torch.Tensor, f, center) -> torch.Tensor:
     """Project camera-space points to pixels (y/z axis flip, z clamped)."""
     x = pts[..., 0]

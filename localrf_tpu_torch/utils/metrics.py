@@ -1,12 +1,14 @@
-"""Evaluation metrics: PSNR and the mipnerf SSIM (the port's copy of
+"""Evaluation metrics: PSNR, the mipnerf SSIM and LPIPS (the port's copy of
 localrf_tpu/utils/metrics.py).
 
 Images are [H, W, 3] tensors (or numpy arrays) in [0, 1]; the metrics are
 computed in float32 on the image's device and returned as Python floats.
 SSIM filters with a separable Gaussian (11 taps, sigma 1.5) in "valid"
 mode, as two conv2d passes (the taps are symmetric, so the correlation
-conv2d computes is the convolution JAX's scipy computes). LPIPS is not
-ported: the repo holds no weights for it.
+conv2d computes is the convolution JAX's scipy computes). LPIPS
+(utils/lpips.py) uses official weights when a weights file exists, else a
+seeded random backbone: callers report the latter under a distinct key
+(renderer.py) so it is never taken for a published LPIPS number.
 """
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import lpips as tlpips
 
 
 def _image(x) -> torch.Tensor:
@@ -70,3 +74,26 @@ def rgb_ssim(
     denom = (mu00 + mu11 + c1) * (sigma00 + sigma11 + c2)
     ssim_map = numer / denom
     return ssim_map if return_map else float(torch.mean(ssim_map))
+
+
+_warned_random_lpips = False
+
+
+def rgb_lpips(img0, img1, net_name: str = "alex") -> float:
+    """LPIPS (AlexNet) of two [H, W, 3] images in [0, 1], on the first
+    image's device (the CPU for numpy arrays)."""
+    if net_name != "alex":
+        raise ValueError(f"only the 'alex' LPIPS variant is supported, got {net_name}")
+    global _warned_random_lpips
+    if not tlpips.has_pretrained() and not _warned_random_lpips:
+        _warned_random_lpips = True
+        print("rgb_lpips: pretrained LPIPS weights not found (weights/lpips_alex.npz or"
+              f" ${tlpips.WEIGHTS_ENV}): using the seeded random backbone. Values are"
+              " self-consistent but NOT comparable to published LPIPS numbers.")
+    device = img0.device if isinstance(img0, torch.Tensor) else torch.device("cpu")
+    return tlpips.lpips(tlpips.get_params(device), img0, img1)
+
+
+def lpips_backbone() -> str:
+    """Which LPIPS variant rgb_lpips is using: log beside reported values."""
+    return "pretrained" if tlpips.has_pretrained() else "random-init"

@@ -697,3 +697,84 @@ def test_render_frame_makes_no_host_sync(cuda_device, floater_thresh):
         torch.cuda.set_sync_debug_mode(0)
     assert rgb.shape == (1200, 3) and depth.shape == (1200,)
     assert torch.isfinite(rgb).all() and torch.isfinite(depth).all()
+
+
+@pytest.mark.gpu
+def test_checkpoint_round_trip_on_card(cuda_device, tmp_path):
+    """A model on the card after a spawn: save, load on the card; the state
+    is equal bit for bit (the live rows of the pose window), the retired
+    field on the host, and a blended eval frame equal."""
+    from localrf_tpu_torch.checkpoint import load_checkpoint, save_checkpoint
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import TensorfConfig
+
+    w, h = 40, 30
+    tf = TensorfConfig(grid_size=(24, 24, 24), pallas_composite=True, gather_dtype="bfloat16")
+    m = LocalTensorfs(LocalConfig(WH=(w, h), n_init_frames=3, n_overlap=2, moment_dtype="bfloat16", tensorf=tf),
+                      device=cuda_device)
+    m.append_frame()
+    m.append_rf(2)
+    path = str(tmp_path / "ckpt.th")
+    save_checkpoint(m, path)
+    m2 = load_checkpoint(path, device=cuda_device)
+    assert m2.fields[0]["params"]["basis_mat"].device.type == "cpu"
+    assert m2.fields[1]["opt"].m["basis_mat"].dtype == torch.bfloat16
+    for a, b in zip(m.fields, m2.fields):
+        for (k, p), (_, q) in zip(a["params"].named_parameters(), b["params"].named_parameters()):
+            assert torch.equal(p.cpu(), q.cpu()), k
+    n = m.win_len
+    assert torch.equal(m._pose_dev.t[:n], m2._pose_dev.t[:n])
+    view = int(np.argmin(np.abs(m.blending_weights[:, 1] - 0.5)))
+    for x, y in zip(m.forward_eval(np.arange(w * h), np.array([view]), w, h, chunk=512),
+                    m2.forward_eval(np.arange(w * h), np.array([view]), w, h, chunk=512)):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.gpu
+def test_jax_fixture_renders_on_card(cuda_device):
+    """The committed JAX-written checkpoint (tests/jax_checkpoint_fixture.py)
+    loads on the card and renders its view within chip_smoke's FIXTURE_TOL
+    of JAX's CPU frame."""
+    import chip_smoke
+    from localrf_tpu_torch.checkpoint import load_checkpoint
+
+    fx = np.load(f"{chip_smoke.FIXTURE}_frame.npz")
+    m = load_checkpoint(f"{chip_smoke.FIXTURE}.th", device=cuda_device)
+    rgb, depth, _, _ = m.forward_eval(np.arange(m.W * m.H), np.array([int(fx["view"])]), m.W, m.H,
+                                      chunk=int(fx["chunk"]))
+    rtol, atol = chip_smoke.FIXTURE_TOL
+    np.testing.assert_allclose(rgb.cpu().numpy(), fx["rgb"], rtol=rtol, atol=atol)
+    np.testing.assert_allclose(depth.cpu().numpy(), fx["depth"], rtol=rtol, atol=atol)
+
+
+@pytest.mark.gpu
+def test_reconstruction_and_render_only_on_card(cuda_device, tmp_path):
+    """reconstruction at 40x30 on the card (tests/test_e2e_driver.py's
+    flags, chunks of 4 over the pixel pool) writes the CLI's outputs, and
+    render_test renders the test frames into the same PNG bytes."""
+    import json
+    import os
+
+    import chip_smoke
+    from localrf_tpu_torch.config import config_parser
+    from localrf_tpu_torch.train import reconstruction, render_test
+
+    scene, log = str(tmp_path / "scene"), str(tmp_path / "log")
+    chip_smoke.write_scene(scene, 40, 30, 8)
+    argv = ["--datadir", scene, "--logdir", log, "--batch_size", "64", "--n_views", "4", "--n_init_frames", "3",
+            "--n_iters_per_frame", "6", "--n_iters_reg", "3", "--N_voxel_init", str(14**3),
+            "--N_voxel_final", str(20**3), "--upsamp_list", "4", "--update_AlphaMask_list", "5",
+            "--add_frames_every", "3", "--n_overlap", "2", "--n_max_frames", "6", "--max_drift", "100",
+            "--test_frame_every", "4", "--vis_every", "10", "--fov", "60", "--scan_chunk", "4",
+            "--skip_saving_video"]
+    model, metrics = reconstruction(config_parser(argv))
+    assert model.device.type == "cuda" and len(model.fields) >= 2
+    with open(f"{log}/transforms.json") as f:
+        assert len(json.load(f)["frames"]) == 8
+    assert os.path.isfile(f"{log}/checkpoints_tmp.th") and metrics
+    folder = f"{log}/test/rgb_maps"
+    pngs = {p: open(f"{folder}/{p}", "rb").read() for p in sorted(os.listdir(folder))}
+    for p in pngs:
+        os.remove(f"{folder}/{p}")
+    render_test(config_parser(argv + ["--render_only", "1", "--render_path", "0"]))
+    assert {p: open(f"{folder}/{p}", "rb").read() for p in sorted(os.listdir(folder))} == pngs

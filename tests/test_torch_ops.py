@@ -692,8 +692,9 @@ def test_pytree_adam_in_place(rng, moment_dtype):
 def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or anything
     of the JAX package (source scan: `localrf_tpu` itself, even its
-    numpy-only modules), and importing the port's modules and chip_smoke in
-    a fresh interpreter loads neither."""
+    numpy-only modules), and importing the port's modules (the checkpoint,
+    config, train and renderer modules and utils/ included) and chip_smoke
+    in a fresh interpreter loads neither."""
     files = [*sorted((REPO / "localrf_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
     n_imports = 0
     for path in files:
@@ -718,7 +719,10 @@ def test_port_imports_no_jax():
         "import localrf_tpu_torch.ops.kernels.composite, localrf_tpu_torch.ops.kernels.binned_scatter\n"
         "import localrf_tpu_torch.ops.kernels.segsum, localrf_tpu_torch.ops.kernels.march\n"
         "import localrf_tpu_torch.data.dataset, localrf_tpu_torch.data.flow_io, localrf_tpu_torch.data.pool\n"
-        "import localrf_tpu_torch.utils.metrics\n"
+        "import localrf_tpu_torch.utils.metrics, localrf_tpu_torch.utils.lpips\n"
+        "import localrf_tpu_torch.utils.spline, localrf_tpu_torch.utils.vis\n"
+        "import localrf_tpu_torch.checkpoint, localrf_tpu_torch.config, localrf_tpu_torch.renderer\n"
+        "import localrf_tpu_torch.train\n"
         "import chip_smoke\n"
         "print(pre, loaded())\n"
     )
