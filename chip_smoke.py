@@ -95,6 +95,22 @@
    PNGs byte-equal to the run's own; the JAX package's fixture
    (tests/fixtures/jax_ckpt_12.th) rendered within FIXTURE_TOL of JAX's CPU
    frame.
+9. Preprocessing: a seeded scene of 8 frames of 960x540 images/ goes
+   through run_flow.main at its defaults (scale 0.5: 480x270 padded to
+   480x272, 30 iterations, a module.-prefixed random raft-things.pth from
+   init_raft) into 14 flow_ds/ PNGs (decoded: finite) and flow_vis/, and
+   through run_depth's default backend (the port's DPT-Large from a seeded
+   init_dpt state dict, no transformers, --size 384) into depth/; the
+   port's LocalRFDataset reads the scene back with its depth and flows.
+   RAFT (one pair at 480x272, 30 iterations) and DPT-Large (one 384x384
+   image) on the card against the port on the CPU (RAFT_TOL, DPT_TOL),
+   rgb_ssim and rgb_lpips on CUDA tensors against the CPU (METRIC_TOL),
+   all under torch's default flags (cuDNN may use TF32; each of these
+   scopes itself to full f32); ms a pair and an image; the mesh
+   (export_density_ply at 128^3) of the CLI run's last field at level 0.5
+   and at its 99th alpha percentile (which must give faces); peak memory
+   and the phase's seconds. Nothing in this script sets a TF32 flag: every
+   phase runs with the settings a user gets.
 
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
@@ -1775,22 +1791,25 @@ def _sync(dev) -> None:
         torch.cuda.synchronize()
 
 
-def write_scene(root: str, w: int, h: int, n_frames: int, seed: int = 0) -> None:
+def write_scene(root: str, w: int, h: int, n_frames: int, seed: int = 0, images_only: bool = False) -> None:
     """A seeded scene on disk as the datasets read it: images/ (jpg),
     depth/ (uint16 png inverse depth), flow_ds/ (fwd/bwd flow at half
-    resolution, the uint16 png codec)."""
+    resolution, the uint16 png codec); with `images_only`, images/ alone
+    (what preprocessing starts from)."""
     import cv2
 
     from localrf_tpu_torch.data.flow_io import encode_flow
 
     rng = np.random.default_rng(seed)
-    for d in ("images", "depth", "flow_ds"):
+    for d in ("images",) if images_only else ("images", "depth", "flow_ds"):
         os.makedirs(os.path.join(root, d))
     yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
     for i in range(n_frames):
         wave = np.sin(2 * np.pi * (3 * xx + 2 * yy + 0.05 * i))[..., None] * np.array([0.25, 0.2, 0.15])
         img = np.clip(0.5 + wave + rng.normal(0, 0.05, (h, w, 3)), 0, 1)
         cv2.imwrite(f"{root}/images/{i:06d}.jpg", (img[..., ::-1] * 255).astype(np.uint8))
+        if images_only:
+            continue
         inv = 0.3 + 0.5 * yy + 0.1 * rng.random((h, w))
         cv2.imwrite(f"{root}/depth/{i:06d}.png", (inv / inv.max() * 65535).astype(np.uint16))
         for kind in ("fwd", "bwd"):
@@ -1822,10 +1841,10 @@ def _patched(obj, name: str, wrap):
         setattr(obj, name, orig)
 
 
-def cli_phase(dev, w: int = W, h: int = H) -> tuple[dict, dict]:
+def cli_phase(dev, w: int = W, h: int = H) -> tuple[dict, dict, object]:
     """`reconstruction` as `python -m localrf_tpu_torch.train` runs it, then
     a resume from its tmp checkpoint, its render-only entry and the JAX
-    fixture. Returns (results, the run's launch counts)."""
+    fixture. Returns (results, the run's launch counts, the trained model)."""
     import tempfile
 
     import torch
@@ -1999,7 +2018,169 @@ def cli_phase(dev, w: int = W, h: int = H) -> tuple[dict, dict]:
            "eval_ms": frames,
            "checkpoints": saves, "load_s": load_s, "peak": peak, "render_only_s": render_s,
            "fixture_err": err, "resume_launches": resume_launches, "steps": sum(c[0] for c in chunks)}
-    return out, launches
+    return out, launches, model
+
+
+# the preprocess phase: run_flow at its defaults (scale 0.5, 30 iterations)
+# and run_depth's default backend (the port's DPT-Large at --size 384) on a
+# seeded scene of 8 frames of 960x540 images, random weights from seeded
+# generators. Card against the port on the CPU in full f32: RAFT (one pair
+# at 480x272, 30 iterations) within 1e-4 of the flow's scale, DPT-Large
+# (one 384x384 image) within 1e-4 of the depth's maximum; the metrics on
+# CUDA tensors within tests/test_torch_eval.py's 1e-5 of their CPU values
+PRE_FRAMES = 8
+RAFT_TOL = 1e-4
+DPT_TOL = 1e-4
+METRIC_TOL = 1e-5
+
+
+def preprocess_phase(dev, field: dict, w: int = W, h: int = H, dpt_cfg=None, depth_size: int = 384) -> dict:
+    """Preprocessing as a user runs it, on `dev`: a scene of images/ to
+    flow_ds/, flow_vis/ and depth/, read back by the port's dataset; RAFT,
+    DPT and the metrics card vs CPU; the mesh of `field` (a LocalTensorfs
+    field: "params", "cfg") at the default 128^3 lattice. Raises on any
+    failed check."""
+    import tempfile
+
+    import cv2
+    import torch
+
+    from localrf_tpu_torch.data.dataset import LocalRFDataset
+    from localrf_tpu_torch.data.flow_io import decode_flow
+    from localrf_tpu_torch.preprocess import run_depth, run_flow
+    from localrf_tpu_torch.preprocess.dpt import DPTConfig, init_dpt, load_dpt_checkpoint
+    from localrf_tpu_torch.preprocess.raft import InputPadder, init_raft
+    from localrf_tpu_torch.models.tensorf import compute_dense_alpha
+    from localrf_tpu_torch.utils.mesh import export_density_ply
+    from localrf_tpu_torch.utils.metrics import rgb_lpips, rgb_ssim
+
+    cuda = torch.device(dev).type == "cuda"
+    cpu = torch.device("cpu")
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    scene = f"{tmp.name}/scene"
+    write_scene(scene, w, h, PRE_FRAMES, images_only=True)
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    out: dict = {}
+
+    # flow: run_flow at its defaults from a module.-prefixed random RAFT
+    raft_cpu = init_raft(torch.Generator().manual_seed(0), device=cpu)
+    ckpt = f"{tmp.name}/raft-things.pth"
+    torch.save({f"module.{k}": v for k, v in raft_cpu.state_dict().items()}, ckpt)
+    t0 = time.perf_counter()
+    run_flow.main(["--data_dir", scene, "--ckpt", ckpt, "--device", str(dev)])
+    out["run_flow_s"] = time.perf_counter() - t0
+    names = sorted(os.listdir(f"{scene}/flow_ds"))
+    if len(names) != 2 * (PRE_FRAMES - 1) or len(os.listdir(f"{scene}/flow_vis")) != len(names):
+        raise AssertionError(f"preprocess: flow_ds {names}, flow_vis {sorted(os.listdir(f'{scene}/flow_vis'))}")
+    valid = []
+    for n in names:
+        flow, mask = decode_flow(cv2.imread(f"{scene}/flow_ds/{n}", cv2.IMREAD_UNCHANGED))
+        if flow.shape != (h // 2, w // 2, 2) or not np.isfinite(flow).all():
+            raise AssertionError(f"preprocess: {n} decodes to {flow.shape}, finite {np.isfinite(flow).all()}")
+        valid.append(float(mask.mean()))
+    out["flow_valid_share"] = valid
+
+    # depth: run_depth's default backend, DPT-Large from a state dict
+    cfg = dpt_cfg or DPTConfig.large()
+    sd = init_dpt(cfg, torch.Generator().manual_seed(1), device=cpu).state_dict()
+    t0 = time.perf_counter()
+    dpt = load_dpt_checkpoint(sd, cfg, device=dev)
+    out["dpt_load_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_depth.write_depths(scene, run_depth.dpt_infer(dpt, depth_size))
+    out["run_depth_s"] = time.perf_counter() - t0
+    for n in sorted(os.listdir(f"{scene}/depth")):
+        d = cv2.imread(f"{scene}/depth/{n}", cv2.IMREAD_UNCHANGED)
+        if d.dtype != np.uint16 or d.shape != (h, w) or d.max() == 0:
+            raise AssertionError(f"preprocess: depth/{n} is {d.dtype} {d.shape}, max {d.max()}")
+
+    # read-back: what preprocessing wrote is what training reads
+    ds = LocalRFDataset(scene, load_depth=True, load_flow=True, n_init_frames=PRE_FRAMES)
+    n_px = w * h
+    arrays = (ds.all_invdepths, ds.all_fwd_flow, ds.all_bwd_flow)
+    if (ds.all_invdepths.shape != (PRE_FRAMES * n_px, 1) or ds.all_fwd_flow.shape != (PRE_FRAMES * n_px, 2)
+            or not all(np.isfinite(a).all() for a in arrays) or ds.all_fwd_mask[-n_px:].any()):
+        raise AssertionError("preprocess: the dataset's read-back of depth/ and flow_ds/ is off")
+
+    # card against CPU: RAFT on frames 0 and 1 as run_flow loads them
+    def load(i):
+        img = cv2.imread(f"{scene}/images/{i:06d}.jpg")[..., ::-1]
+        img = cv2.resize(img, None, fx=0.5, fy=0.5, interpolation=cv2.INTER_AREA)
+        return torch.from_numpy(img.astype(np.float32)).permute(2, 0, 1)
+
+    im1, im2 = load(0), load(1)
+    padder = InputPadder(im1.shape)
+    a, b = padder.pad(torch.stack([im1, im2])), padder.pad(torch.stack([im2, im1]))
+    raft = init_raft(torch.Generator().manual_seed(0), device=dev)
+    a_dev, b_dev = a.to(dev), b.to(dev)
+    got = raft(a_dev, b_dev, iters=30).cpu()
+    if cuda:
+        out["raft_ms_per_pair"] = _time_ms(lambda: raft(a_dev, b_dev, iters=30), 3, eager=True)
+    t0 = time.perf_counter()
+    ref = raft_cpu(a, b, iters=30)
+    out["raft_cpu_s"] = time.perf_counter() - t0
+    scale = max(float(ref.abs().max()), 1.0)
+    out["raft_shape"], out["raft_scale"] = list(a.shape), scale
+    out["raft_err"] = _close(got, ref, 0.0, RAFT_TOL * scale)
+    del raft, raft_cpu
+
+    x = torch.from_numpy(np.random.default_rng(2).uniform(-1, 1, (1, 3, depth_size, depth_size)).astype(np.float32))
+    x_dev = x.to(dev)
+    got = dpt(x_dev).cpu()
+    if cuda:
+        out["dpt_ms_per_image"] = _time_ms(lambda: dpt(x_dev), 5, eager=True)
+    del dpt
+    dpt_cpu = load_dpt_checkpoint(sd, cfg, device=cpu)
+    t0 = time.perf_counter()
+    ref = dpt_cpu(x)
+    out["dpt_cpu_s"] = time.perf_counter() - t0
+    del dpt_cpu, sd
+    out["dpt_max"] = float(ref.abs().max())
+    out["dpt_err"] = _close(got, ref, 0.0, DPT_TOL * out["dpt_max"])
+
+    # the metrics on the card against the CPU, under torch's default flags
+    img0, img1 = ds.all_rgbs[:n_px].reshape(h, w, 3), ds.all_rgbs[n_px:2 * n_px].reshape(h, w, 3)
+    on_card = [torch.from_numpy(np.ascontiguousarray(i)).to(dev) for i in (img0, img1)]
+    metric_err = {}
+    for name, fn in (("ssim", lambda x0, x1: rgb_ssim(x0, x1, 1.0)), ("lpips", rgb_lpips)):
+        card, host = fn(*on_card), fn(img0, img1)
+        metric_err[name] = abs(card - host)
+        if not abs(card - host) <= METRIC_TOL:
+            raise AssertionError(f"preprocess: {name} on the card {card} vs the CPU {host}")
+    out["metric_err"] = metric_err
+
+    # the mesh of a trained field at the default 128^3 lattice: at the
+    # default level 0.5, and at the lattice's 99th alpha percentile, where
+    # the field must have a surface (a short run's alpha may stay below 0.5)
+    _sync(dev)
+    t0 = time.perf_counter()
+    n_v, n_f = export_density_ply(field["params"], field["cfg"], f"{tmp.name}/mesh.ply")
+    out["mesh"] = {"vertices": n_v, "faces": n_f, "s": time.perf_counter() - t0,
+                   "grid": list(field["cfg"].grid_size)}
+    with torch.no_grad():
+        alpha = compute_dense_alpha(field["params"], field["cfg"], (128, 128, 128))
+    level = float(torch.quantile(alpha.flatten()[::8], 0.99))
+    n_v99, n_f99 = export_density_ply(field["params"], field["cfg"], f"{tmp.name}/mesh.ply", level=level)
+    if not n_f99:
+        raise AssertionError(f"preprocess: no surface at the 99th alpha percentile {level}")
+    out["mesh_p99"] = {"level": level, "vertices": n_v99, "faces": n_f99}
+    out["peak"] = torch.cuda.max_memory_allocated() if cuda else 0
+    out["s"] = time.perf_counter() - t_phase
+    tmp.cleanup()
+    print(f"preprocess: run_flow {out['run_flow_s']:.1f} s for {PRE_FRAMES - 1} pairs of {w}x{h} (valid share"
+          f" {np.round(valid, 3).tolist()}), run_depth {out['run_depth_s']:.1f} s for {PRE_FRAMES} frames"
+          f" (DPT loaded in {out['dpt_load_s']:.1f} s); read back by LocalRFDataset")
+    print(f"preprocess: RAFT {out['raft_shape']} x 30 iterations card vs CPU max err {out['raft_err']:.3e}"
+          f" (flow scale {scale:.3f}, tolerance {RAFT_TOL} of it), {out.get('raft_ms_per_pair', float('nan')):.2f}"
+          f" ms a pair; DPT ({cfg.num_layers} layers of {cfg.hidden_size}) {depth_size}^2 card vs CPU max err {out['dpt_err']:.3e} (max"
+          f" {out['dpt_max']:.4f}, tolerance {DPT_TOL} of it), {out.get('dpt_ms_per_image', float('nan')):.2f}"
+          f" ms an image; ssim / lpips card vs CPU {metric_err['ssim']:.2e} / {metric_err['lpips']:.2e}")
+    print(f"preprocess: mesh of a {out['mesh']['grid']} field at 128^3: level 0.5 {n_v} vertices, {n_f} faces in"
+          f" {out['mesh']['s']:.2f} s; level {level:.4g} (the 99th alpha percentile) {n_v99} vertices, {n_f99}"
+          f" faces; peak allocated {out['peak'] / 2**30:.3f} GiB; phase {out['s']:.1f} s")
+    return out
 
 
 def main() -> None:
@@ -2011,9 +2192,6 @@ def main() -> None:
     from localrf_tpu_torch.models.local import LocalTensorfs
     from localrf_tpu_torch.ops.kernels import _build
 
-    # f32 products in full f32 (the plain versions' reference)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     print(_gpu_line())
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
@@ -2101,7 +2279,14 @@ def main() -> None:
 
     # phase 8: the CLI (reconstruction, resume, render-only, the JAX fixture)
     torch.cuda.empty_cache()
-    cli, cli_launches = cli_phase(dev)
+    cli, cli_launches, cli_model = cli_phase(dev)
+
+    # phase 9: preprocessing (RAFT flow, DPT depth) on a scene of images,
+    # read back by the dataset; the networks and metrics card vs CPU; the
+    # mesh of the CLI's last field
+    torch.cuda.empty_cache()
+    pre = preprocess_phase(dev, cli_model.fields[-1])
+    del cli_model
 
     kernels = []
     for name, (source, replaces) in KERNELS.items():
@@ -2141,6 +2326,7 @@ def main() -> None:
     spawn = chunks["spawn 64^3"]
     print(json.dumps({"spawn": {"memory": spawn["memory"], "eval": spawn["eval"]}, "eval_launches": evals}))
     print(json.dumps({"cli": cli, "cli_launches": cli_launches}))
+    print(json.dumps({"preprocess": pre}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here")
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))

@@ -7,7 +7,10 @@ Host-side counterpart of the reference's `LocalRFDataset`
 `transforms.json` pose priors), every `test_frame_every`-th frame held out,
 lazy chunked decode on a thread pool, flat per-pixel buffers, per-image loss
 weights = Laplacian sharpness x motion mask, window maintained through
-`activate_frames` / `deactivate_frames`.
+`activate_frames` / `deactivate_frames`. One departure from the JAX
+package: the last frame's flow pair, which run_flow does not write (the
+frame has no next one), reads as zero flow with a zero mask, where the JAX
+reader fails on the missing file.
 
 The `sample()` batch layout is fixed [n_views=16, px_per_view] for static jit
 shapes. A `SyntheticDataset` built from in-memory arrays shares the full
@@ -267,15 +270,23 @@ class LocalRFDataset(BaseDataset):
                 self.root_dir, "flow_ds", f"fwd_{prefix}{os.path.splitext(nxt)[0]}.png"
             )
             bwd_path = os.path.join(self.root_dir, "flow_ds", f"bwd_{prefix}{fbase}.png")
-            enc_fwd = cv2.imread(fwd_path, cv2.IMREAD_UNCHANGED)
-            enc_bwd = cv2.imread(bwd_path, cv2.IMREAD_UNCHANGED)
-            flow_scale = img.shape[0] / enc_fwd.shape[0]
-            enc_fwd = cv2.resize(enc_fwd, wh, interpolation=cv2.INTER_AREA)
-            enc_bwd = cv2.resize(enc_bwd, wh, interpolation=cv2.INTER_AREA)
-            fwd_flow, fwd_mask = decode_flow(enc_fwd)
-            bwd_flow, bwd_mask = decode_flow(enc_bwd)
-            fwd_flow *= flow_scale
-            bwd_flow *= flow_scale
+            if glob_idx + 1 == len(self.all_image_paths) and not (
+                    os.path.isfile(fwd_path) or os.path.isfile(bwd_path)):
+                # run_flow writes no pair for the last frame (it has no
+                # next frame): its flows are zero and masked out
+                fwd_flow = np.zeros((wh[1], wh[0], 2), np.float32)
+                fwd_mask = np.zeros((wh[1], wh[0]), np.float32)
+                bwd_flow, bwd_mask = fwd_flow.copy(), fwd_mask.copy()
+            else:
+                enc_fwd = cv2.imread(fwd_path, cv2.IMREAD_UNCHANGED)
+                enc_bwd = cv2.imread(bwd_path, cv2.IMREAD_UNCHANGED)
+                flow_scale = img.shape[0] / enc_fwd.shape[0]
+                enc_fwd = cv2.resize(enc_fwd, wh, interpolation=cv2.INTER_AREA)
+                enc_bwd = cv2.resize(enc_bwd, wh, interpolation=cv2.INTER_AREA)
+                fwd_flow, fwd_mask = decode_flow(enc_fwd)
+                bwd_flow, bwd_mask = decode_flow(enc_bwd)
+                fwd_flow *= flow_scale
+                bwd_flow *= flow_scale
 
         mask = None
         if os.path.isfile(motion_mask_path):

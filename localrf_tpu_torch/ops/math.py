@@ -3,12 +3,34 @@
 Same functions, names and conventions as the JAX module:
   * scene contraction, 6D rotations, alpha compositing,
   * pose algebra + flow reprojection,
-  * the scale/shift-invariant depth loss and the TV regularizer.
+  * the scale/shift-invariant depth loss and the TV regularizer;
+and `full_f32`, the scope in which f32 convolutions and matmuls on the card
+run in full f32.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
+
+
+@contextlib.contextmanager
+def full_f32():
+    """cuDNN convolutions and cuBLAS matmuls of f32 tensors in full f32
+    inside the block, whatever the caller set; the caller's settings come
+    back on exit. torch lets cuDNN convolve f32 in TF32 by default, which
+    rounds the operands to 10 mantissa bits (JAX on the CPU, the
+    reference, does not). Also a decorator. Only the two operator-level
+    settings are touched: the package-wide `torch.backends.cudnn.flags`
+    would reset cuDNN's other flags too."""
+    conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+    saved = conv.fp32_precision, matmul.fp32_precision
+    conv.fp32_precision = matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        conv.fp32_precision, matmul.fp32_precision = saved
 
 
 def contract(x: torch.Tensor) -> torch.Tensor:

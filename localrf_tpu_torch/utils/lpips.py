@@ -26,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.math import full_f32
+
 # (out_ch, in_ch, kernel, stride, pad) of the 5 AlexNet conv layers
 _ALEX_CONVS = (
     (64, 3, 11, 4, 2),
@@ -102,8 +104,10 @@ def _unit_normalize(f: torch.Tensor, eps: float = 1e-10) -> torch.Tensor:
 
 
 @torch.no_grad()
+@full_f32()
 def lpips_nchw(params: dict, x0: torch.Tensor, x1: torch.Tensor) -> torch.Tensor:
-    """LPIPS distance [N] for batches [N, 3, H, W] already scaled to [-1, 1]."""
+    """LPIPS distance [N] for batches [N, 3, H, W] already scaled to [-1, 1];
+    the convolutions in full f32 on the card (not cuDNN's TF32 default)."""
     total = x0.new_zeros(x0.shape[0])
     for t0, t1, lin in zip(_features(params, x0), _features(params, x1), params["lins"]):
         diff = (_unit_normalize(t0) - _unit_normalize(t1)) ** 2

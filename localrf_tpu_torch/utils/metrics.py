@@ -5,7 +5,8 @@ Images are [H, W, 3] tensors (or numpy arrays) in [0, 1]; the metrics are
 computed in float32 on the image's device and returned as Python floats.
 SSIM filters with a separable Gaussian (11 taps, sigma 1.5) in "valid"
 mode, as two conv2d passes (the taps are symmetric, so the correlation
-conv2d computes is the convolution JAX's scipy computes). LPIPS
+conv2d computes is the convolution JAX's scipy computes), in full f32 on
+the card too (ops/math.py::full_f32). LPIPS
 (utils/lpips.py) uses official weights when a weights file exists, else a
 seeded random backbone: callers report the latter under a distinct key
 (renderer.py) so it is never taken for a published LPIPS number.
@@ -18,6 +19,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..ops.math import full_f32
 from . import lpips as tlpips
 
 
@@ -60,8 +62,9 @@ def rgb_ssim(
     a, b = img0.permute(2, 0, 1), img1.permute(2, 0, 1)  # [3, H, W]
     # the five filtered quantities of each channel in one batch: [15, 1, H, W]
     z = torch.cat([a, b, a * a, b * b, a * b])[:, None]
-    z = F.conv2d(z, taps.view(1, 1, -1, 1))  # along rows
-    z = F.conv2d(z, taps.view(1, 1, 1, -1))  # along columns
+    with full_f32():  # E[x^2] - mu^2 cancels: TF32 operands move SSIM by ~1e-2
+        z = F.conv2d(z, taps.view(1, 1, -1, 1))  # along rows
+        z = F.conv2d(z, taps.view(1, 1, 1, -1))  # along columns
     mu0, mu1, e00, e11, e01 = z[:, 0].permute(1, 2, 0).split(3, dim=-1)
     mu00, mu11, mu01 = mu0 * mu0, mu1 * mu1, mu0 * mu1
     sigma00 = torch.clamp(e00 - mu00, min=0.0)

@@ -778,3 +778,146 @@ def test_reconstruction_and_render_only_on_card(cuda_device, tmp_path):
         os.remove(f"{folder}/{p}")
     render_test(config_parser(argv + ["--render_only", "1", "--render_path", "0"]))
     assert {p: open(f"{folder}/{p}", "rb").read() for p in sorted(os.listdir(folder))} == pngs
+
+
+@pytest.fixture
+def tf32_allowed():
+    """cuDNN's and cuBLAS's TF32 allowed for f32 during the test (torch's
+    default allows it for cuDNN's convolutions; some tests above turn
+    cuBLAS's off), the settings restored after."""
+    conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+    saved = conv.fp32_precision, matmul.fp32_precision
+    conv.fp32_precision = matmul.fp32_precision = "tf32"
+    yield
+    conv.fp32_precision, matmul.fp32_precision = saved
+
+
+def _smooth_pair(h: int = 270, w: int = 480) -> tuple[np.ndarray, np.ndarray]:
+    rng = np.random.default_rng(0)
+    yy, xx = np.mgrid[0:h, 0:w] / max(h, w)
+    img = (0.5 + 0.3 * np.sin(2 * np.pi * (3 * xx + 2 * yy)))[..., None] * np.array([1.0, 0.8, 0.6])
+    return img.astype(np.float32), np.clip(img + rng.normal(0, 0.01, img.shape), 0, 1).astype(np.float32)
+
+
+@pytest.mark.gpu
+def test_metrics_on_card_match_cpu_with_tf32_allowed(cuda_device, tf32_allowed):
+    """rgb_ssim and rgb_lpips on CUDA tensors with TF32 allowed equal their
+    CPU values within tests/test_torch_eval.py's 1e-5: their convolutions
+    run in full f32 by their own scope (TF32 operands move this SSIM by
+    ~1e-2)."""
+    from localrf_tpu_torch.utils.metrics import rgb_lpips, rgb_ssim
+
+    a, b = _smooth_pair()
+    ta, tb = torch.from_numpy(a).to(cuda_device), torch.from_numpy(b).to(cuda_device)
+    assert abs(rgb_ssim(ta, tb, 1.0) - rgb_ssim(a, b, 1.0)) <= 1e-5
+    assert abs(rgb_lpips(ta, tb) - rgb_lpips(a, b)) <= 1e-5
+
+
+@pytest.mark.gpu
+def test_raft_card_matches_cpu(cuda_device, tf32_allowed):
+    """A random RAFT (init_raft, seed 0) on a fwd / bwd pair of 128x160,
+    12 iterations, with TF32 allowed: the card within 1e-4 of the flow's
+    scale of the CPU."""
+    from localrf_tpu_torch.preprocess.raft import init_raft
+
+    rng = np.random.default_rng(1)
+    im1 = rng.uniform(0, 255, (1, 3, 128, 160)).astype(np.float32)
+    im2 = np.clip(im1 + rng.normal(0, 8, im1.shape), 0, 255).astype(np.float32)
+    a, b = torch.from_numpy(np.concatenate([im1, im2])), torch.from_numpy(np.concatenate([im2, im1]))
+    ref = init_raft(torch.Generator().manual_seed(0), device="cpu")(a, b, iters=12)
+    got = init_raft(torch.Generator().manual_seed(0), device=cuda_device)(a.to(cuda_device), b.to(cuda_device),
+                                                                          iters=12)
+    scale = max(float(ref.abs().max()), 1.0)
+    assert float((got.cpu() - ref).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("size", [64, 32])
+def test_dpt_card_matches_cpu(cuda_device, tf32_allowed, size):
+    """A narrow random DPT (hidden 64, 4 layers, image_size 64) at its
+    image size and below it (the antialiased shrink of the position grid)
+    with TF32 allowed: the card within 1e-4 of the depth's maximum of the
+    CPU."""
+    from localrf_tpu_torch.preprocess.dpt import DPT, DPTConfig, init_dpt
+
+    cfg = DPTConfig(hidden_size=64, num_layers=4, num_heads=4, intermediate_size=128, image_size=64,
+                    out_indices=(0, 1, 2, 3), neck_hidden_sizes=(16, 32, 64, 64), fusion_hidden_size=32)
+    model = init_dpt(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_card = DPT(cfg).to(cuda_device)
+    on_card.load_state_dict(model.state_dict())
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(1, 3, size, size)).astype(np.float32))
+    ref = model(x)
+    assert float((on_card(x.to(cuda_device)).cpu() - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+def _scene_images(root, n: int, h: int, w: int) -> None:
+    import os
+
+    import cv2
+
+    os.makedirs(f"{root}/images")
+    rng = np.random.default_rng(3)
+    base = rng.uniform(0, 255, (h, w, 3))
+    for i in range(n):
+        img = np.clip(np.roll(base, 2 * i, axis=1) + rng.normal(0, 4, base.shape), 0, 255)
+        cv2.imwrite(f"{root}/images/{i:06d}.jpg", img.astype(np.uint8))
+
+
+@pytest.mark.gpu
+def test_run_flow_on_card_matches_cpu(cuda_device, tmp_path):
+    """run_flow --device cuda and --device cpu on a 3-frame 64x96 scene with
+    the same random raft-things.pth (4 iterations): the same files, decoded
+    flows within one encoding step (1/256 px), masks equal but for at most
+    2 pixels a file."""
+    import os
+    import shutil
+
+    import cv2
+
+    from localrf_tpu_torch.data.flow_io import decode_flow
+    from localrf_tpu_torch.preprocess import run_flow
+    from localrf_tpu_torch.preprocess.raft import init_raft
+
+    ckpt = str(tmp_path / "raft.pth")
+    sd = init_raft(torch.Generator().manual_seed(0), device="cpu").state_dict()
+    torch.save({f"module.{k}": v for k, v in sd.items()}, ckpt)
+    _scene_images(tmp_path / "card", 3, 64, 96)
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    for where in ("card", "cpu"):
+        run_flow.main(["--data_dir", str(tmp_path / where), "--ckpt", ckpt, "--iters", "4",
+                       "--device", "cuda" if where == "card" else "cpu"])
+    names = sorted(os.listdir(tmp_path / "cpu" / "flow_ds"))
+    assert len(names) == 4 and names == sorted(os.listdir(tmp_path / "card" / "flow_ds"))
+    for n in names:
+        f0, m0 = decode_flow(cv2.imread(str(tmp_path / "card" / "flow_ds" / n), cv2.IMREAD_UNCHANGED))
+        f1, m1 = decode_flow(cv2.imread(str(tmp_path / "cpu" / "flow_ds" / n), cv2.IMREAD_UNCHANGED))
+        assert np.abs(f0 - f1).max() <= 1 / 256 and int((m0 != m1).sum()) <= 2, n
+
+
+@pytest.mark.gpu
+def test_run_depth_on_card_matches_cpu(cuda_device, tmp_path):
+    """run_depth's default backend --device cuda and --device cpu from one
+    save_pretrained narrow DPT (read through transformers) at --size 64:
+    every uint16 PNG within 2 of the other's."""
+    import os
+    import shutil
+
+    import cv2
+
+    transformers = pytest.importorskip("transformers")
+    from localrf_tpu_torch.preprocess import run_depth
+
+    hfc = transformers.DPTConfig(
+        hidden_size=64, num_hidden_layers=4, num_attention_heads=4, intermediate_size=128, image_size=64,
+        backbone_out_indices=[0, 1, 2, 3], neck_hidden_sizes=[16, 32, 64, 64], fusion_hidden_size=32)
+    torch.manual_seed(0)
+    transformers.DPTForDepthEstimation(hfc).save_pretrained(str(tmp_path / "dpt"))
+    _scene_images(tmp_path / "card", 2, 64, 96)
+    shutil.copytree(tmp_path / "card", tmp_path / "cpu")
+    for where in ("card", "cpu"):
+        run_depth.main(["--data_dir", str(tmp_path / where), "--model_dir", str(tmp_path / "dpt"), "--size", "64",
+                        "--device", "cuda" if where == "card" else "cpu"])
+    for n in sorted(os.listdir(tmp_path / "cpu" / "depth")):
+        d0 = cv2.imread(str(tmp_path / "card" / "depth" / n), cv2.IMREAD_UNCHANGED).astype(np.int64)
+        d1 = cv2.imread(str(tmp_path / "cpu" / "depth" / n), cv2.IMREAD_UNCHANGED).astype(np.int64)
+        assert d0.shape == d1.shape == (64, 96) and np.abs(d0 - d1).max() <= 2, n

@@ -693,7 +693,7 @@ def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or anything
     of the JAX package (source scan: `localrf_tpu` itself, even its
     numpy-only modules), and importing the port's modules (the checkpoint,
-    config, train and renderer modules and utils/ included) and chip_smoke
+    config, train and renderer modules, utils/ and preprocess/ included) and chip_smoke
     in a fresh interpreter loads neither."""
     files = [*sorted((REPO / "localrf_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
     n_imports = 0
@@ -720,7 +720,10 @@ def test_port_imports_no_jax():
         "import localrf_tpu_torch.ops.kernels.segsum, localrf_tpu_torch.ops.kernels.march\n"
         "import localrf_tpu_torch.data.dataset, localrf_tpu_torch.data.flow_io, localrf_tpu_torch.data.pool\n"
         "import localrf_tpu_torch.utils.metrics, localrf_tpu_torch.utils.lpips\n"
-        "import localrf_tpu_torch.utils.spline, localrf_tpu_torch.utils.vis\n"
+        "import localrf_tpu_torch.utils.spline, localrf_tpu_torch.utils.vis, localrf_tpu_torch.utils.mesh\n"
+        "import localrf_tpu_torch.preprocess.flow_vis, localrf_tpu_torch.preprocess.raft\n"
+        "import localrf_tpu_torch.preprocess.convert, localrf_tpu_torch.preprocess.run_flow\n"
+        "import localrf_tpu_torch.preprocess.dpt, localrf_tpu_torch.preprocess.run_depth\n"
         "import localrf_tpu_torch.checkpoint, localrf_tpu_torch.config, localrf_tpu_torch.renderer\n"
         "import localrf_tpu_torch.train\n"
         "import chip_smoke\n"
@@ -810,3 +813,57 @@ def test_entry_points_default_to_the_card():
             DevicePixelPool(ds, capacity=2)
         with pytest.raises((RuntimeError, AssertionError)):
             convert.params_from_jax({"w": np.ones(3, np.float32)})
+
+
+def test_full_f32_scopes_tf32_off_and_restores():
+    """Inside full_f32 cuDNN convolutions and cuBLAS matmuls are "ieee"
+    (full f32) whatever the caller set; on exit, also after a raise, the
+    caller's settings come back; it works as a decorator too."""
+    conv, matmul = torch.backends.cudnn.conv, torch.backends.cuda.matmul
+    saved = conv.fp32_precision, matmul.fp32_precision
+    try:
+        conv.fp32_precision, matmul.fp32_precision = "tf32", "tf32"
+        with tmath.full_f32():
+            assert (conv.fp32_precision, matmul.fp32_precision) == ("ieee", "ieee")
+        assert (conv.fp32_precision, matmul.fp32_precision) == ("tf32", "tf32")
+        with pytest.raises(KeyError), tmath.full_f32():
+            raise KeyError
+        assert (conv.fp32_precision, matmul.fp32_precision) == ("tf32", "tf32")
+
+        @tmath.full_f32()
+        def inside():
+            return conv.fp32_precision, matmul.fp32_precision
+
+        assert inside() == ("ieee", "ieee") and conv.fp32_precision == "tf32"
+    finally:
+        conv.fp32_precision, matmul.fp32_precision = saved
+
+
+def test_metrics_and_preprocess_networks_convolve_in_full_f32(monkeypatch):
+    """Every conv2d of rgb_ssim, rgb_lpips, RAFT and DPT runs inside
+    full_f32, under torch's default flags (cuDNN's TF32 allowed): recorded
+    at each call of F.conv2d, so the scope is checked here even though the
+    CPU has no TF32."""
+    from localrf_tpu_torch.preprocess.dpt import DPT, DPTConfig
+    from localrf_tpu_torch.preprocess.raft import RAFT
+    from localrf_tpu_torch.utils.metrics import rgb_lpips, rgb_ssim
+
+    assert torch.backends.cudnn.conv.fp32_precision == "tf32"  # torch's default
+    seen = []
+    conv2d = torch.nn.functional.conv2d
+
+    def recording(*args, **kw):
+        seen.append((torch.backends.cudnn.conv.fp32_precision, torch.backends.cuda.matmul.fp32_precision))
+        return conv2d(*args, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", recording)
+    img = np.random.default_rng(0).uniform(0, 1, (40, 48, 3)).astype(np.float32)
+    rgb_ssim(img, img * 0.9, 1.0)
+    rgb_lpips(img, img * 0.9)
+    x = torch.rand(1, 3, 16, 16) * 255
+    RAFT()(x, x, iters=1)
+    cfg = DPTConfig(hidden_size=16, num_layers=1, num_heads=2, intermediate_size=32, image_size=32,
+                    out_indices=(0, 0, 0, 0), neck_hidden_sizes=(4, 8, 16, 16), fusion_hidden_size=8)
+    DPT(cfg)(torch.rand(1, 3, 32, 32))
+    assert len(seen) > 50 and set(seen) == {("ieee", "ieee")}
+    assert torch.backends.cudnn.conv.fp32_precision == "tf32"
