@@ -111,6 +111,20 @@
    and at its 99th alpha percentile (which must give faces); peak memory
    and the phase's seconds. Nothing in this script sets a TF32 flag: every
    phase runs with the settings a user gets.
+10. Data parallelism (parallel/): (a) an NCCL process group of this one
+   rank: the 640^3 default pooled chunk of 16 steps with the "data" mesh
+   set, its gradient all-reduces captured in the chunk's graphs (run_chunks:
+   bit for bit under fixed-order sums against a twin with no mesh, within
+   CHUNK_TOL as it runs, timed, profiled), a fresh capture counting its
+   collectives (none at replay), NCCL's device work per replayed step, and
+   ms/step with and without the mesh in turns; (b) two spawned gloo ranks
+   on this card (NCCL refuses two ranks on one card): a 64^3 chunk of 16
+   eager steps (gloo is not captured) against the same chunk in this
+   process, both ranks' state bit for bit, K1 and K2 launched on each rank,
+   a 960x540 frame split over the ranks against the same rank alone; (c)
+   render_rays_sp over a sample group of 2 (gloo), 4096 rays through the
+   640^3 field with the ball alpha volume, against render_rays in eval; (d)
+   NCCL across two cards where there are two (else a line saying why not).
 
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
@@ -1306,7 +1320,7 @@ def run_chunks(label: str, make, ds, path: str, model=None) -> tuple[dict, objec
             "reserved": reserved, "graphs": n_graphs, "captures": graphs.captures,
             "launches": launches, "replayed": replayed, "capture_ms": first["capture_ms"],
             "worst_rel": first["worst_rel"], "bit_exact_tensors": n_exact,
-            "exact_launches": exact_launches}, model
+            "exact_launches": exact_launches, "trace": trace}, model
 
 
 def chunk_64(ds, dev, pool) -> dict:
@@ -2183,6 +2197,401 @@ def preprocess_phase(dev, field: dict, w: int = W, h: int = H, dpt_cfg=None, dep
     return out
 
 
+# phase 10: ray-batch data parallelism (parallel/sharding.py, the reduction
+# in models/step.py, LocalTensorfs.set_mesh) and the sample-split render
+# (parallel/sp.py). (a) NCCL over one rank in this process; (b) and (c) two
+# gloo ranks on this card, spawned (NCCL refuses two ranks on one card);
+# (d) NCCL over two cards, where there are two
+DP_TIMEOUT_S = 300
+SP_GROUP, SP_RAYS = 2, 4096
+# render_rays_sp against render_rays (eval, no compaction): K1's tolerance
+# (render_rays composites through K1, render_rays_sp through cumprod), as
+# EVAL_TOL; depth to 1e-4 of its largest value
+SP_TOL = EVAL_TOL
+
+
+def _nccl_events(counter) -> int:
+    """NCCL's device work in a profiler counter of names (its kernels are
+    `ncclDevKernel_*`; a one-rank reduce that must scale is `oneRankReduce`)."""
+    return sum(n for name, n in counter.items() if "nccl" in name.lower() or "onerank" in name.lower())
+
+
+def _init_group(backend: str, store: str, rank: int, world: int) -> None:
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, store=dist.FileStore(store, world), rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+
+
+def _host_state(model) -> dict:
+    return {k: v.detach().cpu().numpy() for k, v in _state(model).items()}
+
+
+def _losses_close(label: str, got: dict, want: dict) -> float:
+    """Every step's losses of two runs of the same chunk to CHUNK_TOL;
+    returns the worst relative rgb_loss difference."""
+    worst = 0.0
+    for k, v in want.items():
+        for i in range(len(v)):
+            rtol = CHUNK_TOL["first" if i == 0 else "rgb" if k == "rgb_loss" else "other"]
+            err = abs(float(got[k][i]) - float(v[i]))
+            if k == "rgb_loss":
+                worst = max(worst, err / (abs(float(v[i])) + 1e-7))
+            if not err <= rtol * abs(float(v[i])) + 1e-7:
+                raise AssertionError(f"{label}: step {i} {k}: {float(got[k][i])} vs one process {float(v[i])}")
+    return worst
+
+
+def _spawn_ranks(kind: str, world: int, tmp: str) -> list[dict]:
+    """`world` spawned processes running _rank_main(kind); each one's .npz."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    out = os.path.join(tmp, f"{kind}_%d.npz")
+    procs = [ctx.Process(target=_rank_main, args=(kind, r, world, os.path.join(tmp, f"{kind}_store"), out))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for r in hung:
+        procs[r].kill()
+        procs[r].join(10)
+    bad = {r: p.exitcode for r, p in enumerate(procs) if p.exitcode != 0}
+    if hung or bad:
+        raise AssertionError(f"{kind} ranks: {hung} hung, exit codes {bad}")
+    return [dict(np.load(out % r)) for r in range(world)]
+
+
+def _rank_main(kind: str, rank: int, world: int, store: str, out: str) -> None:
+    """A spawned rank: "gloo" (both ranks on card 0) or "nccl" (rank r on card r)."""
+    import traceback
+
+    try:
+        import torch
+        import torch.distributed as dist
+
+        torch.cuda.set_device(0 if kind == "gloo" else rank)
+        _init_group(kind, store, rank, world)
+        results = (_gloo_rank if kind == "gloo" else _nccl_rank)(torch.device("cuda", torch.cuda.current_device()))
+        if "jax" in sys.modules:
+            raise AssertionError("a rank imported jax")
+        dist.barrier()
+        dist.destroy_process_group()
+        np.savez(out % rank, **results)
+    except BaseException:
+        traceback.print_exc()
+        sys.stderr.flush()
+        os._exit(1)
+
+
+def _model_64(dev, pool):
+    from localrf_tpu_torch.models.local import LocalTensorfs
+
+    m = LocalTensorfs(full_width_config(64), device=dev)
+    m.is_refining = True
+    m.rf_iter[-1] = 2  # past the schedule rescale at rf_iter 1
+    m.attach_pool(pool)
+    return m
+
+
+def _sp_rays(dev):
+    import torch
+
+    rng = np.random.default_rng(5)
+    return (torch.from_numpy(rng.uniform(-0.3, 0.3, (SP_RAYS, 3)).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.normal(0, 1, (SP_RAYS, 3)).astype(np.float32)).to(dev))
+
+
+def _gloo_rank(dev) -> dict:
+    """(b) one chunk of CHUNK eager steps at 64^3 (full width, the 146-slot
+    pool) under a 2-rank gloo mesh, its launch counts, the state; a 960x540
+    frame split over the ranks and the same frame on this rank alone; (c)
+    render_rays_sp over a sample group of 2 and render_rays of the same
+    640^3 field with the ball alpha volume."""
+    import dataclasses
+
+    import torch
+
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+    from localrf_tpu_torch.models.render import render_rays
+    from localrf_tpu_torch.parallel import sharding, sp
+
+    mesh = sharding.make_mesh(2, "cuda")
+    ds = make_dataset(W, H, N_FRAMES)
+    model = _model_64(dev, DevicePixelPool(ds, capacity=POOL_SLOTS, device=dev))
+    model.set_mesh(mesh)
+    if model._graphs is not None:
+        raise AssertionError("a gloo mesh kept the chunk's CUDA graphs")
+    batches = model.plan_chunk(ds, True, CHUNK)
+    _reset_launch_counts()
+    ms = _run_chunk(model, batches)
+    launches = _launch_counts()
+    out = {f"state/{k}": v for k, v in _host_state(model).items()}
+    out.update({f"loss/{k}": v for k, v in model.chunk_metrics.items()})
+    out.update({f"launch/{k}": np.int64(n) for k, n in launches.items()})
+    out["ms_per_step"] = np.float64(ms / CHUNK)
+
+    ids = np.arange(W * H)
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    rgb, depth, _, _ = model.forward_eval(ids, np.asarray([1]), W, H, chunk=BATCH)
+    torch.cuda.synchronize()
+    out["eval_ms"] = np.float64((time.perf_counter() - t0) * 1e3)
+    out.update({f"eval_launch/{k}": np.int64(n) for k, n in _launch_counts().items()})
+    out["eval/rgb"], out["eval/depth"] = rgb.cpu().numpy(), depth.cpu().numpy()
+    model.set_mesh(None)
+    rgb, depth, _, _ = model.forward_eval(ids, np.asarray([1]), W, H, chunk=BATCH)
+    out["eval_one/rgb"], out["eval_one/depth"] = rgb.cpu().numpy(), depth.cpu().numpy()
+    del model
+
+    m640 = model_640(dev, "default")
+    f = m640.fields[-1]
+    cfg = dataclasses.replace(f["cfg"], occ_m=0)
+    rays_o, rays_d = _sp_rays(dev)
+    group = sp.make_sp_mesh(SP_GROUP, "cuda")
+    sp.render_rays_sp(f["params"], cfg, rays_o, rays_d, group, alpha_volume=f["alpha_volume"])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rgb, depth = sp.render_rays_sp(f["params"], cfg, rays_o, rays_d, group, alpha_volume=f["alpha_volume"])
+    torch.cuda.synchronize()
+    out["sp_ms"] = np.float64((time.perf_counter() - t0) * 1e3)
+    with torch.no_grad():
+        ref_rgb, ref_depth = render_rays(f["params"], cfg, rays_o, rays_d, is_train=False, white_bg=True,
+                                         alpha_volume=f["alpha_volume"])
+    out["sp/rgb"], out["sp/depth"] = rgb.cpu().numpy(), depth.cpu().numpy()
+    out["sp_ref/rgb"], out["sp_ref/depth"] = ref_rgb.cpu().numpy(), ref_depth.cpu().numpy()
+    out["sp_samples"] = np.int64(cfg.n_samples // 6 * 2)
+    return out
+
+
+def _nccl_rank(dev) -> dict:
+    """(d) the 640^3 default pooled chunk under an NCCL mesh of two cards:
+    the first chunk (captures), N_TIMED timed, one profiled; the state."""
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+    from localrf_tpu_torch.parallel import sharding
+
+    ds = make_dataset(W, H, N_FRAMES)
+    model = model_640(dev, "default")
+    model.attach_pool(DevicePixelPool(ds, capacity=POOL_SLOTS, device=dev))
+    model.set_mesh(sharding.make_mesh(2, "cuda"))
+    _run_chunk(model, model.plan_chunk(ds, True, CHUNK))
+    out = {f"loss/{k}": v for k, v in model.chunk_metrics.items()}
+    times = [_run_chunk(model, model.plan_chunk(ds, True, CHUNK)) / CHUNK for _ in range(N_TIMED)]
+    trace = profile_chunk(model, model.plan_chunk(ds, True, CHUNK))
+    out["ms_all"] = np.asarray(times)
+    out["nccl_per_step"] = np.asarray([_nccl_events(c) for c in trace["per_step"]])
+    out["nccl_ms_per_step"] = np.float64(sum(ns for name, ns in trace["ns_by_name"].items()
+                                             if _nccl_events({name: 1})) / 1e6 / CHUNK)
+    out["graph_launches"] = np.int64(len(trace["per_step"]))
+    out.update({f"state/{k}": v for k, v in _host_state(model).items()})
+    return out
+
+
+def _ranks_bit_equal(label: str, results: list[dict]) -> int:
+    keys = [k for k in results[0] if k.startswith("state/")]
+    for r in results[1:]:
+        differ = [k for k in keys if r[k].tobytes() != results[0][k].tobytes()]
+        if differ:
+            raise AssertionError(f"{label}: the ranks' state differs in {differ}")
+    return len(keys)
+
+
+def nccl_chunk(dev, ds, pool) -> dict:
+    """(a) The 640^3 default pooled chunk of 16 steps at full width under an
+    NCCL mesh of this one rank, the all-reduces captured in its graphs
+    (run_chunks: under fixed-order sums bit for bit against a twin with no
+    mesh, whose steps are eager; on the path as it runs against a twin's
+    eager steps; timed; profiled). Then: a fresh capture issues the step's
+    collectives (two a step: the rgb loss's denominator, the gradients and
+    metrics) at warm-up and capture and its replays none; NCCL's device
+    work per replayed step in the trace; ms/step with and without the mesh,
+    in turns, on two fresh models."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from localrf_tpu_torch.parallel import sharding
+
+    with tempfile.TemporaryDirectory() as tmp:
+        _init_group("nccl", os.path.join(tmp, "store"), 0, 1)
+        try:
+            mesh = sharding.make_mesh(1, "cuda")
+
+            def make(with_pool: bool):
+                m = model_640(dev, "default")
+                if with_pool:
+                    m.attach_pool(pool)
+                    m.set_mesh(mesh)
+                return m
+
+            out, model = run_chunks("640^3 default, NCCL mesh of 1 rank", make, ds, "default")
+            trace = out.pop("trace")
+            nccl = [_nccl_events(c) for c in trace["per_step"]]
+            model.drop_graphs()
+            sharding.COLLECTIVES.update(all_reduce=0, broadcast=0)
+            _run_chunk(model, model.plan_chunk(ds, True, CHUNK))
+            captured = dict(sharding.COLLECTIVES)
+            sharding.COLLECTIVES.update(all_reduce=0, broadcast=0)
+            _run_chunk(model, model.plan_chunk(ds, True, CHUNK))
+            replayed = dict(sharding.COLLECTIVES)
+            n_graphs = len(model._graphs)
+            if captured["all_reduce"] != 2 * 2 * n_graphs or any(replayed.values()):
+                raise AssertionError(f"NCCL chunk: collectives at capture {captured}, at replay {replayed},"
+                                     f" {n_graphs} graph(s)")
+            del model
+            # two fresh models at the same schedule (model_640's rf_iter 10:
+            # the L1 term on through 4 chunks; past n_iters_reg it turns off
+            # and a step is ~25 ms shorter), their first chunks capturing
+            timed = {"mesh": make(True), "none": make(False)}
+            timed["none"].attach_pool(pool)
+            for m in timed.values():
+                _run_chunk(m, m.plan_chunk(ds, True, CHUNK))
+            times = {"mesh": [], "none": []}
+            for name in ("none", "mesh", "mesh", "none", "none", "mesh"):
+                m = timed[name]
+                times[name].append(_run_chunk(m, m.plan_chunk(ds, True, CHUNK)) / CHUNK)
+            if any(m.chunk_metrics["l1_loss"][-1] <= 0 for m in timed.values()):
+                raise AssertionError("NCCL chunk timing: the L1 term turned off in a timed chunk")
+            del timed
+        finally:
+            dist.destroy_process_group()
+    out.update(nccl_per_step=nccl, collectives_at_capture=captured, collectives_at_replay=replayed,
+               ms_mesh=float(np.median(times["mesh"])), ms_none=float(np.median(times["none"])), times=times)
+    print(f"parallel (a) NCCL mesh of 1: chunk bit for bit with fixed-order sums against a twin with no mesh"
+          f" ({out['bit_exact_tensors']} tensors), on the path as it runs within CHUNK_TOL (worst rgb_loss"
+          f" {out['worst_rel']:.3e}); a capture issued {captured['all_reduce']} all-reduces for {n_graphs}"
+          f" graph(s) (2 a step, warm-up and capture), its replays {replayed['all_reduce']}; NCCL device"
+          f" events per replayed step {nccl} (one rank: an in-place sum enqueues nothing); ms/step with the"
+          f" mesh {out['ms_mesh']:.3f} {[round(t, 3) for t in times['mesh']]}, without"
+          f" {out['ms_none']:.3f} {[round(t, 3) for t in times['none']]}")
+    return out
+
+
+def gloo_ranks(dev, pool) -> dict:
+    """(b) and (c) on two spawned gloo ranks on this card (_gloo_rank),
+    against this process: the chunk's losses against the same chunk in one
+    process (CHUNK_TOL), the ranks' state bit for bit, K1-fwd, K1-bwd and
+    K2 launched on each rank (and no other kernel); the split 960x540 frame
+    equal on both ranks and against one rank's (EVAL_TOL); render_rays_sp
+    against render_rays (SP_TOL)."""
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        results = _spawn_ranks("gloo", 2, tmp)
+        wall = time.perf_counter() - t0
+    n_state = _ranks_bit_equal("gloo ranks", results)
+    ds = make_dataset(W, H, N_FRAMES)
+    twin = _model_64(dev, pool)
+    _run_chunk(twin, twin.plan_chunk(ds, True, CHUNK))
+    want = twin.chunk_metrics
+    del twin
+    torch.cuda.empty_cache()
+    launches, worst, eval_err, sp_err = {}, 0.0, [0.0, 0.0], [0.0, 0.0]
+    for rank, r in enumerate(results):
+        got = {k[5:]: v for k, v in r.items() if k.startswith("loss/")}
+        worst = max(worst, _losses_close(f"gloo rank {rank}", got, want))
+        mine = {k[7:]: int(v) for k, v in r.items() if k.startswith("launch/")}
+        _check_launches(f"gloo rank {rank}", mine, "default")
+        for k, n in mine.items():
+            launches[k] = launches.get(k, 0) + n
+        evl = {k[12:]: int(v) for k, v in r.items() if k.startswith("eval_launch/")}
+        n_chunks = -(-W * H // BATCH)
+        _expect_launches(f"gloo rank {rank} split frame", evl, {"fused_weights_fwd": n_chunks})
+        for k, n in evl.items():
+            launches[k] = launches.get(k, 0) + n
+        for part in ("rgb", "depth"):
+            if r[f"eval/{part}"].tobytes() != results[0][f"eval/{part}"].tobytes():
+                raise AssertionError(f"gloo rank {rank}: the gathered frame differs from rank 0's")
+        errs = [_close(torch.from_numpy(r["eval/rgb"]), torch.from_numpy(r["eval_one/rgb"]), *EVAL_TOL),
+                _close(torch.from_numpy(r["eval/depth"]), torch.from_numpy(r["eval_one/depth"]),
+                       EVAL_TOL[0], EVAL_TOL[1] * float(np.abs(r["eval_one/depth"]).max())),
+                _close(torch.from_numpy(r["sp/rgb"]), torch.from_numpy(r["sp_ref/rgb"]), *SP_TOL),
+                _close(torch.from_numpy(r["sp/depth"]), torch.from_numpy(r["sp_ref/depth"]),
+                       SP_TOL[0], SP_TOL[1] * float(np.abs(r["sp_ref/depth"]).max()))]
+        eval_err = [max(a, b) for a, b in zip(eval_err, errs[:2])]
+        sp_err = [max(a, b) for a, b in zip(sp_err, errs[2:])]
+    r0 = results[0]
+    print(f"parallel (b) gloo, 2 ranks on one card (spawned, {wall:.1f} s): a 64^3 chunk of {CHUNK} eager"
+          f" steps at {float(r0['ms_per_step']):.3f} ms/step, its losses within CHUNK_TOL of one process"
+          f" (worst rgb_loss {worst:.3e}), the ranks' {n_state} state tensors bit for bit; launches on both"
+          f" ranks {launches}; the 960x540 frame split over the ranks in {float(r0['eval_ms']):.1f} ms, equal on"
+          f" both, against one rank's: rgb err {eval_err[0]:.3e}, depth err {eval_err[1]:.3e}")
+    print(f"parallel (c) render_rays_sp, a sample group of {SP_GROUP} (gloo), {SP_RAYS} rays through the"
+          f" 640^3 field with the ball alpha volume, {int(r0['sp_samples'])} samples a ray:"
+          f" {float(r0['sp_ms']):.1f} ms; against render_rays (eval, no compaction) rgb err {sp_err[0]:.3e},"
+          f" depth err {sp_err[1]:.3e}")
+    return {"launches": launches, "ms_per_step": float(r0["ms_per_step"]), "eval_ms": float(r0["eval_ms"]),
+            "eval_err": eval_err, "sp_ms": float(r0["sp_ms"]), "sp_err": sp_err, "worst_rel": worst,
+            "state_tensors": n_state}
+
+
+def nccl_cards(dev, pool) -> dict | None:
+    """(d) NCCL over two cards (_nccl_rank on cards 0 and 1) against this
+    process's same chunk on card 0: losses to CHUNK_TOL, the ranks' state
+    bit for bit, NCCL kernels in every replayed step; ms/step on two cards
+    and on one. Returns None, saying why, with fewer than two cards."""
+    import tempfile
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"parallel (d) NCCL across cards: not run: {n} card visible, two are needed (NCCL refuses two"
+              " ranks on one card; (a) and (b) hold the same path on one)")
+        return None
+    with tempfile.TemporaryDirectory() as tmp:
+        results = _spawn_ranks("nccl", 2, tmp)
+    n_state = _ranks_bit_equal("nccl ranks", results)
+    ds = make_dataset(W, H, N_FRAMES)
+    twin = model_640(dev, "default")
+    twin.attach_pool(pool)
+    _run_chunk(twin, twin.plan_chunk(ds, True, CHUNK))
+    want = twin.chunk_metrics
+    one = [_run_chunk(twin, twin.plan_chunk(ds, True, CHUNK)) / CHUNK for _ in range(N_TIMED)]
+    del twin
+    worst = max(_losses_close(f"nccl rank {r}", {k[5:]: v for k, v in res.items() if k.startswith("loss/")}, want)
+                for r, res in enumerate(results))
+    nccl = results[0]["nccl_per_step"].tolist()
+    if len(nccl) != CHUNK or min(nccl) < 2:
+        raise AssertionError(f"NCCL across cards: NCCL device events per replayed step {nccl}, expected >= 2")
+    ms2 = float(np.median(results[0]["ms_all"]))
+    nccl_ms = float(results[0]["nccl_ms_per_step"])
+    print(f"parallel (d) NCCL across 2 cards: losses within CHUNK_TOL of one process (worst rgb_loss"
+          f" {worst:.3e}), the ranks' {n_state} state tensors bit for bit, NCCL kernels per replayed step"
+          f" {nccl} ({nccl_ms:.3f} ms a step on rank 0's card); 640^3 default ms/step on two cards {ms2:.3f} {results[0]['ms_all'].round(3).tolist()},"
+          f" on one {float(np.median(one)):.3f} {[round(t, 3) for t in one]}")
+    return {"ms_two_cards": ms2, "ms_one_card": float(np.median(one)), "nccl_per_step": nccl,
+            "nccl_ms_per_step": nccl_ms, "worst_rel": worst}
+
+
+def parallel_phase(dev, ds) -> dict:
+    """Phase 10 ((a)-(d) above) over one 146-slot pool."""
+    import torch
+
+    from localrf_tpu_torch.data.pool import DevicePixelPool
+
+    t0 = time.perf_counter()
+    pool = DevicePixelPool(ds, capacity=POOL_SLOTS, device=dev)
+    out = {"nccl": nccl_chunk(dev, ds, pool)}
+    torch.cuda.empty_cache()
+    out["gloo"] = gloo_ranks(dev, pool)
+    torch.cuda.empty_cache()
+    out["cards"] = nccl_cards(dev, pool)
+    del pool
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"parallel: phase {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     # the H100's default cuBLAS workspace (8 x 4 MiB), named so that cuBLAS
     # calls raise no warning under deterministic_sums
@@ -2288,6 +2697,13 @@ def main() -> None:
     pre = preprocess_phase(dev, cli_model.fields[-1])
     del cli_model
 
+    # phase 10: ray-batch data parallelism and the sample-split render
+    torch.cuda.empty_cache()
+    par = parallel_phase(dev, ds)
+    # this phase's launches: the NCCL chunk's first chunk and the gloo ranks'
+    # chunk and split frames (main path), the fixed-order chunk's (K5)
+    par_launches = {k: par["nccl"]["launches"].get(k, 0) + par["gloo"]["launches"].get(k, 0) for k in KERNELS}
+
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         mine = [r for r in rows if r["name"] == name]
@@ -2295,8 +2711,10 @@ def main() -> None:
         entry = {
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(ph["launches"][name] for ph in (*phases.values(), *chunks.values()))
-            + sum(counts.get(name, 0) for counts in evals.values()) + cli_launches[name],
+            + sum(counts.get(name, 0) for counts in evals.values()) + cli_launches[name]
+            + par_launches[name],
             "cli_launches": cli_launches[name],
+            "parallel_launches": par_launches[name],
             "eval_launches": sum(counts.get(name, 0) for counts in evals.values()),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
@@ -2306,8 +2724,9 @@ def main() -> None:
         }
         if name in FIXED_ORDER.values():
             # on the fixed-order chunks' path only
+            entry["parallel_launches"] = par["nccl"]["exact_launches"].get(name, 0)
             entry["launches"] = (sum(ph["exact_launches"].get(name, 0) for ph in chunks.values())
-                                 + cli["resume_launches"].get(name, 0))
+                                 + cli["resume_launches"].get(name, 0) + entry["parallel_launches"])
             entry.update(path="fixed-order chunks", k2_ms=row["k2_ms"], max_tile_points=row["max_tile_points"],
                          max_row_points=row["max_row_points"])
         if "kernel_us" in row:
@@ -2327,6 +2746,9 @@ def main() -> None:
     print(json.dumps({"spawn": {"memory": spawn["memory"], "eval": spawn["eval"]}, "eval_launches": evals}))
     print(json.dumps({"cli": cli, "cli_launches": cli_launches}))
     print(json.dumps({"preprocess": pre}))
+    print(json.dumps({"parallel": {
+        "nccl": {k: v for k, v in par["nccl"].items() if k not in ("launches", "exact_launches", "replayed")},
+        "gloo": par["gloo"], "cards": par["cards"], "seconds": par["seconds"]}}))
     print(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from start to here")
     print(_gpu_line())
     print(json.dumps({"kernels": kernels}))

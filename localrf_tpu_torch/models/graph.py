@@ -136,10 +136,14 @@ class ChunkGraphs:
 
     def run(self, field: FieldState, pose: PoseState, intr: IntrState, statics: StepStatics,
             alpha_volume, batch_of, bound, inputs_seq: dict, scalars_seq: dict, noise_seq: dict,
-            branches_seq: list[StepBranches], n_steps: int):
+            branches_seq: list[StepBranches], n_steps: int, mesh=None):
         """K steps: step k's inputs are row k of the [K, ...] streams;
         batch_of(inputs) builds the step's batch inside the graph. Returns
-        (field, pose, intr, metrics {name: [K]}) like step.train_chunk."""
+        (field, pose, intr, metrics {name: [K]}) like step.train_chunk.
+        With a `mesh` (NCCL) the step's collectives are captured with it;
+        the mesh must already have made one collective eagerly (NCCL makes
+        its communicator at the first, which a capture cannot do):
+        LocalTensorfs.set_mesh does, with its broadcast of the state."""
         seqs = {"inputs": inputs_seq, "scalars": scalars_seq, "noise": noise_seq}
         names = metric_names(statics)
         binding = (
@@ -151,6 +155,7 @@ class ChunkGraphs:
             tuple(_layout(t) for t in _pose_leaves(pose) + _intr_leaves(intr)),
             tuple((part, k, tuple(v.shape[1:]), v.dtype) for part, seq in seqs.items()
                   for k, v in seq.items()),
+            id(mesh),
         )
         if binding != self._binding:
             self.drop()
@@ -164,7 +169,7 @@ class ChunkGraphs:
             b = buf.step
             _, new_pose, _, metrics = train_core(
                 field, buf.pose, buf.intr, batch_of(b["inputs"]), b["scalars"], statics, b["noise"],
-                alpha_volume, branches,
+                alpha_volume, branches, mesh,
             )
             _copy_into(_pose_leaves(buf.pose), _pose_leaves(new_pose))
             buf.metrics.copy_(torch.stack([metrics[n] for n in names]))

@@ -13,7 +13,14 @@ ladder (`append_rf`), sliding the pose window (`set_window_start`),
 path `plan_chunk` -> `run_chunk` (the default `--scan_chunk 16
 --pixel_pool 1` of the JAX package), whose steps replay captured CUDA
 graphs on a card (models/graph.py) and loop on the CPU, the queries the
-training loop reads, and the blended eval render `forward_eval`.
+training loop reads, the blended eval render `forward_eval`, and ray-batch
+data parallelism over torch.distributed ranks (`set_mesh`,
+parallel/sharding.py).
+
+Under a mesh every rank runs every step, event and eval, and so every
+collective, in the same order: the host schedule (which reads the pose
+window, e.g. get_dist_to_last_rf) is the same on every rank only while the
+replicas are equal bit for bit, which the reduced gradients keep them.
 """
 from __future__ import annotations
 
@@ -26,6 +33,15 @@ import torch
 
 from ..ops.math import mtx_to_sixD, n_to_reso, sixD_to_mtx
 from ..optim import AdamState, pytree_adam_init
+from ..parallel.sharding import (
+    _SHARDED_KEYS,
+    POOL_SHARDED_KEYS,
+    all_sum_,
+    captures_collectives,
+    data_rank,
+    replicate_tree,
+    shard_batch,
+)
 from .graph import ChunkGraphs
 from .render import draw_noise
 from .step import (
@@ -103,6 +119,11 @@ def _rot6d_roundtrip(r: np.ndarray) -> np.ndarray:
 
 
 class LocalTensorfs:
+    # ray-batch data parallelism (set_mesh): the "data" mesh, and whether the
+    # replicated state is known equal on every rank since it was last rebuilt
+    mesh = None
+    _replicated = True
+
     def __init__(self, cfg: LocalConfig, camera_prior: dict | None = None, device="cuda"):
         self.cfg = cfg
         self.camera_prior = camera_prior
@@ -216,6 +237,7 @@ class LocalTensorfs:
         """(Re)build the device pose window [win_start, n_frames) padded to
         capacity."""
         self.drop_graphs()
+        self._replicated = False
         s, l = self.win_start, self.win_len
         while l > self._wc:
             self._wc += 32
@@ -327,6 +349,7 @@ class LocalTensorfs:
         else:
             world2rf = np.zeros(3, np.float32)
         tf_cfg = self.cfg.tensorf
+        self._replicated = False
         params = init_tensorf(tf_cfg, self._gen, self.device)
         self.fields.append({
             "params": params,
@@ -341,14 +364,16 @@ class LocalTensorfs:
     # optimization
     # ------------------------------------------------------------------
 
-    def _statics(self, optimize_poses: bool) -> StepStatics:
+    def _statics(self, optimize_poses: bool, n_views: int | None = None) -> StepStatics:
+        """The step's statics; `n_views` is the views of this rank's share
+        of the batch (default cfg.n_views)."""
         c = self.cfg
         f = self.fields[-1]
         return StepStatics(
             cfg=f["cfg"],
             w=self.W,
             h=self.H,
-            n_views=c.n_views,
+            n_views=c.n_views if n_views is None else n_views,
             px_per_view=c.px_per_view,
             wc=self._wc,
             fov360=(c.fov == 360),
@@ -410,10 +435,15 @@ class LocalTensorfs:
         """One step's host scalars as device tensors (three copies)."""
         return row(stack_scalars([scal], self.device), 0)
 
+    def _shard(self, batch: dict, keys, axis: int) -> dict:
+        """This rank's share of a host batch (sharding.shard_batch)."""
+        return batch if self.mesh is None else shard_batch(batch, self.mesh, keys, axis)
+
     def _device_batch(self, batch: dict) -> dict:
+        """One step's batch on the device (this rank's share under a mesh)."""
         out = {
             k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-            for k, v in self._host_batch(batch).items()
+            for k, v in self._shard(self._host_batch(batch), _SHARDED_KEYS, 0).items()
         }
         out["gate"] = torch.from_numpy(self._gate()).to(self.device)
         return out
@@ -456,6 +486,7 @@ class LocalTensorfs:
         f = self.fields[-1]
         if self._has_post_step_event(self.rf_iter[-1]):
             self.drop_graphs()
+            self._replicated = False
         if self.rf_iter[-1] in self.N_voxel_list:
             reso = n_to_reso(self.N_voxel_list[self.rf_iter[-1]], f["cfg"].aabb)
             lr_scale = f["opt"].lr_scale
@@ -472,20 +503,23 @@ class LocalTensorfs:
 
     def optimizer_step(self, batch: dict, optimize_poses: bool) -> bool:
         """One eager joint step; returns can_add_rf."""
+        self._replicate()
         self._schedule_entry()
         f = self.fields[-1]
-        statics = self._statics(optimize_poses)
+        dev_batch = self._device_batch(batch)
+        statics = self._statics(optimize_poses, dev_batch["view_ids"].shape[0])
         scal = self._scalars_py()
         new_field, new_pose, new_intr, metrics = train_step(
             FieldState(f["params"], f["opt"]),
             self._pose_dev,
             self.intr,
-            self._device_batch(batch),
+            dev_batch,
             self._scalar_row(scal),
             statics,
             self._next_noise(statics.cfg),
             f["alpha_volume"],
             StepBranches.of(scal),
+            self.mesh,
         )
         f["params"], f["opt"] = new_field.params, new_field.opt
         self._pose_dev = new_pose
@@ -500,19 +534,22 @@ class LocalTensorfs:
     def optimizer_step_poses_only(self, batch: dict):
         """One eager test-pose photometric refinement step: only the pose
         window changes (no schedule entry, no rf_iter advance)."""
+        self._replicate()
         f = self.fields[-1]
-        statics = self._statics(optimize_poses=True)
+        dev_batch = self._device_batch(batch)
+        statics = self._statics(True, dev_batch["view_ids"].shape[0])
         scal = self._scalars_py(pose_only=True)
         _, new_pose, _, metrics = train_step_poses_only(
             FieldState(f["params"], f["opt"]),
             self._pose_dev,
             self.intr,
-            self._device_batch(batch),
+            dev_batch,
             self._scalar_row(scal),
             statics,
             self._next_noise(statics.cfg),
             f["alpha_volume"],
             StepBranches.of(scal),
+            self.mesh,
         )
         self._pose_dev = new_pose
         self.last_metrics = {k: float(v) for k, v in metrics.items()}
@@ -562,6 +599,37 @@ class LocalTensorfs:
             raise ValueError(f"pool on {pool.device}, model on {self.device}")
         self.pool = pool
 
+    def set_mesh(self, mesh) -> None:
+        """Ray-batch data parallelism over `mesh` (parallel/sharding.py, axis
+        "data"; None turns it off): every step takes this rank's share of the
+        batch and the gradients of the global batch; parameters, optimizer
+        state and the pose window are replicated (made equal by a broadcast
+        from rank 0 now and after each event that rebuilds them; the pixel
+        pool is built by every rank from the same frames); eval splits each
+        chunk's rays over the ranks. On a card the chunk's steps are captured
+        with their collectives under NCCL; gloo runs a collective on the
+        host, which no CUDA graph captures, so under gloo the chunk steps
+        eagerly: the backend decides, not an option."""
+        self.drop_graphs()
+        self.mesh = mesh
+        if self.device.type == "cuda":
+            capture = mesh is None or captures_collectives(mesh)
+            self._graphs = ChunkGraphs(self.device) if capture else None
+        self._replicated = False
+        # also the mesh's first collective, made eagerly: NCCL creates its
+        # communicator there, which it cannot do inside a graph capture
+        self._replicate()
+
+    def _replicate(self) -> None:
+        """Under a mesh, broadcast the replicated state from rank 0 once
+        since it was last rebuilt (the current field's params, Adam state and
+        alpha volume, the pose window, the intrinsics)."""
+        if self.mesh is None or self._replicated:
+            return
+        f = self.fields[-1]
+        replicate_tree([f["params"], f["opt"], f["alpha_volume"], self._pose_dev, self.intr], self.mesh)
+        self._replicated = True
+
     def run_chunk(self, batches: list[dict], optimize_poses: bool) -> bool:
         """Execute pre-planned batches as one chunk: the same schedule
         bookkeeping as a sequence of optimizer_step /
@@ -570,6 +638,7 @@ class LocalTensorfs:
         can_add_rf after the last step."""
         if not batches:
             return False
+        self._replicate()
         k = len(batches)
         scal_seq: list[dict] = []
         host_batches: list[dict] = []
@@ -597,14 +666,13 @@ class LocalTensorfs:
             if not pose_only and self.is_refining:
                 self.rf_iter[-1] += 1
 
-        stacked = {
-            key: torch.from_numpy(np.stack([hb[key] for hb in host_batches])).to(self.device)
-            for key in host_batches[0]
-        }
+        stacked = self._shard({key: np.stack([hb[key] for hb in host_batches]) for key in host_batches[0]},
+                              POOL_SHARDED_KEYS if use_pool else _SHARDED_KEYS, 1)
+        stacked = {key: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for key, v in stacked.items()}
         scalars = stack_scalars(scal_seq, self.device)
         branches = [StepBranches.of(sc) for sc in scal_seq]
         f = self.fields[-1]
-        statics = self._statics(optimize_poses)
+        statics = self._statics(optimize_poses, stacked["view_ids"].shape[1])
         # the noise stream of k sequential optimizer_step calls, in step order
         noise = stack_noise([self._next_noise(statics.cfg) for _ in range(k)])
         field_state = FieldState(f["params"], f["opt"])
@@ -612,11 +680,12 @@ class LocalTensorfs:
             out = train_chunk_pooled(
                 field_state, self._pose_dev, self.intr, self.pool.arrays, stacked, scalars, statics,
                 noise, k, self.pool.n_px, f["alpha_volume"], branches_seq=branches, graphs=self._graphs,
+                mesh=self.mesh,
             )
         else:
             out = train_chunk(
                 field_state, self._pose_dev, self.intr, stacked, scalars, statics, noise, k,
-                f["alpha_volume"], branches_seq=branches, graphs=self._graphs,
+                f["alpha_volume"], branches_seq=branches, graphs=self._graphs, mesh=self.mesh,
             )
         new_field, self._pose_dev, self.intr, metrics = out
         f["params"], f["opt"] = new_field.params, new_field.opt
@@ -665,15 +734,16 @@ class LocalTensorfs:
     def _eval_params(self, f: dict):
         """A field's parameters on the device: the current field's own; a
         retired field's host parameters uploaded once and cached, keyed by
-        the identity of the host module (clear_eval_cache drops the copy)."""
+        the identity of the host module and the mesh (clear_eval_cache drops
+        the copy)."""
         params = f["params"]
         if f is self.fields[-1]:
             return params
         cached = f.get("_dev_cache")
-        if cached is not None and cached[0] is params:
+        if cached is not None and cached[0] is params and cached[2] is self.mesh:
             return cached[1]
         dev = TensorfField({k: p.detach().to(self.device) for k, p in params.named_parameters()})
-        f["_dev_cache"] = (params, dev)
+        f["_dev_cache"] = (params, dev, self.mesh)
         return dev
 
     def _eval_alpha(self, f: dict):
@@ -708,8 +778,13 @@ class LocalTensorfs:
         the neighbours' exposures) and the clip to [0, 1]. One view renders
         whole frames through render_frame, several go chunk by chunk through
         render_chunk; each field renders chunk // n_fields rays at a time.
+        Under a mesh whose "data" size divides that chunk, each rank renders
+        its contiguous part of every chunk (JAX's _eval_ray_sharding) and
+        the frame is gathered on every rank (a sum over "data" of the ranks'
+        zero-filled frames), whose callers all go on with it.
         Returns tensors on the model's device: rgb [N, 3], depth [N],
         directions [N, 3], ij [N, 2]."""
+        self._replicate()
         self.sync_window_to_host()
         view_ids = np.asarray(view_ids)
         if blending_weights is None:
@@ -735,12 +810,18 @@ class LocalTensorfs:
         rays_per_view = n_rays // len(view_ids)
         chunk = max(chunk // len(active_rf_ids), 1)
         n_chunks = (n_rays + chunk - 1) // chunk
+        n_pad = n_chunks * chunk
+        # this rank's rays: [lo, lo + part) of every chunk
+        rank, world = (0, 1) if self.mesh is None else data_rank(self.mesh)
+        split = world > 1 and chunk % world == 0
+        part = chunk // world if split else chunk
+        lo = rank * part if split else 0
         ids = torch.from_numpy(np.asarray(ray_ids, np.int64)).to(dev)
         # the last chunk padded with ray id 0: one chunk shape a frame
-        ids_p = torch.cat([ids, ids.new_zeros(n_chunks * chunk - n_rays)])
+        ids_p = torch.cat([ids, ids.new_zeros(n_pad - n_rays)])
         bw = torch.from_numpy(np.asarray(blending_weights, np.float32)).to(dev)  # [V, n_rf]
-        rgbs = torch.zeros((n_rays, 3), device=dev)
-        depths = torch.zeros((n_rays,), device=dev)
+        # the padded frame's blended rgb (columns 0-2) and depth (column 3)
+        out = torch.zeros((n_pad, 4), device=dev)
 
         def cam2rf(c2w: np.ndarray, rf_id: int) -> torch.Tensor:
             c2w = c2w.copy()
@@ -748,19 +829,20 @@ class LocalTensorfs:
             return torch.from_numpy(np.ascontiguousarray(c2w, np.float32)).to(dev)
 
         if len(view_ids) == 1:
-            ids_p = ids_p.reshape(n_chunks, chunk)
+            mine = (torch.arange(n_chunks, device=dev)[:, None] * chunk + lo
+                    + torch.arange(part, device=dev)[None]).reshape(-1)
             for rf_id in active_rf_ids:
                 f = self.fields[rf_id]
                 rgb, depth = render_frame(
-                    self._eval_params(f), f["cfg"], ids_p, cam2rf(cam2world[0], rf_id),
-                    alpha_volume=self._eval_alpha(f), **kw,
+                    self._eval_params(f), f["cfg"], ids_p[mine].reshape(n_chunks, part),
+                    cam2rf(cam2world[0], rf_id), alpha_volume=self._eval_alpha(f), **kw,
                 )
-                rgbs += rgb[:n_rays] * bw[0, rf_id]
-                depths += depth[:n_rays] * bw[0, rf_id]
+                out[mine] += torch.cat([rgb, depth[:, None]], dim=1) * bw[0, rf_id]
         else:
-            bw_exp = bw.repeat_interleave(rays_per_view, dim=0)
+            # padded rays weigh 0
+            bw_exp = torch.cat([bw.repeat_interleave(rays_per_view, dim=0), bw.new_zeros(n_pad - n_rays, bw.shape[1])])
             c2w_exp = np.repeat(cam2world, rays_per_view, axis=0)
-            c2w_exp = np.concatenate([c2w_exp, np.repeat(c2w_exp[-1:], n_chunks * chunk - n_rays, axis=0)])
+            c2w_exp = np.concatenate([c2w_exp, np.repeat(c2w_exp[-1:], n_pad - n_rays, axis=0)])
             fields = []
             for rf_id in active_rf_ids:
                 f = self.fields[rf_id]
@@ -768,16 +850,16 @@ class LocalTensorfs:
                 fields.append((rf_id, f, params, build_combined_quad_views(params, f["cfg"]),
                                cam2rf(c2w_exp, rf_id)))
             for ci in range(n_chunks):
-                sl = slice(ci * chunk, min((ci + 1) * chunk, n_rays))
-                n = sl.stop - sl.start
+                sl = slice(ci * chunk + lo, ci * chunk + lo + part)
                 for rf_id, f, params, quad, c2rf in fields:
                     rgb, depth, _, _ = render_chunk(
-                        params, f["cfg"], ids_p[ci * chunk : (ci + 1) * chunk],
-                        c2rf[ci * chunk : (ci + 1) * chunk], alpha_volume=self._eval_alpha(f),
+                        params, f["cfg"], ids_p[sl], c2rf[sl], alpha_volume=self._eval_alpha(f),
                         quad=quad, **kw,
                     )
-                    rgbs[sl] += rgb[:n] * bw_exp[sl, rf_id, None]
-                    depths[sl] += depth[:n] * bw_exp[sl, rf_id]
+                    out[sl] += torch.cat([rgb, depth[:, None]], dim=1) * bw_exp[sl, rf_id, None]
+        if split:
+            all_sum_(out, self.mesh)
+        rgbs, depths = out[:n_rays, :3].contiguous(), out[:n_rays, 3].contiguous()
 
         if self.cfg.lr_exposure_init > 0:
             rgbs = _apply_exposure(

@@ -32,6 +32,7 @@ from ..optim import (
     pytree_adam_update,
     scale_lr,
 )
+from ..parallel.sharding import all_mean, captures_collectives
 from .render import render_rays
 from .tensorf import TensorfConfig, build_combined_quad_views, density_l1, tv_loss_app, tv_loss_density
 
@@ -238,14 +239,18 @@ def forward_rays(
 
 
 def _losses(field_params, pose, intr_params, statics, batch, scalars, noise, branches: StepBranches,
-            *, alpha_volume=None):
+            *, alpha_volume=None, lw_mean=None):
+    """The step's losses on `batch`. `lw_mean` is the rgb loss's denominator,
+    mean(loss_weights) over the global batch when `batch` is one rank's
+    share of it (default: over `batch`)."""
     s = statics
     rgb, depth, directions, ij, focal, center = forward_rays(
         field_params, pose, intr_params, s, batch["ray_idx"], batch["view_ids"], scalars, noise,
         is_train=True, test_id=scalars["pose_only"], alpha_volume=alpha_volume,
     )
     lw = batch["loss_weights"]
-    rgb_loss = 0.25 * torch.mean(torch.abs(rgb - batch["rgbs"]) * lw) / torch.mean(lw)
+    rgb_loss = 0.25 * torch.mean(torch.abs(rgb - batch["rgbs"]) * lw) / (
+        torch.mean(lw) if lw_mean is None else lw_mean)
     total = rgb_loss
     metrics = {"rgb_loss": rgb_loss}
 
@@ -304,31 +309,47 @@ def _step_scalars(scalars: dict, device) -> dict:
 
 
 def loss_grads(field_params, pose, intr_params, statics, batch, scalars, noise, alpha_volume=None,
-               branches: StepBranches | None = None):
+               branches: StepBranches | None = None, mesh=None):
     """Losses and their gradients w.r.t. the field parameters (by name), the
     pose window (r, t, exposure) and, when optimized, the intrinsics.
     `scalars` holds numbers or tensors; `branches` defaults to the
     regularizer switches read from them. Returns (g_field, (g_r, g_t, g_e),
-    g_intr, metrics)."""
+    g_intr, metrics).
+
+    With a `mesh` (parallel/sharding.py), `batch` is this rank's share of
+    the global batch and the results are those of the global batch, equal
+    on every rank: the loss is the mean over ranks of the ranks' losses.
+    That holds term by term once the rgb loss, a ratio of means, divides by
+    the global mean(loss_weights) (one scalar reduction before the forward
+    pass; it does not depend on the parameters): the flow and depth losses
+    are means over equal view shards (each view's quantile is local), the
+    regularizers are the same on every rank. So the gradients and metrics
+    are each rank's, reduced once by their mean (sharding.all_mean)."""
     if branches is None:
         branches = StepBranches.of(scalars)
     scalars = _step_scalars(scalars, pose.r.device)
     named = dict(field_params.named_parameters())
     r, t, e = (x.detach().requires_grad_(True) for x in (pose.r, pose.t, pose.exposure))
     intr_p = {k: v.detach().requires_grad_(statics.intrinsics_on) for k, v in intr_params.items()}
+    lw_mean = None
+    if mesh is not None:
+        (lw_mean,) = all_mean([torch.mean(batch["loss_weights"])], mesh)
     total, metrics = _losses(
         field_params, pose._replace(r=r, t=t, exposure=e), intr_p, statics, batch, scalars, noise,
-        branches, alpha_volume=alpha_volume,
+        branches, alpha_volume=alpha_volume, lw_mean=lw_mean,
     )
     leaves = list(named.values()) + [r, t, e]
     if statics.intrinsics_on:
         leaves += list(intr_p.values())
     grads = torch.autograd.grad(total, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for x, g in zip(leaves, grads)]
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    if mesh is not None:
+        reduced = all_mean(grads + list(metrics.values()), mesh)
+        grads, metrics = reduced[: len(grads)], dict(zip(metrics, reduced[len(grads) :]))
     n = len(named)
     g_field = dict(zip(named, grads[:n]))
     g_intr = dict(zip(intr_p, grads[n + 3 :]))
-    metrics = {k: v.detach() for k, v in metrics.items()}
     return g_field, tuple(grads[n : n + 3]), g_intr, metrics
 
 
@@ -342,8 +363,10 @@ def train_core(
     noise: dict,
     alpha_volume=None,
     branches: StepBranches | None = None,
+    mesh=None,
 ):
-    """One optimization step. `branches.pose_only` switches between the full
+    """One optimization step (with a `mesh`, on this rank's share of the
+    batch and the gradients of the global one: loss_grads). `branches.pose_only` switches between the full
     joint step and photometric test-pose refinement: a pose-only step moves
     the poses only (no field, exposure or intrinsics update, no lr decay)
     and averages the exposure of the neighbours. That switch is a host
@@ -357,7 +380,7 @@ def train_core(
         branches = StepBranches.of(scalars)
     scalars = _step_scalars(scalars, pose.r.device)
     g_field, (g_r, g_t, g_e), g_intr, metrics = loss_grads(
-        field.params, pose, intr.params, s, batch, scalars, noise, alpha_volume, branches
+        field.params, pose, intr.params, s, batch, scalars, noise, alpha_volume, branches, mesh
     )
 
     lr_factor = scalars["lr_factor"]
@@ -403,21 +426,21 @@ def train_core(
 
 
 def train_step(field, pose, intr, batch, scalars, statics: StepStatics, noise, alpha_volume=None,
-               branches: StepBranches | None = None):
+               branches: StepBranches | None = None, mesh=None):
     """Single full joint step."""
     scalars = dict(scalars, pose_only=0.0)
     branches = dataclasses.replace(branches or StepBranches.of(scalars), pose_only=False)
-    return train_core(field, pose, intr, batch, scalars, statics, noise, alpha_volume, branches)
+    return train_core(field, pose, intr, batch, scalars, statics, noise, alpha_volume, branches, mesh)
 
 
 def train_step_poses_only(field, pose, intr, batch, scalars, statics: StepStatics, noise,
-                          alpha_volume=None, branches: StepBranches | None = None):
+                          alpha_volume=None, branches: StepBranches | None = None, mesh=None):
     """Photometric-only pose refinement for held-out test frames: no field,
     exposure or intrinsics update and no lr decay (train_core's pose-only
     branch)."""
     scalars = dict(scalars, pose_only=1.0)
     branches = dataclasses.replace(branches or StepBranches.of(scalars), pose_only=True)
-    return train_core(field, pose, intr, batch, scalars, statics, noise, alpha_volume, branches)
+    return train_core(field, pose, intr, batch, scalars, statics, noise, alpha_volume, branches, mesh)
 
 
 # ------------------------------ chunks ------------------------------
@@ -442,19 +465,20 @@ def pooled_batch(pool: dict, idx: dict, px_per_view: int, n_px: int) -> dict:
 
 
 def _run_chunk(field, pose, intr, batch_of, inputs_seq, scalars_seq, statics, noise_seq, n_steps,
-               alpha_volume, branches_seq, graphs, bound=()):
+               alpha_volume, branches_seq, graphs, mesh, bound=()):
     if len(branches_seq) != n_steps:
         raise ValueError(f"{len(branches_seq)} step branches for {n_steps} steps")
-    if pose.r.device.type == "cuda":
-        if graphs is None:
-            raise ValueError("a chunk on CUDA replays captured graphs: pass graphs=ChunkGraphs(device)")
+    if graphs is not None:
         return graphs.run(field, pose, intr, statics, alpha_volume, batch_of, bound, inputs_seq,
-                          scalars_seq, noise_seq, branches_seq, n_steps)
+                          scalars_seq, noise_seq, branches_seq, n_steps, mesh)
+    # a mesh whose collectives no graph captures (gloo) steps eagerly on a card
+    if pose.r.device.type == "cuda" and (mesh is None or captures_collectives(mesh)):
+        raise ValueError("a chunk on CUDA replays captured graphs: pass graphs=ChunkGraphs(device)")
     out = []
     for k in range(n_steps):
         field, pose, intr, metrics = train_core(
             field, pose, intr, batch_of(row(inputs_seq, k)), row(scalars_seq, k), statics,
-            row(noise_seq, k), alpha_volume, branches_seq[k],
+            row(noise_seq, k), alpha_volume, branches_seq[k], mesh,
         )
         out.append(metrics)
     return field, pose, intr, {name: torch.stack([m[name] for m in out]) for name in out[0]}
@@ -462,27 +486,29 @@ def _run_chunk(field, pose, intr, batch_of, inputs_seq, scalars_seq, statics, no
 
 def train_chunk(field, pose, intr, batches: dict, scalars_seq: dict, statics: StepStatics,
                 noise_seq: dict, n_steps: int, alpha_volume=None, *,
-                branches_seq: list[StepBranches], graphs=None):
+                branches_seq: list[StepBranches], graphs=None, mesh=None):
     """K training steps on [K, ...]-stacked batches, scalars (stack_scalars)
     and noise (stack_noise); `branches_seq` holds each step's StepBranches.
     On the CPU a loop over train_core; on CUDA every step replays a captured
     graph of one step (`graphs`, a models.graph.ChunkGraphs): the PyTorch
-    counterpart of JAX's one lax.scan dispatch. Returns (field, pose, intr,
-    metrics {name: [K]})."""
+    counterpart of JAX's one lax.scan dispatch; under a gloo `mesh`, whose
+    collectives no graph captures, the loop again. Returns (field, pose,
+    intr, metrics {name: [K]})."""
     return _run_chunk(field, pose, intr, lambda b: b, batches, scalars_seq, statics, noise_seq,
-                      n_steps, alpha_volume, branches_seq, graphs)
+                      n_steps, alpha_volume, branches_seq, graphs, mesh)
 
 
 def train_chunk_pooled(field, pose, intr, pool: dict, index_seq: dict, scalars_seq: dict,
                        statics: StepStatics, noise_seq: dict, n_steps: int, n_px: int,
-                       alpha_volume=None, *, branches_seq: list[StepBranches], graphs=None):
+                       alpha_volume=None, *, branches_seq: list[StepBranches], graphs=None,
+                       mesh=None):
     """train_chunk over the device-resident pixel pool (data/pool.py): the
     host ships index streams {"px" [K, B], "slots" [K, V], "view_ids" [K, V],
     "gate" [K, Wc]} and every step gathers its pixel values from `pool`."""
     return _run_chunk(
         field, pose, intr, lambda idx: pooled_batch(pool, idx, statics.px_per_view, n_px),
         index_seq, scalars_seq, statics, noise_seq, n_steps, alpha_volume, branches_seq, graphs,
-        bound=tuple(pool.values()),
+        mesh, bound=tuple(pool.values()),
     )
 
 

@@ -11,15 +11,26 @@ renders and videos). Everything runs on `--device` (default cuda).
 
 Run:  python -m localrf_tpu_torch.train --datadir <scene> --logdir <out> [--config f]
       [--device cpu] [--resume 1] [--render_only 1 --ckpt <file>]
+
+Ray-batch data parallelism over N ranks (`--data_parallel`: 0, the
+default, is the launch's world size):
+      python -m torch.distributed.run --nproc_per_node N -m localrf_tpu_torch.train ...
+Each rank is one process, NCCL on cuda:LOCAL_RANK for `--device cuda`,
+gloo for `cpu`. Every rank trains, evaluates and renders (eval frames split
+over the ranks); only rank 0 writes TensorBoard logs, checkpoints,
+transforms.json, frames and videos, while the others wait at a barrier.
 """
 from __future__ import annotations
 
 import json
 import os
+import shlex
+import sys
 import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .config import INERT_FLAGS, config_parser
@@ -28,6 +39,7 @@ from .data.pool import DevicePixelPool
 from .models.local import LocalConfig, LocalTensorfs
 from .models.tensorf import TensorfConfig
 from .ops.math import n_to_reso
+from .parallel.sharding import make_mesh
 from .renderer import render
 from .utils.spline import smooth_poses_spline
 from .utils.vis import draw_poses
@@ -68,15 +80,29 @@ def save_transforms(poses_mtx, transform_path, local_tensorfs, train_dataset=Non
         json.dump(transforms, f, indent=2)
 
 
+def _rank0(mesh) -> bool:
+    """Whether this rank writes files: rank 0 of a mesh, or the only rank."""
+    return mesh is None or dist.get_rank() == 0
+
+
+def _barrier(mesh) -> None:
+    """Under a mesh, every rank waits here for rank 0's writes."""
+    if mesh is not None:
+        dist.barrier()
+
+
 def render_frames(args, poses_mtx, local_tensorfs, logfolder, test_dataset, train_dataset):
-    """Final render outputs (ref: train.py:63-140)."""
-    save_transforms(poses_mtx, f"{logfolder}/transforms.json", local_tensorfs, train_dataset)
-    t_w2rf = np.stack(local_tensorfs.world2rf, axis=0)
-    rf_mtx_inv = np.concatenate(
-        [np.tile(np.eye(3, dtype=np.float32), (len(t_w2rf), 1, 1)), t_w2rf[..., None]],
-        axis=-1,
-    )
-    save_transforms(rf_mtx_inv, f"{logfolder}/transforms_rf.json", local_tensorfs)
+    """Final render outputs (ref: train.py:63-140). Every rank renders; only
+    rank 0 writes (the others render with no save path)."""
+    writes = _rank0(local_tensorfs.mesh)
+    if writes:
+        save_transforms(poses_mtx, f"{logfolder}/transforms.json", local_tensorfs, train_dataset)
+        t_w2rf = np.stack(local_tensorfs.world2rf, axis=0)
+        rf_mtx_inv = np.concatenate(
+            [np.tile(np.eye(3, dtype=np.float32), (len(t_w2rf), 1, 1)), t_w2rf[..., None]],
+            axis=-1,
+        )
+        save_transforms(rf_mtx_inv, f"{logfolder}/transforms_rf.json", local_tensorfs)
 
     w, h = train_dataset.img_wh
 
@@ -88,7 +114,7 @@ def render_frames(args, poses_mtx, local_tensorfs, logfolder, test_dataset, trai
             args,
             w=w,
             h=h,
-            save_path=f"{logfolder}/test",
+            save_path=f"{logfolder}/test" if writes else None,
             save_frames=True,
             save_video=False,
             add_frame_to_list=False,
@@ -100,8 +126,9 @@ def render_frames(args, poses_mtx, local_tensorfs, logfolder, test_dataset, trai
 
     if args.render_path:
         c2ws = smooth_poses_spline(poses_mtx, median_prefilter=True)
-        os.makedirs(f"{logfolder}/smooth_spline", exist_ok=True)
-        save_transforms(c2ws, f"{logfolder}/smooth_spline/transforms.json", local_tensorfs)
+        if writes:
+            os.makedirs(f"{logfolder}/smooth_spline", exist_ok=True)
+            save_transforms(c2ws, f"{logfolder}/smooth_spline/transforms.json", local_tensorfs)
         render(
             test_dataset,
             c2ws,
@@ -109,7 +136,7 @@ def render_frames(args, poses_mtx, local_tensorfs, logfolder, test_dataset, trai
             args,
             w=int(w / 1.5),
             h=int(h / 1.5),
-            save_path=f"{logfolder}/smooth_spline",
+            save_path=f"{logfolder}/smooth_spline" if writes else None,
             train_dataset=train_dataset,
             img_format="jpg",
             save_frames=True,
@@ -133,7 +160,8 @@ def render_frames(args, poses_mtx, local_tensorfs, logfolder, test_dataset, trai
                 c2w[:3, 3] = raw2ours[:3, :3] @ c2w[:3, 3] + raw2ours[:3, 3]
             c2ws[:, :3, 3] *= train_dataset.pose_scale
         save_path = f"{logfolder}/{os.path.splitext(os.path.basename(args.render_from_file))[0]}"
-        os.makedirs(save_path, exist_ok=True)
+        if writes:
+            os.makedirs(save_path, exist_ok=True)
         render(
             test_dataset,
             c2ws,
@@ -141,7 +169,7 @@ def render_frames(args, poses_mtx, local_tensorfs, logfolder, test_dataset, trai
             args,
             w=w,
             h=h,
-            save_path=save_path,
+            save_path=save_path if writes else None,
             train_dataset=train_dataset,
             img_format="jpg",
             save_frames=True,
@@ -149,6 +177,7 @@ def render_frames(args, poses_mtx, local_tensorfs, logfolder, test_dataset, trai
             add_frame_to_list=False,
             floater_thresh=0.5,
         )
+    _barrier(local_tensorfs.mesh)
 
 
 def _warn_tb_failure(category: str, exc: Exception, warned: set) -> None:
@@ -264,20 +293,42 @@ def _make_model(args, train_dataset) -> LocalTensorfs:
     return LocalTensorfs(cfg, _camera_prior(args, train_dataset), device=args.device)
 
 
-def _data_parallel(args) -> None:
-    """--data_parallel: 0 is every visible card, as in JAX; the port trains
-    on one card, so anything above 1 raises instead of training on one."""
-    dp = args.data_parallel
-    if dp == 0:
-        dp = torch.cuda.device_count() if torch.device(args.device).type == "cuda" else 1
-    if dp > 1:
-        raise NotImplementedError(
-            f"--data_parallel {args.data_parallel} asks for {dp} cards: ray-batch data parallelism"
-            " (parallel/) is not ported yet (ROADMAP queue 1); pass --data_parallel 1")
+def _launch_command(n: int) -> str:
+    return ("python -m torch.distributed.run --nproc_per_node"
+            f" {n} -m localrf_tpu_torch.train {shlex.join(sys.argv[1:])}")
+
+
+def _data_parallel(args):
+    """Ray-batch data parallelism over the ranks of this launch (JAX: over
+    the devices of one process). --data_parallel 0 is the world size
+    (torch.distributed.run's WORLD_SIZE; 1 for a plain launch); any other
+    value must equal it, so a run never trains quietly on fewer cards than
+    asked. Above one rank, initializes the process group (NCCL on
+    cuda:LOCAL_RANK for a cuda --device, which it sets in args; gloo for
+    cpu) and returns the "data" mesh over every rank; else None."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    dp = args.data_parallel or world
+    if dp != world:
+        raise ValueError(
+            f"--data_parallel {args.data_parallel} asks for {dp} ranks and this launch has {world};"
+            f" launch one rank a card: {_launch_command(dp)}")
+    cuda = torch.device(args.device).type == "cuda"
+    visible = torch.cuda.device_count() if cuda else 0
+    if visible > world and int(os.environ.get("RANK", "0")) == 0:
+        print(f"data parallel: {world} of the {visible} visible cards; all of them: {_launch_command(visible)}")
+    if world == 1:
+        return None
+    if cuda:
+        local_rank = int(os.environ["LOCAL_RANK"])
+        torch.cuda.set_device(local_rank)
+        args.device = f"cuda:{local_rank}"
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if cuda else "gloo")
+    return make_mesh(world, "cuda" if cuda else "cpu")
 
 
 def reconstruction(args, train_dataset=None, test_dataset=None):
-    _data_parallel(args)
+    mesh = _data_parallel(args)
     # speedup-factor rescaling (ref: train.py:207-220)
     args.n_iters_per_frame = int(args.n_iters_per_frame / args.refinement_speedup_factor)
     args.n_iters_reg = int(args.n_iters_reg / args.refinement_speedup_factor)
@@ -319,8 +370,10 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
         )
 
     logfolder = args.logdir
-    os.makedirs(logfolder, exist_ok=True)
-    writer = _make_writer(logfolder)
+    rank0 = _rank0(mesh)
+    if rank0:
+        os.makedirs(logfolder, exist_ok=True)
+    writer = _make_writer(logfolder) if rank0 else None
     tb_warned: set = set()
 
     w, h = train_dataset.img_wh
@@ -356,11 +409,16 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
                 break
     if model is None:
         model = _make_model(args, train_dataset)
+    if mesh is not None:
+        model.set_mesh(mesh)
+        if rank0:
+            print(f"ray-batch data parallelism over {mesh.size()} ranks")
 
     if args.pixel_pool and args.scan_chunk > 1:
         capacity = args.n_max_frames + args.n_overlap + 16
         model.attach_pool(DevicePixelPool(train_dataset, capacity, device=args.device))
-        print(f"device pixel pool: {capacity} frame slots")
+        if rank0:
+            print(f"device pixel pool: {capacity} frame slots")
 
     start_time = time.time()
 
@@ -484,7 +542,7 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
                         writer.add_scalar(f"tensorf_bounds/rf{rf_i}_b0", int(active[0]), iteration)
                         writer.add_scalar(f"tensorf_bounds/rf{rf_i}_b1", int(active[-1]), iteration)
 
-        if iteration % args.progress_refresh_rate < (
+        if rank0 and iteration % args.progress_refresh_rate < (
             1 if scan_chunk <= 1 else scan_chunk
         ):
             ips = min(args.progress_refresh_rate, iteration + 1) / (
@@ -532,7 +590,7 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
                 args,
                 w=w // 2,
                 h=h // 2,
-                save_path=logfolder,
+                save_path=logfolder if rank0 else None,
                 save_frames=True,
                 img_format="jpg",
                 test=True,
@@ -548,7 +606,8 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
                 if writer is not None:
                     writer.add_scalar("test/PSNR", psnr, global_step=iteration)
                     writer.add_scalar("test/ssim", float(np.mean(ssims)), iteration)
-                print(f"test PSNR={psnr:.2f} SSIM={np.mean(ssims):.3f}")
+                if rank0:
+                    print(f"test PSNR={psnr:.2f} SSIM={np.mean(ssims):.3f}")
             if writer is not None and not args.skip_TB_images:
                 # test render / gt / error-panel images (ref: train.py:586-631)
                 def _add_images(tag, frames, gray=False):
@@ -568,20 +627,24 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
                     _add_images("test/depth_cmp", depth_cmp_tb, gray=True)
                 except Exception as exc:
                     _warn_tb_failure("test image panels", exc, tb_warned)
-            save_checkpoint(
-                model,
-                f"{logfolder}/checkpoints_tmp.th",
-                extra={
-                    "iteration": iteration,
-                    "n_added_frames": n_added_frames,
-                    "last_add_iter": last_add_iter,
-                    "active_bounds": tuple(train_dataset.active_frames_bounds),
-                },
-            )
+            if rank0:
+                save_checkpoint(
+                    model,
+                    f"{logfolder}/checkpoints_tmp.th",
+                    extra={
+                        "iteration": iteration,
+                        "n_added_frames": n_added_frames,
+                        "last_add_iter": last_add_iter,
+                        "active_bounds": tuple(train_dataset.active_frames_bounds),
+                    },
+                )
+            _barrier(mesh)
 
         iteration += 1
 
-    save_checkpoint(model, f"{logfolder}/checkpoints.th")
+    if rank0:
+        save_checkpoint(model, f"{logfolder}/checkpoints.th")
+    _barrier(mesh)
     poses_mtx = model.get_cam2world()
     render_frames(
         args, poses_mtx, model, logfolder,
@@ -591,8 +654,9 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
 
 
 def render_test(args):
-    """Render-only entry restoring from a checkpoint (ref: train.py:142-203)."""
-    _data_parallel(args)
+    """Render-only entry restoring from a checkpoint (ref: train.py:142-203);
+    every rank loads it, eval frames split over the ranks."""
+    mesh = _data_parallel(args)
     train_dataset = LocalRFDataset(
         args.datadir,
         split="train",
@@ -625,6 +689,8 @@ def render_test(args):
             return
 
     model = load_checkpoint(ckpt_path, camera_prior=_camera_prior(args, train_dataset), device=args.device)
+    if mesh is not None:
+        model.set_mesh(mesh)
     logfolder = os.path.dirname(ckpt_path)
     render_frames(
         args,
@@ -647,12 +713,17 @@ def _make_writer(logfolder):
 
 def main():
     args = config_parser()
-    print(args)
+    if int(os.environ.get("RANK", "0")) == 0:
+        print(args)
     np.random.seed(args.seed)
-    if args.render_only:
-        render_test(args)
-    else:
-        reconstruction(args)
+    try:
+        if args.render_only:
+            render_test(args)
+        else:
+            reconstruction(args)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -143,11 +143,12 @@ def test_make_model_builds_jax_config(case, capsys):
 
 
 def test_data_parallel_trains_on_one_card_or_raises():
-    """--data_parallel 0 resolves to the visible cards (one CPU: a no-op);
-    above 1 it raises instead of training on one card."""
-    ttrain._data_parallel(tconfig.config_parser(["--device", "cpu", "--data_parallel", "0"]))
-    ttrain._data_parallel(tconfig.config_parser(["--device", "cpu", "--data_parallel", "1"]))
-    with pytest.raises(NotImplementedError, match="parallel/"):
+    """--data_parallel 0 resolves to the launch's world size (a plain launch:
+    one rank, no mesh); above it the run raises, naming the
+    torch.distributed.run command, instead of training on fewer ranks."""
+    assert ttrain._data_parallel(tconfig.config_parser(["--device", "cpu", "--data_parallel", "0"])) is None
+    assert ttrain._data_parallel(tconfig.config_parser(["--device", "cpu", "--data_parallel", "1"])) is None
+    with pytest.raises(ValueError, match="torch.distributed.run --nproc_per_node 2"):
         ttrain._data_parallel(tconfig.config_parser(["--device", "cpu", "--data_parallel", "2"]))
 
 

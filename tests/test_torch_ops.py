@@ -693,7 +693,7 @@ def test_port_imports_no_jax():
     """No module of the port, and not chip_smoke.py, imports jax or anything
     of the JAX package (source scan: `localrf_tpu` itself, even its
     numpy-only modules), and importing the port's modules (the checkpoint,
-    config, train and renderer modules, utils/ and preprocess/ included) and chip_smoke
+    config, train and renderer modules, utils/, preprocess/ and parallel/ included) and chip_smoke
     in a fresh interpreter loads neither."""
     files = [*sorted((REPO / "localrf_tpu_torch").rglob("*.py")), REPO / "chip_smoke.py"]
     n_imports = 0
@@ -725,6 +725,8 @@ def test_port_imports_no_jax():
         "import localrf_tpu_torch.preprocess.convert, localrf_tpu_torch.preprocess.run_flow\n"
         "import localrf_tpu_torch.preprocess.dpt, localrf_tpu_torch.preprocess.run_depth\n"
         "import localrf_tpu_torch.checkpoint, localrf_tpu_torch.config, localrf_tpu_torch.renderer\n"
+        "import localrf_tpu_torch.parallel.sharding, localrf_tpu_torch.parallel.sp\n"
+        "import localrf_tpu_torch.utils.profiling\n"
         "import localrf_tpu_torch.train\n"
         "import chip_smoke\n"
         "print(pre, loaded())\n"
