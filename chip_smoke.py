@@ -19,7 +19,9 @@
    indices and on the line indices of a real 640^3 segsum step, bit for
    bit against its ordered plain version and against a second launch), K4
    (fused march core, forward and backward; K4-bwd also by its kernels' device
-   us from one profiled call), and K5 (the plane segment sum in a fixed
+   us from one profiled call, and its line gradient bit for bit against a
+   second launch and against the ordered sum of its own per-point
+   cotangents, which match their plain version), and K5 (the plane segment sum in a fixed
    order; on K2's uniform and real-step inputs, indices out of range and
    P = 0: bit for bit against its ordered plain version and a second
    launch, its two sort levels against merged_bins_plain; timed beside K2,
@@ -40,14 +42,13 @@
    chunks of 16 steps, every step a replay of a captured CUDA graph: at
    64^3 (ending in an alpha refresh, which drops the graphs, and one chunk
    captured again after it), and at 640^3 on the default, the fused march
-   and the segsum-lines paths. The 64^3, 640^3 default and segsum phases
-   first train a chunk with every sum in a fixed order (torch's
-   deterministic algorithms, the plane VJP through K5, captured in the
-   chunk's graphs; K3 sums in a fixed order of its own) and hold it bit for
-   bit against the same 16 steps taken eagerly by a twin model from the
-   same state (not the fused march, whose K4-bwd adds the line gradient
-   atomically); K5's launch count comes from these chunks, reset just
-   before each and read after it. Then, on the path as it runs: the first chunk
+   and the segsum-lines paths. Every chunk phase first trains a chunk with
+   every sum in a fixed order (torch's deterministic algorithms, the plane
+   VJP through K5, captured in the chunk's graphs; K3 sums in a fixed order
+   of its own, also as K4-bwd's line gradient on the fused march) and holds
+   it bit for bit against the same 16 steps taken eagerly by a twin model
+   from the same state; K5's launch count comes from these chunks, reset
+   just before each and read after it. Then, on the path as it runs: the first chunk
    against a twin's eager steps (tolerances at CHUNK_TOL; the chunk's launch
    counts are read before the twin runs), 3 chunks timed, one traced with
    torch.profiler, which must show one graph launch per step whose replays
@@ -126,6 +127,19 @@
    640^3 field with the ball alpha volume, against render_rays in eval; (d)
    NCCL across two cards where there are two (else a line saying why not).
 
+11. Shading heads: TensoRF's published head (MLP_Fea, fea_pe 2, view_pe
+   2) on the 640^3 default chunk path at full width (the phase 5 chunk
+   checks: bit for bit under fixed-order sums, the first chunk against a
+   twin's eager steps, 3 timed, one profiled; K1 and K2 launch); then 3
+   eager steps at 64^3 (f32, 1024 rays) card vs CPU for each of
+   MLP_Fea_woView (fea_pe 2), MLP_PE (pos_pe 2, view_pe 2), MLP (view_pe
+   2) and RGB (app_dim 3, no MLP), losses to HEAD_TOL.
+12. The grid-sample route (fast_gather=False, the JAX package's oracle
+   path): 4096 rays through the 640^3 ball field against the quad route
+   (f32 on both: the same math, GRID_TOL); with app_top_k 128 (of 332
+   samples a ray) timed and on 512 rays against the CPU; one eager step on
+   the route (K1 launches, K2 does not: no quad gathers).
+
 Prints a {"kernels": [...]} line, then the last line
 {"ok": true, "device": {...}}. Any failure raises before that line.
 """
@@ -159,7 +173,7 @@ K2_TOL_F32 = (1e-4, 1e-4)
 # partial sums)
 K3_TOL = (1e-4, 1e-5)
 # K4 against march_core_plain, bf16 tables and MLP: an f32 sum taken in
-# another order (atomics, the MLP dots) can flip a bf16 rounding, which
+# another order (K3's line sums, the MLP dots) can flip a bf16 rounding, which
 # moves a hidden activation by one bf16 ulp: out to atol 1e-2, gradients to
 # 2e-2 of their largest entry (a kernel fault is off by O(1))
 K4_TOL = {"out": 1e-2, "grad": 2e-2}
@@ -715,6 +729,35 @@ def check_k3(dev, gen, real: tuple) -> list[dict]:
     return rows
 
 
+def _check_k4_lines(k4, plain: list, gout, g_rows: int) -> float:
+    """K4-bwd's line gradient in a fixed order: dlines of two launches equal
+    bit for bit; stage 2 (K3 over the factor kernel's per-point cotangents)
+    equal to march_dlines_ordered of the kernel's own stage 1 (on CPU
+    copies) bit for bit, and dlines that sum cast to the table dtype; stage
+    1 against its plain version (march_line_cotangents_plain) within
+    K4_TOL's gradient tolerance (the kernel's d_feat comes from MMA sums, so
+    a cotangent can differ in its last bit). Returns stage 1's max abs
+    error."""
+    import torch
+
+    dlines = k4._launch_bwd(plain, gout, "bfloat16")[5]
+    if not torch.equal(dlines, k4._launch_bwd(plain, gout, "bfloat16")[5]):
+        raise AssertionError(f"march_bwd G {g_rows}: dlines of two launches differ")
+    _, d_lr = k4._launch_bwd_stage1(plain, gout, "bfloat16")
+    x0 = plain[5]
+    stage2 = k4.march_dlines(x0, d_lr, g_rows)
+    if not torch.equal(stage2.cpu(), k4.march_dlines_ordered(x0.cpu(), d_lr.cpu(), g_rows)):
+        raise AssertionError(f"march_bwd G {g_rows}: stage 2 differs from march_dlines_ordered of stage 1")
+    if not torch.equal(stage2.to(dlines.dtype), dlines):
+        raise AssertionError(f"march_bwd G {g_rows}: dlines is not stage 2 cast to the table dtype")
+    want = k4.march_line_cotangents_plain(*plain, gout, "bfloat16")
+    err = _close(d_lr, want, 0.0, K4_TOL["grad"] * float(want.abs().max()))
+    print(f"kernel march_bwd G {g_rows}, P {x0.shape[0]}: dlines bit for bit = 2nd launch = ordered plain"
+          f" of stage 1 ({d_lr.shape[0]} x {d_lr.shape[1]} x {d_lr.shape[2]} {d_lr.dtype}); stage 1 vs"
+          f" plain max abs err {err:.3e}")
+    return err
+
+
 def check_k4(dev, gen) -> list[dict]:
     """K4 against its plain version at the main path's shapes."""
     import torch
@@ -739,6 +782,7 @@ def check_k4(dev, gen) -> list[dict]:
             err_b = max(err_b, _close(gk, gp, 0.0, K4_TOL["grad"] * float(gp.abs().max())))
         plain = [a.detach() for a in args]
         shape = f"G {g_rows}, P {p}, bf16"
+        lines_err = _check_k4_lines(k4, plain, gout, g_rows)
         rows.append(dict(
             name="march_fwd", shape=shape, main=g_rows == 640, max_abs_err=err_f,
             ms=_time_ms(lambda: k4._launch_fwd(plain, "bfloat16"), reps=10),
@@ -750,8 +794,10 @@ def check_k4(dev, gen) -> list[dict]:
             ms=_time_ms(lambda: k4._launch_bwd(plain, gout, "bfloat16"), reps=10),
             plain_ms=_time_ms(lambda: k4.march_bwd_plain(*plain, gout, "bfloat16"), reps=5),
             library_ms=None, **_bound(_nbytes(*plain, gout, *grads_k), K4_BWD_FLOP * p),
-            # its MLP, factor and reduce kernels (and the wrapper's zero fills and cast)
+            # its MLP, factor and reduce kernels, K3's three line sums (and the
+            # wrapper's zero fills, index copy and cast)
             kernel_us=kernel_us(lambda: k4._launch_bwd(plain, gout, "bfloat16")),
+            stage1_err=lines_err,
         ))
         del args, grads_k, grads_p, plain
     return rows
@@ -788,13 +834,18 @@ SYMBOLS = {
 # the kernels each training path launches (and no other)
 PATH_KERNELS = {
     "default": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum"},
-    "fused_march": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "march_fwd", "march_bwd"},
+    # K4-bwd sums its line gradient with K3
+    "fused_march": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "march_fwd", "march_bwd",
+                    "segment_sum_small"},
     "segsum": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "segment_sum_small"},
+    # the grid-sample route gathers with plain indexing: no K2
+    "grid": {"fused_weights_fwd", "fused_weights_bwd"},
 }
-PATH_TF = {"default": {}, "fused_march": {"fused_march": True}, "segsum": {"line_bwd": "segsum"}}
-# paths with a sum that deterministic_sums leaves in no fixed order: no
-# bit-for-bit chunk check there
-UNORDERED_SUMS = {"fused_march": "K4-bwd adds the line-table gradient atomically"}
+# the grid-sample route's top-K shading: bench.py's app_top_k, K of the 332
+# samples a ray keeps at 640^3
+GRID_TOP_K = 128
+PATH_TF = {"default": {}, "fused_march": {"fused_march": True}, "segsum": {"line_bwd": "segsum"},
+           "grid": {"fast_gather": False, "app_top_k": GRID_TOP_K}}
 
 
 def _counters() -> list[dict]:
@@ -829,16 +880,17 @@ def make_dataset(w: int, h: int, n_frames: int, seed: int = 0, n_init: int | Non
     )
 
 
-def full_width_config(grid: int, path: str = "default", **local_kw):
+def full_width_config(grid: int, path: str = "default", tf_kw: dict | None = None, **local_kw):
     """The default TensoRF-VM model at full width (train.py's defaults: the
     compositing kernel on, bf16 gather tables and MLP, f32 Adam moments),
-    with the TensorfConfig flags of `path` (PATH_TF)."""
+    with the TensorfConfig flags of `path` (PATH_TF) and `tf_kw` (another
+    shading head)."""
     from localrf_tpu_torch.models.local import LocalConfig
     from localrf_tpu_torch.models.tensorf import TensorfConfig
 
     tf = TensorfConfig(
         grid_size=(grid, grid, grid), pallas_composite=True,
-        gather_dtype="bfloat16", mlp_dtype="bfloat16", **PATH_TF[path],
+        gather_dtype="bfloat16", mlp_dtype="bfloat16", **PATH_TF[path], **(tf_kw or {}),
     )
     kw = dict(WH=(W, H), n_init_frames=N_FRAMES, n_views=N_VIEWS, batch_size=BATCH)
     return LocalConfig(tensorf=tf, **{**kw, **local_kw})
@@ -992,13 +1044,13 @@ def _with_ball(model, dev) -> None:
         raise AssertionError(f"640^3 field: occ_m {f['cfg'].occ_m}, expected 332")
 
 
-def model_640(dev, path: str, **local_kw):
+def model_640(dev, path: str, tf_kw: dict | None = None, **local_kw):
     """The full-width model at 640^3 with a ~8% ball alpha volume at 320^3
     (coarse probe + compaction to 332 samples per ray), the flags of
-    `path`, past the schedule's rescale (rf_iter 10)."""
+    `path` (and `tf_kw`), past the schedule's rescale (rf_iter 10)."""
     from localrf_tpu_torch.models.local import LocalTensorfs
 
-    model = LocalTensorfs(full_width_config(640, path, **local_kw), device=dev)
+    model = LocalTensorfs(full_width_config(640, path, tf_kw, **local_kw), device=dev)
     _with_ball(model, dev)
     return model
 
@@ -1254,7 +1306,7 @@ def check_replay_trace(label: str, trace: dict, path: str, n_steps: int) -> dict
 def run_chunks(label: str, make, ds, path: str, model=None) -> tuple[dict, object]:
     """The chunk path on `path`, models from make(with_pool): a chunk held
     bit for bit against eager steps under fixed-order sums
-    (chunk_bit_exact; not on UNORDERED_SUMS paths); then, on the path as it
+    (chunk_bit_exact); then, on the path as it
     runs, a pooled model's (`model`, by default make(True)) first
     chunk (captures) against a twin's eager steps (chunk_against_eager),
     N_TIMED timed chunks and one chunk under the profiler. Checks losses,
@@ -1263,7 +1315,7 @@ def run_chunks(label: str, make, ds, path: str, model=None) -> tuple[dict, objec
     Returns (results, the pooled model)."""
     import torch
 
-    n_exact, exact_launches = (0, {}) if path in UNORDERED_SUMS else chunk_bit_exact(label, make, ds, path)
+    n_exact, exact_launches = chunk_bit_exact(label, make, ds, path)
     model = make(True) if model is None else model
     graphs = model._graphs
     before = _snapshot(model)
@@ -1297,9 +1349,8 @@ def run_chunks(label: str, make, ds, path: str, model=None) -> tuple[dict, objec
              if _kernels_in(trace["per_step"][0], k)}
     n_kernels = [sum(c.values()) for c in trace["per_step"]]
     f = model.fields[-1]
-    print(f"chunk {label}: not compared bit for bit ({UNORDERED_SUMS[path]})" if path in UNORDERED_SUMS
-          else f"chunk {label}: with fixed-order sums, graph and eager equal bit for bit over"
-               f" {CHUNK} steps (every loss, {n_exact} state tensors; launches {exact_launches})")
+    print(f"chunk {label}: with fixed-order sums, graph and eager equal bit for bit over"
+          f" {CHUNK} steps (every loss, {n_exact} state tensors; launches {exact_launches})")
     print(f"chunk {label}: grid {f['cfg'].grid_size} occ_m {f['cfg'].occ_m}, {n_graphs} graph(s)"
           f" captured in the first chunk ({first['capture_ms']:.1f} ms for {CHUNK} steps, warm-up and"
           f" capture included; launches {launches}); graph vs eager: worst relative rgb_loss"
@@ -1358,18 +1409,150 @@ def chunk_64(ds, dev, pool) -> dict:
     return out
 
 
-def chunk_640(ds, dev, pool, path: str) -> dict:
-    """The chunk path at 640^3 (model_640) on `path`."""
+def chunk_640(ds, dev, pool, path: str, tf_kw: dict | None = None, label: str | None = None) -> dict:
+    """The chunk path at 640^3 (model_640) on `path`, with `tf_kw` (another
+    shading head) under `label`."""
 
     def make(with_pool: bool):
-        m = model_640(dev, path)
+        m = model_640(dev, path, tf_kw)
         if with_pool:
             m.attach_pool(pool)
         return m
 
-    out, model = run_chunks(f"640^3 {path}", make, ds, path)
+    out, model = run_chunks(label or f"640^3 {path}", make, ds, path)
     del model
     return out
+
+
+# the shading phase: TensoRF's published head (configs/lego.txt: MLP_Fea
+# with a feature and a view PE of 2) on the 640^3 default chunk path at
+# full width, then 3 eager steps at 64^3 card vs CPU for each other head
+MLP_FEA = dict(shading_mode="MLP_Fea", fea_pe=2, view_pe=2)
+HEAD_STEPS = {
+    "MLP_Fea_woView": dict(fea_pe=2), "MLP_PE": dict(pos_pe=2, view_pe=2), "MLP": dict(view_pe=2),
+    "RGB": dict(app_dim=3),
+}
+# card vs CPU over 3 steps from the same weights, batches and noise (f32
+# tables and MLP): every loss to rtol 1e-4 on the first step (sums in
+# another order); after Adam's first steps (~lr * sign(g), so a near-zero
+# gradient whose sign the order flips moves a grid value by 2 lr) rgb_loss
+# to 1e-3 and the others to CHUNK_TOL's 5e-2
+HEAD_TOL = {"first": 1e-4, "rgb": 1e-3, "other": CHUNK_TOL["other"]}
+
+
+def heads_card_vs_cpu(dev) -> dict:
+    """For each head of HEAD_STEPS: a 64^3 model (f32, 1024 rays in 4
+    views of 96x64, the compositing kernel on) on the card and its copy on
+    the CPU take 3 optimizer_steps on the same batches and noise; losses to
+    HEAD_TOL; on the card K1 and K2 launch. Returns {head: (card losses,
+    cpu losses) of the last step}."""
+    import torch
+
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import TensorfConfig, TensorfField
+    from localrf_tpu_torch.optim import pytree_adam_init
+
+    w, h, batch_size = 96, 64, 1024
+    ds = make_dataset(w, h, 4, seed=2)
+    out = {}
+    for mode, kw in HEAD_STEPS.items():
+        tf = TensorfConfig(grid_size=(64, 64, 64), pallas_composite=True, shading_mode=mode, **kw)
+        cfg = LocalConfig(WH=(w, h), n_init_frames=4, n_views=4, batch_size=batch_size, tensorf=tf)
+        _reset_launch_counts()
+        gpu, cpu = LocalTensorfs(cfg, device=dev), LocalTensorfs(cfg, device="cpu")
+        field = TensorfField({k: p.detach().to("cpu", copy=True)
+                             for k, p in gpu.fields[-1]["params"].named_parameters()})
+        cpu.fields[-1]["params"], cpu.fields[-1]["opt"] = field, pytree_adam_init(field)
+        for m in (gpu, cpu):
+            m.is_refining = True
+            m.rf_iter[-1] = 2
+        for i in range(3):
+            batch = ds.sample(batch_size, True, True, n_views=4)
+            noise = LocalTensorfs._next_noise(gpu, tf)
+            for m in (gpu, cpu):
+                m._next_noise = lambda _cfg, m=m: {k: v.to(m.device) for k, v in noise.items()}
+                m.optimizer_step(batch, optimize_poses=True)
+            got, want = gpu.last_metrics, cpu.last_metrics
+            for k, v in want.items():
+                tol = HEAD_TOL["first" if i == 0 else "rgb" if k == "rgb_loss" else "other"]
+                if not (np.isfinite(got[k]) and abs(got[k] - v) <= tol * abs(v) + 1e-7):
+                    raise AssertionError(f"head {mode}: step {i} {k}: card {got[k]} vs cpu {v}")
+        launches = _launch_counts()
+        missing = [k for k in ("fused_weights_fwd", "fused_weights_bwd", "segment_sum") if launches[k] <= 0]
+        if missing:
+            raise AssertionError(f"head {mode}: {missing} did not launch on the card")
+        if mode == "RGB" and list(gpu.fields[-1]["params"].mlp.parameters()):
+            raise AssertionError("the RGB head has MLP parameters")
+        print(f"head {mode} ({kw}): 3 steps at 64^3 card vs cpu within {HEAD_TOL}; last total_loss"
+              f" {got['total_loss']:.6f} vs {want['total_loss']:.6f}; launches {launches}")
+        out[mode] = (dict(got), dict(want))
+        del gpu, cpu
+    return out
+
+
+# the grid-sample route (fast_gather=False): 4096 rays (as render_rays_sp's)
+# through the 640^3 ball field against the quad route on the same f32 math
+# (f32 tables and MLP on both: bilinear lookups in the f32 grids against
+# the f32 quad tables): K1's eval tolerance (GRID_TOL: rgb rtol 1e-4 / atol
+# 1e-4, depth to 1e-4 of its largest value); the top-K route (K = 128 of
+# 332) on GRID_CPU_RAYS of them against the CPU to the same tolerance
+GRID_TOL = (K1_TOL["fwd"][0], 1e-4)  # EVAL_TOL's
+GRID_CPU_RAYS = 512
+
+
+def grid_phase(dev, ds) -> dict:
+    """The grid-sample route at 640^3: render_rays (eval) of 4096 rays with
+    app_top_k 0 against the quad route; with app_top_k 128, timed, and on
+    GRID_CPU_RAYS rays against the CPU; then one eager optimizer_step on the
+    route (K1 and no other kernel: no quad gathers, no K2). Returns the
+    times and errors, and the step's slice result."""
+    import torch
+
+    from localrf_tpu_torch.models.render import render_rays
+
+    t_start = time.perf_counter()
+    model = model_640(dev, "default")
+    f = model.fields[-1]
+    params, alpha = f["params"], f["alpha_volume"]
+    f32 = dataclasses.replace(f["cfg"], gather_dtype="float32", mlp_dtype="float32")
+    cfgs = {"quad": f32, "grid": dataclasses.replace(f32, fast_gather=False, app_top_k=0),
+            f"grid top-{GRID_TOP_K}": dataclasses.replace(f32, fast_gather=False, app_top_k=GRID_TOP_K)}
+    if not 0 < GRID_TOP_K < f32.occ_m:
+        raise AssertionError(f"top-{GRID_TOP_K} does not cut the {f32.occ_m} compacted samples")
+    rays_o, rays_d = _sp_rays(dev)
+    out, ms = {}, {}
+    for name, cfg in cfgs.items():
+        def run(cfg=cfg):
+            with torch.no_grad():
+                return render_rays(params, cfg, rays_o, rays_d, is_train=False, white_bg=True, alpha_volume=alpha)
+
+        _reset_launch_counts()
+        out[name] = run()
+        if _launch_counts()["fused_weights_fwd"] != 1 or _launch_counts()["segment_sum"]:
+            raise AssertionError(f"grid phase {name}: launches {_launch_counts()}")
+        ms[name] = _time_ms(run, reps=3, eager=True)
+    (rgb_q, depth_q), (rgb_g, depth_g) = out["quad"], out["grid"]
+    err_rgb = _close(rgb_g, rgb_q, GRID_TOL[0], GRID_TOL[1])
+    err_depth = _close(depth_g, depth_q, GRID_TOL[0], GRID_TOL[1] * float(depth_q.abs().max()))
+    top = f"grid top-{GRID_TOP_K}"
+    n = GRID_CPU_RAYS
+    cpu_params = {k: v.detach().cpu() for k, v in params.named_parameters()}
+    cpu_params["mlp"] = {k[4:]: v for k, v in cpu_params.items() if k.startswith("mlp.")}
+    with torch.no_grad():
+        rgb_c, depth_c = render_rays(cpu_params, cfgs[top], rays_o[:n].cpu(), rays_d[:n].cpu(), is_train=False,
+                                     white_bg=True, alpha_volume=alpha.cpu())
+    err_top = max(_close(out[top][0][:n].cpu(), rgb_c, GRID_TOL[0], GRID_TOL[1]),
+                  _close(out[top][1][:n].cpu(), depth_c, GRID_TOL[0], GRID_TOL[1] * float(depth_c.abs().max())))
+    dense_gap = float((out[top][0] - rgb_g).abs().max())
+    del model, out, cpu_params
+    torch.cuda.empty_cache()
+    step = run_slice("640^3 grid", model_640(dev, "grid"), ds, 1, "grid")
+    result = {"ms": ms, "rgb_err": err_rgb, "depth_err": err_depth, "top_k_cpu_err": err_top,
+              "top_k_vs_dense_rgb": dense_gap, "step_ms": step["ms"], "seconds": time.perf_counter() - t_start}
+    print(f"grid route: {SP_RAYS} rays at 640^3 (occ_m {f32.occ_m}), f32: grid vs quad rgb {err_rgb:.3e}, depth"
+          f" {err_depth:.3e}; top-{GRID_TOP_K} card vs cpu ({n} rays) {err_top:.3e}, vs dense rgb"
+          f" {dense_gap:.3e}; ms {ms}; one eager step {step['ms']:.3f} ms")
+    return result, step
 
 
 # the spawn and eval phase: SPAWN_FRAMES frames, the first SPAWN_INIT
@@ -2678,7 +2861,18 @@ def main() -> None:
     for path in ("default", "fused_march", "segsum"):
         torch.cuda.empty_cache()
         chunks[f"640^3 {path}"] = chunk_640(ds, dev, pool, path)
+    # phase 11 (shading heads), its chunk: TensoRF's published head
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    chunks["640^3 MLP_Fea"] = chunk_640(ds, dev, pool, "default", MLP_FEA, "640^3 MLP_Fea")
     del pool
+    torch.cuda.empty_cache()
+    # phase 11: the other heads, eager steps card vs CPU
+    heads = heads_card_vs_cpu(dev)
+    shading_s = time.perf_counter() - t0
+    # phase 12: the grid-sample route with app_top_k
+    torch.cuda.empty_cache()
+    grid, phases["640^3 grid"] = grid_phase(dev, ds)
     torch.cuda.empty_cache()
 
     # phase 7: spawn and eval
@@ -2746,6 +2940,8 @@ def main() -> None:
     print(json.dumps({"spawn": {"memory": spawn["memory"], "eval": spawn["eval"]}, "eval_launches": evals}))
     print(json.dumps({"cli": cli, "cli_launches": cli_launches}))
     print(json.dumps({"preprocess": pre}))
+    print(json.dumps({"shading": {"seconds": shading_s, "mlp_fea_chunk_ms": chunks["640^3 MLP_Fea"]["ms"],
+                                  "heads_last_losses": heads}, "grid": grid}))
     print(json.dumps({"parallel": {
         "nccl": {k: v for k, v in par["nccl"].items() if k not in ("launches", "exact_launches", "replayed")},
         "gloo": par["gloo"], "cards": par["cards"], "seconds": par["seconds"]}}))

@@ -41,9 +41,9 @@ FORMAT_VERSION = 1
 
 # TensorfConfig options of the JAX package that only steer how XLA gathers
 # on a TPU (ROADMAP, North star): the math is the same, so a checkpoint
-# that set them loads with the port's value
+# that set them loads with the port's value (fast_gather=False is another
+# route, the grid-sample one, and loads as it is)
 XLA_ONLY_FLAGS = {
-    "fast_gather": True,
     "fused_plane_gather": False,
     "fused_fwd_gather": 0,
     "fused_line_gather": False,
@@ -74,9 +74,16 @@ def _nested(named: dict[str, torch.Tensor]) -> dict:
     return out
 
 
-def _adam_dict(opt: PyTreeAdamState) -> dict:
-    return {"m": _nested(opt.m), "v": _nested(opt.v), "step": _host(opt.step),
-            "lr_scale": _host(opt.lr_scale)}
+def _field_tree(named: dict[str, torch.Tensor]) -> dict:
+    """A field's params (or moments) nested as JAX nests them: `mlp` is there
+    even when empty (the RGB head has no MLP; JAX keeps `{"mlp": {}}`)."""
+    tree = _nested(named)
+    tree.setdefault("mlp", {})
+    return tree
+
+
+def _adam_dict(opt: PyTreeAdamState, tree=_nested) -> dict:
+    return {"m": tree(opt.m), "v": tree(opt.v), "step": _host(opt.step), "lr_scale": _host(opt.lr_scale)}
 
 
 def save_checkpoint(model: LocalTensorfs, path: str, extra: dict | None = None) -> None:
@@ -88,11 +95,11 @@ def save_checkpoint(model: LocalTensorfs, path: str, extra: dict | None = None) 
     for f in model.fields:
         alpha = f["alpha_volume"]
         entry = {
-            "params": _nested(dict(f["params"].named_parameters())),
+            "params": _field_tree(dict(f["params"].named_parameters())),
             "grid_size": tuple(f["cfg"].grid_size),
             "alpha_shape": None,
             "alpha_bits": None,
-            "opt": _adam_dict(f["opt"]) if f["opt"] is not None else None,
+            "opt": _adam_dict(f["opt"], _field_tree) if f["opt"] is not None else None,
         }
         if alpha is not None:
             a = alpha.detach().cpu().numpy().astype(bool)

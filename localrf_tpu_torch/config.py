@@ -62,9 +62,10 @@ INERT_FLAGS: dict[str, str] = {
     "fused_line_gather": _XLA_GATHER,
     "fused_fwd_gather": _XLA_GATHER,
     "app_top_k": (
-        "stored in TensorfConfig.app_top_k as the JAX package stores it; only"
-        " JAX's grid-sample path (fast_gather=False) shades the top-K samples,"
-        " and the port has only the quad-gather path, which shades densely"
+        "stored in TensorfConfig.app_top_k as the JAX package stores it; it"
+        " steers the grid-sample route (TensorfConfig.fast_gather=False),"
+        " which shades the top-K samples of each ray, and the CLI always"
+        " takes the quad-gather route (fast_gather=True), which shades densely"
     ),
 }
 
@@ -213,8 +214,9 @@ def config_parser(cmd: str | list[str] | None = None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--data_parallel", type=int, default=0,
-        help="cards to shard the ray batch over (0 = all visible cards); the"
-        " port trains on one card and raises above 1 with more than one card",
+        help="ranks to shard the ray batch over, one a card (0 = the launch's"
+        " WORLD_SIZE); more than 1 needs that many ranks from"
+        " python -m torch.distributed.run --nproc_per_node N, else it raises",
     )
     parser.add_argument(
         "--resume", type=int, default=0,
@@ -223,7 +225,8 @@ def config_parser(cmd: str | list[str] | None = None) -> argparse.Namespace:
     )
     parser.add_argument(
         "--app_top_k", type=int, default=128,
-        help="inert in the port (config.INERT_FLAGS)",
+        help="top-K appearance shading of the grid-sample route; inert from"
+        " the CLI, which takes the quad-gather route (config.INERT_FLAGS)",
     )
     parser.add_argument(
         "--gather_dtype", type=str, default="bfloat16",

@@ -12,7 +12,8 @@
 //   rgb   = sigmoid(MLP(app, viewdir))              (27 -> 128 -> 128, +3 -> 3)
 //
 // and the backward: d_rows (fed to K2), d(wx, wy, w1) (the pose gradient),
-// dlines (f32, cast by the caller), dbasis and the MLP gradients (f32).
+// each point's quad-line cotangent d_lr (summed into dlines by K3 in the
+// caller), dbasis and the MLP gradients (f32).
 //
 // Rounding follows the Pallas kernel and `march_core_plain` op by op: the
 // lerp weights, lerps and products in the table dtype T; sigma and app as
@@ -65,11 +66,12 @@
 // output blocks over the sequential grid).
 // Backward, factor kernel (both dtypes): a half warp per run of 16
 // consecutive points, a lane per pair of channels, recomputes the lerps
-// and produces d_rows, d(wx, wy, w1) and dlines from d_feat. dlines takes
-// f32 global atomics (float2, Hopper's vector atomic add); consecutive
-// samples of a ray often share a line row, so each half warp sums a run of
-// equal rows in registers and adds once per run (about 2,100 samples land
-// on each of the 640 rows at 640^3).
+// and produces d_rows, d(wx, wy, w1) and each point's quad-line cotangent
+// d_lr [3, P, 64] in the table dtype from d_feat: the values the TPU kernel
+// feeds its one-hot product (`d_lr.astype(tdt)`). It sums no line row: the
+// caller sums each orientation's d_lr by x0 with K3 (csrc/segsum_small.cu),
+// in an order the shapes alone fix, so dlines is the same bits at every
+// launch (about 2,100 samples land on each of the 640 rows at 640^3).
 // x0 is never range-checked here: the texel clamp in the caller keeps
 // x0 <= G - 1, and the quad line's last row duplicates the border.
 
@@ -474,15 +476,14 @@ __device__ __forceinline__ float half_sum(float v) {
 
 // Backward kernel 2: per point and orientation, the factor backward. A half
 // warp walks a run of kPtsPerHalf consecutive points, a lane per pair of
-// channels (4-byte loads and stores of bf16 rows; the line gradient's run
-// sums added as float2, Hopper's vector atomic).
+// channels (4-byte loads and stores of bf16 rows and of d_lr).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     march_bwd_factor_kernel(Inputs<T> in, const float* __restrict__ gout,
                             const T* __restrict__ d_feat, T* __restrict__ drows0,
                             T* __restrict__ drows1, T* __restrict__ drows2,
                             float* __restrict__ d_wxy, float* __restrict__ d_w1l,
-                            float* __restrict__ dlines) {
+                            T* __restrict__ d_lr) {
   using P2 = Pair<T>;
   using V = typename P2::V;
   constexpr bool TB = std::is_same<T, __nv_bfloat16>::value;
@@ -492,16 +493,6 @@ __global__ void __launch_bounds__(kThreads)
       ((static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 4) * kPtsPerHalf;
   auto ld2 = [](const T* q) { return *reinterpret_cast<const V*>(q); };
   auto st2v = [](T* q, V v) { *reinterpret_cast<V*>(q) = v; };
-  // a run of equal line rows per orientation, summed in registers
-  int run_x[3] = {-1, -1, -1};
-  float2 run0[3], run1[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) run0[i] = run1[i] = make_float2(0.0f, 0.0f);
-  auto flush = [&](int i) {
-    float* dst = dlines + (static_cast<int64_t>(i) * in.g + run_x[i]) * (2 * C) + 2 * cp;
-    atomicAdd(reinterpret_cast<float2*>(dst), run0[i]);
-    atomicAdd(reinterpret_cast<float2*>(dst + C), run1[i]);
-  };
   const V one = P2::splat(1.0f);
   // a fixed trip count, so both halves of a warp reach every shuffle
   for (int k = 0; k < kPtsPerHalf; ++k) {
@@ -529,18 +520,11 @@ __global__ void __launch_bounds__(kThreads)
       const V dprod = cp < CD / 2 ? gs : ld2(d_feat + pc * NB + i * CA + 2 * cp - CD);
       const V d_f = P2::mul(dprod, l), d_l = P2::mul(dprod, f);
 
-      // line lerp backward
-      const float2 dlr0 = P2::f32(P2::mul(d_l, omwl)), dlr1 = P2::f32(P2::mul(d_l, wl));
+      // line lerp backward: this point's quad-line cotangent, summed by K3
       if (valid) {
-        if (xi != run_x[i]) {
-          if (run_x[i] >= 0) flush(i);
-          run_x[i] = xi;
-          run0[i] = run1[i] = make_float2(0.0f, 0.0f);
-        }
-        run0[i].x += dlr0.x;
-        run0[i].y += dlr0.y;
-        run1[i].x += dlr1.x;
-        run1[i].y += dlr1.y;
+        T* dl = d_lr + (static_cast<int64_t>(i) * in.p_total + p) * (2 * C) + 2 * cp;
+        st2v(dl, P2::mul(d_l, omwl));
+        st2v(dl + C, P2::mul(d_l, wl));
       }
       const float2 t1 = P2::f32(P2::mul(d_l, P2::sub(lr1, lr0)));
       const float dw1l = half_sum(t1.x + t1.y);
@@ -564,10 +548,6 @@ __global__ void __launch_bounds__(kThreads)
         d_w1l[p * 3 + i] = rnd<TB>(dw1l);
       }
     }
-  }
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    if (run_x[i] >= 0) flush(i);
   }
 }
 
@@ -1229,7 +1209,7 @@ cudaError_t fwd(const Inputs<T>& in, float* out, int n_sms, cudaStream_t s) {
 
 template <typename T, bool MB>
 cudaError_t bwd(const Inputs<T>& in, const float* gout, void* drows0, void* drows1,
-                void* drows2, float* d_wxy, float* d_w1l, float* dlines, T* d_feat,
+                void* drows2, float* d_wxy, float* d_w1l, T* d_lr, T* d_feat,
                 float* partials, float* dparams, int n_blocks, cudaStream_t s) {
   cudaError_t err;
   int grid;
@@ -1253,7 +1233,7 @@ cudaError_t bwd(const Inputs<T>& in, const float* gout, void* drows0, void* drow
   const unsigned fblocks = static_cast<unsigned>((in.p_total + pts_per_block - 1) / pts_per_block);
   march_bwd_factor_kernel<T><<<fblocks, kThreads, 0, s>>>(
       in, gout, d_feat, static_cast<T*>(drows0), static_cast<T*>(drows1),
-      static_cast<T*>(drows2), d_wxy, d_w1l, dlines);
+      static_cast<T*>(drows2), d_wxy, d_w1l, d_lr);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   march_reduce_kernel<<<(N_ACC + 255) / 256, 256, 0, s>>>(partials, grid, dparams);
@@ -1302,19 +1282,19 @@ extern "C" int lrf_march_bwd(const void* rows0, const void* rows1, const void* r
                              const void* lines, const void* basis, const void* w1,
                              const void* b1, const void* w2, const void* b2, const void* w3,
                              const void* b3, const void* gout, void* drows0, void* drows1,
-                             void* drows2, void* d_wxy, void* d_w1l, void* dlines, void* d_feat,
+                             void* drows2, void* d_wxy, void* d_w1l, void* d_lr, void* d_feat,
                              void* partials, void* dparams, int64_t p, int g, int t_bf16,
                              int m_bf16, int n_blocks, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const auto* go = static_cast<const float*>(gout);
   auto* dwxy = static_cast<float*>(d_wxy);
   auto* dw1l = static_cast<float*>(d_w1l);
-  auto* dl = static_cast<float*>(dlines);
   auto* pa = static_cast<float*>(partials);
   auto* dp = static_cast<float*>(dparams);
   cudaError_t err;
   if (t_bf16) {
     auto* da = static_cast<__nv_bfloat16*>(d_feat);
+    auto* dl = static_cast<__nv_bfloat16*>(d_lr);
     const auto in = make_inputs<__nv_bfloat16>(rows0, rows1, rows2, wxy, w1l, x0, vd, lines,
                                                basis, w1, b1, w2, b2, w3, b3, p, g);
     err = m_bf16 ? bwd<__nv_bfloat16, true>(in, go, drows0, drows1, drows2, dwxy, dw1l, dl, da,
@@ -1323,6 +1303,7 @@ extern "C" int lrf_march_bwd(const void* rows0, const void* rows1, const void* r
                                              da, pa, dp, n_blocks, s);
   } else {
     auto* da = static_cast<float*>(d_feat);
+    auto* dl = static_cast<float*>(d_lr);
     const auto in = make_inputs<float>(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1,
                                        b1, w2, b2, w3, b3, p, g);
     err = m_bf16 ? bwd<float, true>(in, go, drows0, drows1, drows2, dwxy, dw1l, dl, da, pa, dp,

@@ -847,8 +847,8 @@ class LocalTensorfs:
             for rf_id in active_rf_ids:
                 f = self.fields[rf_id]
                 params = self._eval_params(f)
-                fields.append((rf_id, f, params, build_combined_quad_views(params, f["cfg"]),
-                               cam2rf(c2w_exp, rf_id)))
+                quad = build_combined_quad_views(params, f["cfg"]) if f["cfg"].fast_gather else None
+                fields.append((rf_id, f, params, quad, cam2rf(c2w_exp, rf_id)))
             for ci in range(n_chunks):
                 sl = slice(ci * chunk + lo, ci * chunk + lo + part)
                 for rf_id, f, params, quad, c2rf in fields:

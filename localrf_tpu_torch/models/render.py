@@ -4,10 +4,11 @@ Contracted stratified sampling, occupancy culling (coarse probe + exact
 compaction, or a dense cull), factored-grid density, softplus, the
 compositing scan (the K1 kernel when cfg.pallas_composite), shading of
 every (compacted) sample from the shared gather or in the fused march core
-(the K4 kernel when cfg.fused_march), the eval renders' floater
-suppression, white background. Static shapes: masked samples are zeroed,
-not dropped, which gives the same composited outputs as the reference's
-ragged gathers.
+(the K4 kernel when cfg.fused_march) or, on the grid-sample route
+(cfg.fast_gather off), of every sample or of the top-K by weight
+(cfg.app_top_k), the eval renders' floater suppression, white background.
+Static shapes: masked samples are zeroed, not dropped, which gives the
+same composited outputs as the reference's ragged gathers.
 """
 from __future__ import annotations
 
@@ -26,7 +27,9 @@ from .tensorf import (
     TensorfConfig,
     apply_mlp,
     build_combined_quad_views,
+    compute_app_feature,
     compute_density_app_features,
+    compute_density_feature,
     feature2density,
     normalize_coord,
 )
@@ -76,7 +79,11 @@ def render_rays(
     (path renders) zeroes every sample before that fraction of the ray's
     weighted mean sample index; it turns compaction and K1 off, as in JAX.
     `quad` is the field's build_combined_quad_views, built here when None
-    (an eval frame builds it once for all its chunks).
+    (an eval frame builds it once for all its chunks). With
+    cfg.fast_gather off the field is read by bilinear lookups in its f32
+    grids instead (the grid-sample route, JAX's oracle: no quad views, no
+    fused march), and 0 < cfg.app_top_k < S shades only the K samples of
+    each ray with the largest weights.
     Returns (rgb_map [R, 3], depth_map [R]).
     """
     n_total = n_samples if n_samples > 0 else cfg.n_samples
@@ -89,7 +96,7 @@ def render_rays(
     )
     r, s = pts.shape[0], pts.shape[1]
     pts_norm = normalize_coord(pts, cfg)
-    if quad is None:
+    if quad is None and cfg.fast_gather:
         quad = build_combined_quad_views(params, cfg)
 
     compact = alpha_volume is not None and 0 < cfg.occ_m < s and floater_thresh == 0.0
@@ -157,7 +164,10 @@ def render_rays(
     flat = pts_norm.reshape(-1, 3)
     vd = viewdirs.detach()[:, None, :].expand(r, s, 3).reshape(-1, 3)
     rgb_all = app_feat_all = None
-    if cfg.fused_march and fused_march_supported(cfg):
+    if not cfg.fast_gather:
+        # the grid-sample route: appearance only once the weights are known
+        sigma_feat = compute_density_feature(params, flat, cfg)
+    elif cfg.fused_march and fused_march_supported(cfg):
         # the fused march core (K4) shades every (compacted) sample itself
         sigma_feat, rgb_all = fused_march_features(params, quad, flat, vd, cfg)
     else:
@@ -195,14 +205,27 @@ def render_rays(
         alpha = torch.where(sample_idx < idx_map * floater_thresh, 0.0, alpha)
         weight, _ = alpha2weights(alpha)
 
-    # shade every (compacted) sample (in the fused core, or from the shared
-    # gather); zero samples below the weight threshold (the reference's
-    # masked ragged gather)
-    app_mask = weight > cfg.ray_march_weight_thres
-    if rgb_all is None:
-        rgb_all = apply_mlp(params["mlp"], flat, vd, app_feat_all, cfg, refine)
-    rgb = torch.where(app_mask[..., None], rgb_all.reshape(r, s, 3), 0.0)
-    rgb_map = torch.sum(weight[..., None] * rgb, dim=-2)
+    if not cfg.fast_gather and 0 < cfg.app_top_k < s:
+        # shade only the K samples of each ray with the largest weights: the
+        # reference's `weight > thres` gather whenever fewer than K pass
+        k = cfg.app_top_k
+        w_k, idx_k = torch.topk(weight, k, dim=-1)
+        pts_k = torch.gather(pts_norm, 1, idx_k[..., None].expand(r, k, 3)).reshape(-1, 3)
+        vd_k = viewdirs.detach()[:, None, :].expand(r, k, 3).reshape(-1, 3)
+        rgb_k = apply_mlp(params["mlp"], pts_k, vd_k, compute_app_feature(params, pts_k), cfg, refine)
+        rgb_k = torch.where((w_k > cfg.ray_march_weight_thres)[..., None], rgb_k.reshape(r, k, 3), 0.0)
+        rgb_map = torch.sum(w_k[..., None] * rgb_k, dim=-2)
+    else:
+        # shade every (compacted) sample (in the fused core, from the shared
+        # gather, or by grid sampling); zero samples below the weight
+        # threshold (the reference's masked ragged gather)
+        app_mask = weight > cfg.ray_march_weight_thres
+        if rgb_all is None:
+            if app_feat_all is None:
+                app_feat_all = compute_app_feature(params, flat)
+            rgb_all = apply_mlp(params["mlp"], flat, vd, app_feat_all, cfg, refine)
+        rgb = torch.where(app_mask[..., None], rgb_all.reshape(r, s, 3), 0.0)
+        rgb_map = torch.sum(weight[..., None] * rgb, dim=-2)
 
     # white background, or randomly flipped white background in training
     if white_bg:

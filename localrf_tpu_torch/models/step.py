@@ -555,10 +555,10 @@ def render_frame(field_params, cfg: TensorfConfig, ray_idx: torch.Tensor, cam2rf
     """Whole-frame eval render against one field: ray_idx [n_chunks, chunk]
     pixel ids (the last chunk padded), one pose cam2rf [3, 4]. A loop over
     the chunks with no host sync (JAX's lax.scan); the quad tables are
-    built once for the frame. Returns (rgb [n_chunks * chunk, 3], depth
-    [n_chunks * chunk])."""
+    built once for the frame (none on the grid-sample route). Returns (rgb
+    [n_chunks * chunk, 3], depth [n_chunks * chunk])."""
     n_chunks, chunk = ray_idx.shape
-    quad = build_combined_quad_views(field_params, cfg)
+    quad = build_combined_quad_views(field_params, cfg) if cfg.fast_gather else None
     c2rf = cam2rf[None].expand(chunk, 3, 4)
     rgb = torch.empty((n_chunks, chunk, 3), device=ray_idx.device)
     depth = torch.empty((n_chunks, chunk), device=ray_idx.device)

@@ -27,6 +27,9 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.grid import (
     build_quad_line,
     build_quad_plane,
+    grid_sample_1d,
+    grid_sample_2d,
+    grid_sample_3d,
     plane_coords,
     quad_sample_1d,
     quad_sample_2d,
@@ -39,13 +42,16 @@ MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# the shading heads of the JAX package (apply_mlp); RGB needs app_dim 3
+SHADING_MODES = ("MLP_Fea_late_view", "MLP_Fea", "MLP_Fea_woView", "MLP_PE", "MLP", "RGB")
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorfConfig:
     """Static field configuration; the same fields as the JAX TensorfConfig
-    (see there for what each does), plus `l1_stream_min_vox`. Options whose
-    code paths are not ported yet must stay at their defaults."""
+    (see there for what each does), plus `l1_stream_min_vox`. The three
+    `fused_*_gather` flags (XLA's gather workarounds, not ported) must stay
+    at their defaults."""
 
     grid_size: tuple[int, int, int]
     density_n_comp: tuple[int, int, int] = (8, 8, 8)
@@ -95,17 +101,17 @@ class TensorfConfig:
     def __post_init__(self):
         # the XLA gather-emitter workarounds are not ported (ROADMAP.md)
         unported = {
-            "fast_gather": (self.fast_gather, True),
             "fused_plane_gather": (self.fused_plane_gather, False),
             "fused_fwd_gather": (self.fused_fwd_gather, 0),
             "fused_line_gather": (self.fused_line_gather, False),
-            "shading_mode": (self.shading_mode, "MLP_Fea_late_view"),
         }
         for name, (value, default) in unported.items():
             if value != default:
                 raise NotImplementedError(
                     f"TensorfConfig.{name}={value!r}: only {default!r} is ported"
                 )
+        if self.shading_mode not in SHADING_MODES:
+            raise ValueError(f"unknown shading mode {self.shading_mode}")
         if self.line_bwd not in ("gather", "segsum", "onehot"):
             raise ValueError(f"TensorfConfig.line_bwd={self.line_bwd!r}")
 
@@ -167,11 +173,27 @@ def _uniform(shape, bound: float, generator, device) -> torch.Tensor:
 
 
 def init_mlp(cfg: TensorfConfig, generator: torch.Generator, device) -> dict[str, torch.Tensor]:
-    """MLP_Fea_late_view head: feat(+PE) -> featureC -> featureC, then concat
-    viewdirs(+PE) -> 3; torch.nn.Linear-style init, last bias zero."""
-    fea = cfg.app_dim
-    in_mlp = 2 * cfg.fea_pe * fea + fea
-    in_view = 2 * cfg.view_pe * 3 + 3
+    """The shading head's parameters for cfg.shading_mode (SHADING_MODES);
+    torch.nn.Linear-style init, last bias zero. RGB has none. Layer 1 takes
+    JAX's inputs of the mode: MLP_Fea_late_view feat(+PE), then viewdirs
+    (+PE) join before the last layer; MLP_Fea feat, viewdirs (+ their PE);
+    MLP_Fea_woView feat(+PE); MLP_PE feat, viewdirs, PE(pts), PE(viewdirs)
+    (sized to those inputs, as JAX sizes it); MLP feat, viewdirs(+PE)."""
+    mode, fea = cfg.shading_mode, cfg.app_dim
+    if mode == "RGB":
+        return {}
+    in_view = 0
+    if mode == "MLP_Fea_late_view":
+        in_mlp = 2 * cfg.fea_pe * fea + fea
+        in_view = 2 * cfg.view_pe * 3 + 3
+    elif mode == "MLP_Fea":
+        in_mlp = 2 * cfg.view_pe * 3 + 2 * cfg.fea_pe * fea + 3 + fea
+    elif mode == "MLP_Fea_woView":
+        in_mlp = 2 * cfg.fea_pe * fea + fea
+    elif mode == "MLP_PE":
+        in_mlp = fea + 3 + 2 * cfg.pos_pe * 3 + 2 * cfg.view_pe * 3
+    else:  # "MLP"
+        in_mlp = fea + 3 + 2 * cfg.view_pe * 3
     out = {}
     for name, fan_in, fan_out in (
         ("1", in_mlp, cfg.feature_c),
@@ -284,19 +306,39 @@ def compute_density_app_features(params, pts: torch.Tensor, cfg: TensorfConfig, 
     return sigma, app
 
 
-def compute_density_feature(params, pts: torch.Tensor, cfg: TensorfConfig, quad: dict) -> torch.Tensor:
-    """Raw density feature at normalized points [P, 3] -> [P] from
-    density-only quad views (build_quad_views(..., kinds=("density",)))."""
+def compute_density_feature(params, pts: torch.Tensor, cfg: TensorfConfig, quad: dict | None = None
+                            ) -> torch.Tensor:
+    """Raw density feature at normalized points [P, 3] -> [P]: from
+    density-only quad views (build_quad_views(..., kinds=("density",))), or
+    with quad=None (cfg.fast_gather off) by bilinear lookups in the f32
+    factor grids (the grid-sample route, JAX's oracle; the same math)."""
     out = 0.0
     g = cfg.grid_size
     for i in range(3):
         m0, m1 = MAT_MODE[i]
         v = VEC_MODE[i]
-        c = params[f"density_plane_{i}"].shape[0]
-        pf = quad_sample_2d(quad[f"density_plane_{i}"], g[m1], g[m0], plane_coords(pts, m0, m1), c)
-        lf = quad_sample_1d(quad[f"density_line_{i}"], g[v], pts[:, v], c)
+        if quad is None:
+            pf = grid_sample_2d(params[f"density_plane_{i}"], plane_coords(pts, m0, m1))
+            lf = grid_sample_1d(params[f"density_line_{i}"], pts[:, v])
+        else:
+            c = params[f"density_plane_{i}"].shape[0]
+            pf = quad_sample_2d(quad[f"density_plane_{i}"], g[m1], g[m0], plane_coords(pts, m0, m1), c)
+            lf = quad_sample_1d(quad[f"density_line_{i}"], g[v], pts[:, v], c)
         out = out + torch.sum(pf * lf, dim=-1)
     return out
+
+
+def compute_app_feature(params, pts: torch.Tensor) -> torch.Tensor:
+    """Appearance feature at normalized points [P, 3] -> [P, app_dim] on the
+    grid-sample route: bilinear lookups in the f32 factor grids, their
+    products through the basis in f32."""
+    prods = []
+    for i in range(3):
+        m0, m1 = MAT_MODE[i]
+        pf = grid_sample_2d(params[f"app_plane_{i}"], plane_coords(pts, m0, m1))
+        lf = grid_sample_1d(params[f"app_line_{i}"], pts[:, VEC_MODE[i]])
+        prods.append(pf * lf)
+    return torch.matmul(torch.cat(prods, dim=-1), params["basis_mat"])
 
 
 def feature2density(feat: torch.Tensor, cfg: TensorfConfig) -> torch.Tensor:
@@ -308,26 +350,53 @@ def feature2density(feat: torch.Tensor, cfg: TensorfConfig) -> torch.Tensor:
 
 
 def apply_mlp(mlp, pts, viewdirs, features, cfg: TensorfConfig, refine=1.0) -> torch.Tensor:
-    """MLP_Fea_late_view shading head. Hidden layers run in `cfg.mlp_dtype`
+    """The shading head of cfg.shading_mode, with JAX's inputs in JAX's
+    order: MLP_Fea_late_view [feat, PE(feat) * refine] with [viewdirs,
+    PE(viewdirs)] joining before the last layer; MLP_Fea [feat, viewdirs,
+    PE(feat), PE(viewdirs)] (its feature PE unscaled by `refine`);
+    MLP_Fea_woView [feat, PE(feat)]; MLP_PE [feat, viewdirs, PE(pts),
+    PE(viewdirs)], pts the normalized (compacted) sample points; MLP [feat,
+    viewdirs, PE(viewdirs)]; RGB the features themselves (no sigmoid). A PE
+    with 0 frequencies is left out. Hidden layers run in `cfg.mlp_dtype`
     (bias and relu in it too); the last layer takes the hidden activations
-    and weights rounded to that dtype and multiplies them in f32, like JAX's
-    preferred_element_type=f32. `refine` (0/1) scales the feature PE."""
+    and weights rounded to that dtype and multiplies them in f32, like
+    JAX's preferred_element_type=f32. `refine` (0/1) scales the late-view
+    head's feature PE only."""
+    mode = cfg.shading_mode
+    if mode == "RGB":
+        return features
     dt = _DTYPES[cfg.mlp_dtype]
 
     def hidden(x, w, b):
         return F.relu(torch.matmul(x.to(dt), w.to(dt)) + b.to(dt))
 
-    indata = [features]
-    if cfg.fea_pe > 0:
-        indata.append(positional_encoding(features, cfg.fea_pe) * refine)
-    view_in = [viewdirs]
-    if cfg.view_pe > 0:
-        view_in.append(positional_encoding(viewdirs, cfg.view_pe))
+    def pe(x, freqs):
+        return [positional_encoding(x, freqs)] if freqs > 0 else []
+
+    view_in = []
+    if mode == "MLP_Fea_late_view":
+        indata = [features] + [e * refine for e in pe(features, cfg.fea_pe)]
+        view_in = [viewdirs, *pe(viewdirs, cfg.view_pe)]
+    elif mode == "MLP_Fea":
+        indata = [features, viewdirs, *pe(features, cfg.fea_pe), *pe(viewdirs, cfg.view_pe)]
+    elif mode == "MLP_Fea_woView":
+        indata = [features, *pe(features, cfg.fea_pe)]
+    elif mode == "MLP_PE":
+        indata = [features, viewdirs, *pe(pts, cfg.pos_pe), *pe(viewdirs, cfg.view_pe)]
+    else:  # "MLP"
+        indata = [features, viewdirs, *pe(viewdirs, cfg.view_pe)]
     x = hidden(torch.cat(indata, dim=-1), mlp["w1"], mlp["b1"])
     x = hidden(x, mlp["w2"], mlp["b2"])
-    x = torch.cat([x, *(v.to(dt) for v in view_in)], dim=-1)
+    if view_in:
+        x = torch.cat([x, *(v.to(dt) for v in view_in)], dim=-1)
     w3 = mlp["w3"].to(dt).to(torch.float32)
     return torch.sigmoid(torch.matmul(x.to(torch.float32), w3) + mlp["b3"])
+
+
+def sample_alpha(alpha_volume: torch.Tensor, pts: torch.Tensor, cfg: TensorfConfig) -> torch.Tensor:
+    """Occupancy lookup: trilinear sample of the alpha volume at world
+    (contracted) points [P, 3] -> [P]."""
+    return grid_sample_3d(alpha_volume, normalize_coord(pts, cfg))
 
 
 # ----------------------------- regularizers -----------------------------
@@ -436,15 +505,17 @@ _DENSE_ALPHA_CHUNK_PTS = 2_097_152
 
 @torch.no_grad()
 def compute_dense_alpha(params, cfg: TensorfConfig, grid_size) -> torch.Tensor:
-    """Dense alpha at `grid_size` lattice points over the aabb. Returns
-    [gx, gy, gz]; evaluated in x-slabs above _DENSE_ALPHA_CHUNK_PTS points."""
+    """Dense alpha at `grid_size` lattice points over the aabb, through the
+    density quad views (or the grid-sample route with cfg.fast_gather off).
+    Returns [gx, gy, gz]; evaluated in x-slabs above _DENSE_ALPHA_CHUNK_PTS
+    points."""
     gx, gy, gz = (int(v) for v in grid_size)
     dev = params["basis_mat"].device
     xs = torch.linspace(0.0, 1.0, gx, device=dev)
     ys = torch.linspace(0.0, 1.0, gy, device=dev)
     zs = torch.linspace(0.0, 1.0, gz, device=dev)
     aabb = torch.as_tensor(cfg.aabb, device=dev)
-    quad = build_quad_views(params, cfg, kinds=("density",))
+    quad = build_quad_views(params, cfg, kinds=("density",)) if cfg.fast_gather else None
 
     def eval_pts(grid01):
         pts = aabb[0] * (1.0 - grid01) + aabb[1] * grid01

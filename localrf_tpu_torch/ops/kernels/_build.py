@@ -61,7 +61,7 @@ SIGNATURES = {
     # b3, out, P, G, t_bf16, m_bf16, SM count, stream
     "lrf_march_fwd": (_P,) * 16 + (_L, _I, _I, _I, _I, _P),
     # the 15 inputs above, gout, drows0, drows1, drows2, d_wxy, d_w1l,
-    # dlines (f32), d_feat (scratch [P, 72], table dtype), partials (scratch, f32
+    # d_lr ([3, P, 64], table dtype), d_feat (scratch [P, 72], table dtype), partials (scratch, f32
     # [n_blocks, n_params]), dparams, P, G, t_bf16, m_bf16, n_blocks, stream
     "lrf_march_bwd": (_P,) * 25 + (_L, _I, _I, _I, _I, _P),
     # -> length of the march backward's packed parameter gradient

@@ -8,14 +8,26 @@ density feature, the 72 -> 27 basis product and the MLP_Fea_late_view MLP,
 in one kernel with an analytic backward. The plane-row gathers stay
 outside (`fused_march_features`), their backward is K2.
 
+The backward's line-table gradient takes two stages: the factor kernel
+writes each point's quad-line cotangent d_lr [3, P, 64] in the table dtype
+(stage 1: the values JAX's kernel feeds its one-hot product,
+`d_lr.astype(tdt)`), then K3 (`segsum.segment_sum_small`) sums each
+orientation's d_lr by x0 into [G, 64] f32 in the order `segsum_plan`
+fixes (stage 2). So
+two launches give the same dlines bit for bit, and dlines equals
+`march_dlines_ordered` of the kernel's own stage 1 bit for bit, as JAX's
+sum is in a fixed order too.
+
 `march_core_plain` is the same forward and the same hand-written backward
 in plain PyTorch, rounding where the Pallas kernel rounds (the lerp weights,
 lerps and products in the table dtype; f32 sums; hidden dots rounded to the
 MLP dtype before the bias; d_app rounded to the table dtype): the CPU path
-and the on-card reference. Against it the kernel agrees to f32 rounding
-in everything the atomic adds and the reordered f32 sums touch (dlines,
-the parameter gradients, sigma, app), and bit for bit elsewhere up to
-those f32 differences crossing a bf16 rounding.
+(its dlines an f32 index_add_) and the on-card reference. Against it the
+kernel agrees to f32 rounding in everything the reordered f32 sums touch
+(dlines, the parameter gradients, sigma, app), and bit for bit elsewhere up
+to those f32 differences crossing a bf16 rounding.
+`march_line_cotangents_plain` is stage 1's plain version and
+`march_dlines_ordered` stage 2's.
 
 Which kernels a CUDA call runs is a function of the dtypes alone: bf16
 tables with the bf16 MLP (the training CLI's defaults) take the tensor-core
@@ -39,6 +51,7 @@ from __future__ import annotations
 import torch
 
 from . import _build
+from .segsum import segment_sum_small, segment_sum_small_ordered
 
 CD, CA = 8, 24
 C = CD + CA
@@ -116,6 +129,24 @@ def march_bwd_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1,
                      gout, mlp_dtype)[0]
 
 
+def march_line_cotangents_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2,
+                                w3, b3, gout, mlp_dtype: str) -> torch.Tensor:
+    """K4-bwd's stage 1 in plain PyTorch: each point's quad-line cotangent
+    d_lr [3, P, 64] in the table dtype (march_bwd_plain sums it with an
+    index_add_)."""
+    return _backward((rows0, rows1, rows2), wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3,
+                     gout, mlp_dtype)[2]
+
+
+def march_dlines_ordered(x0: torch.Tensor, d_lr: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K4-bwd's stage 2 in plain PyTorch: each orientation's d_lr [3, P, 64]
+    summed by x0 [P, 3] into [3, n_rows, 64] f32 in K3's order
+    (segment_sum_small_ordered), so equal to the card's dlines (before the
+    cast to the table dtype) bit for bit when given the kernel's stage 1."""
+    idx = x0.t().to(torch.int64, memory_format=torch.contiguous_format)
+    return torch.stack([segment_sum_small_ordered(idx[i], d_lr[i], n_rows) for i in range(3)])
+
+
 def march_products_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3,
                          b3, gout, mlp_dtype: str) -> dict:
     """{name: (a, b)}: the operands of every basis and MLP product that the
@@ -126,7 +157,8 @@ def march_products_plain(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1
 
 
 def _backward(rows, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3, gout, mlp_dtype):
-    """march_bwd_plain's outputs, and the operands of its products."""
+    """march_bwd_plain's outputs, the operands of its products and the
+    per-point line cotangents d_lr [3, P, 64] (table dtype)."""
     with torch.no_grad():
         tdt, mdt = rows[0].dtype, _DTYPES[mlp_dtype]
         _, rgb, feats, lerp, mlp = _forward(rows, wxy, w1l, x0, vd, lines, basis,
@@ -153,7 +185,7 @@ def _backward(rows, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3, gout
         # basis + per-orientation factor backward
         d_app_t = d_app.to(tdt)
         gs_t = gs.to(tdt)[:, None]
-        d_rows, d_wxy, d_w1l, dlines, dbasis = [], [], [], [], []
+        d_rows, d_wxy, d_w1l, dlines, dbasis, d_lrs = [], [], [], [], [], []
         products = {
             "h1": (x0m, w1m), "h2": (h1, w2m), "pre3": (h2, w3m[:FEAT_C]),
             "d_h2": (d_pre3m, w3m[:FEAT_C].T), "dw3": (h2.T, d_pre3m), "d_h1": (d_pre2, w2m.T),
@@ -171,6 +203,7 @@ def _backward(rows, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3, gout
             d_f = d_prod * l
             d_l = d_prod * f
             d_lr = torch.cat([d_l * (1.0 - wl), d_l * wl], dim=-1)
+            d_lrs.append(d_lr)
             dl = torch.zeros(lines.shape[1:], dtype=F32, device=lines.device)
             dlines.append(dl.index_add_(0, x0[:, i].long(), d_lr.to(F32)))
             d_w1l.append((d_l * (lr[:, C:] - lr[:, :C])).sum(-1))
@@ -187,7 +220,7 @@ def _backward(rows, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3, gout
             torch.stack(dlines).to(lines.dtype),
             torch.cat(dbasis), dw1, db1, dw2, db2, dw3, db3,
         )
-        return grads, products
+        return grads, products, torch.stack(d_lrs)
 
 
 def _check(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3, b3,
@@ -241,7 +274,10 @@ def _launch_fwd(args, mlp_dtype: str) -> torch.Tensor:
     return out
 
 
-def _launch_bwd(args, gout, mlp_dtype: str):
+def _launch_bwd_stage1(args, gout, mlp_dtype: str):
+    """K4-bwd's own kernels (MLP VJP, factor VJP, parameter reduce): the
+    gradients with None in dlines' place, and stage 1's per-point line
+    cotangents d_lr [3, P, 64] in the table dtype."""
     _check(*args, mlp_dtype)
     if gout.shape != (args[0].shape[0], 4) or gout.dtype != F32 or not gout.is_contiguous():
         raise ValueError(f"march_core: cotangent must be contiguous float32 [{args[0].shape[0]}, 4]")
@@ -250,7 +286,7 @@ def _launch_bwd(args, gout, mlp_dtype: str):
     d_rows = [torch.empty_like(rows0) for _ in range(3)]
     d_wxy = torch.empty((p, 6), dtype=F32, device=dev)
     d_w1l = torch.empty((p, 3), dtype=F32, device=dev)
-    dlines = torch.zeros(lines.shape, dtype=F32, device=dev)
+    d_lr = torch.empty((3, p, 2 * C), dtype=rows0.dtype, device=dev)
     dparams = torch.zeros(N_PARAMS, dtype=F32, device=dev)
     if p:
         n_blocks = _n_blocks(dev)
@@ -262,7 +298,7 @@ def _launch_bwd(args, gout, mlp_dtype: str):
             _build.launch(
                 "lrf_march_bwd", *(t.data_ptr() for t in args), gout.data_ptr(),
                 *(t.data_ptr() for t in d_rows), d_wxy.data_ptr(), d_w1l.data_ptr(),
-                dlines.data_ptr(), d_feat.data_ptr(), partials.data_ptr(), dparams.data_ptr(),
+                d_lr.data_ptr(), d_feat.data_ptr(), partials.data_ptr(), dparams.data_ptr(),
                 p, lines.shape[1], int(rows0.dtype == torch.bfloat16), int(mlp_dtype == "bfloat16"),
                 n_blocks, _build.stream_ptr(dev),
             )
@@ -272,7 +308,22 @@ def _launch_bwd(args, gout, mlp_dtype: str):
         n = int(torch.Size(shape).numel())
         params.append(dparams[off : off + n].view(shape))
         off += n
-    return (*d_rows, d_wxy, d_w1l, dlines.to(lines.dtype), *params)
+    return (*d_rows, d_wxy, d_w1l, None, *params), d_lr
+
+
+def march_dlines(x0: torch.Tensor, d_lr: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """K4-bwd's stage 2 on the card: each orientation's d_lr summed by x0
+    with K3, [3, n_rows, 64] f32 (march_dlines_ordered is its plain
+    version, bit for bit)."""
+    idx = x0.t().to(torch.int64, memory_format=torch.contiguous_format)
+    return torch.stack([segment_sum_small(idx[i], d_lr[i], n_rows) for i in range(3)])
+
+
+def _launch_bwd(args, gout, mlp_dtype: str):
+    grads, d_lr = _launch_bwd_stage1(args, gout, mlp_dtype)
+    x0, lines = args[5], args[7]
+    dlines = march_dlines(x0, d_lr, lines.shape[1]).to(lines.dtype)
+    return (*grads[:5], dlines, *grads[6:])
 
 
 class _MarchCore(torch.autograd.Function):

@@ -17,9 +17,10 @@ of transmittance:
 The algebra is exact; only the float association differs from
 models/render.py::render_rays (eval, no compaction). On a 2-D mesh
 ("data", "sample") (make_dp_sp_mesh) the rays are split over "data" too.
-The features go through the quad gathers (the port keeps only that path),
-and an alpha volume culls with occupancy_valid on its packed corners, which
-is JAX's `sample_alpha(...) > 0`.
+The features go through the quad gathers, and an alpha volume culls with
+occupancy_valid on its packed corners, which is JAX's `sample_alpha(...) >
+0`; with cfg.fast_gather off, through the grid-sample route (bilinear
+lookups in the f32 grids) and `sample_alpha(...) > 0` itself, as in JAX.
 """
 from __future__ import annotations
 
@@ -30,9 +31,12 @@ from ..models.tensorf import (
     TensorfConfig,
     apply_mlp,
     build_combined_quad_views,
+    compute_app_feature,
     compute_density_app_features,
+    compute_density_feature,
     feature2density,
     normalize_coord,
+    sample_alpha,
 )
 from ..ops.math import contract
 from ..ops.occupancy import occupancy_valid, pack_alpha_corners
@@ -108,10 +112,17 @@ def render_rays_sp(
 
     pts = contract(rays_o[:, None, :] + viewdirs[:, None, :] * z_seg[..., None])
     flat = normalize_coord(pts, cfg).reshape(-1, 3)
-    sigma_feat, app_feat = compute_density_app_features(params, flat, cfg, build_combined_quad_views(params, cfg))
+    if cfg.fast_gather:
+        sigma_feat, app_feat = compute_density_app_features(params, flat, cfg,
+                                                            build_combined_quad_views(params, cfg))
+    else:
+        sigma_feat, app_feat = compute_density_feature(params, flat, cfg), None
     sigma = feature2density(sigma_feat.reshape(r, m), cfg)
     if alpha_volume is not None:
-        occ = occupancy_valid(pack_alpha_corners(alpha_volume), tuple(alpha_volume.shape), flat)
+        if cfg.fast_gather:
+            occ = occupancy_valid(pack_alpha_corners(alpha_volume), tuple(alpha_volume.shape), flat)
+        else:
+            occ = sample_alpha(alpha_volume, pts.reshape(-1, 3), cfg) > 0
         sigma = torch.where(occ.reshape(r, m), sigma, 0.0)
 
     alpha = 1.0 - torch.exp(-sigma * d_seg * cfg.distance_scale)
@@ -128,6 +139,8 @@ def render_rays_sp(
     weight = torch.prod(torch.where(before, t_all, 1.0), dim=0)[:, None] * w_local
 
     vd = viewdirs[:, None, :].expand(r, m, 3).reshape(-1, 3)
+    if app_feat is None:
+        app_feat = compute_app_feature(params, flat)
     rgb = apply_mlp(params["mlp"], flat, vd, app_feat, cfg, refine).reshape(r, m, 3)
     rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None], rgb, 0.0)
     part = torch.cat([torch.sum(weight[..., None] * rgb, dim=-2), torch.sum(weight, dim=-1, keepdim=True),

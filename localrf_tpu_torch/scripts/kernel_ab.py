@@ -24,9 +24,9 @@ ran (torch.profiler). With --chunks each worker also trains
 the chunk path through that checkout's chip_smoke helpers (a 146-slot
 pixel pool, chunks of 16 replayed CUDA graphs): at 64^3 and at 640^3 on the
 default, the fused-march and the segsum-lines paths, and at 640^3 on the
-default path with every sum in a fixed order (that checkout's
-deterministic_sums: the plane gathers' VJP through K5, three calls a
-step), one chunk to capture, then 3 timed
+default and fused-march paths with every sum in a fixed order (that
+checkout's deterministic_sums: the plane gathers' VJP through K5, three
+calls a step), one chunk to capture, then 3 timed
 (ms/step, host clock ending in a synchronize) with the peak allocated
 bytes. Prints the card, one JSON line per worker, and the mean of each
 checkout's two workers. Needs a CUDA card.
@@ -156,7 +156,8 @@ def worker(root: str, indices: str) -> dict:
 
 def chunk_worker(root: str) -> dict:
     """ms/step and peak bytes of the chunk path at 64^3 and 640^3 (default,
-    fused march, segsum lines, and default with fixed-order sums), through
+    fused march, segsum lines, and default and fused march with fixed-order
+    sums), through
     the chip_smoke helpers of the checkout at `root`."""
     import torch
 
@@ -172,7 +173,7 @@ def chunk_worker(root: str) -> dict:
     pool = DevicePixelPool(ds, capacity=cs.POOL_SLOTS, device=dev)
     out = {}
     for label in ("64^3", "640^3 default", "640^3 fused_march", "640^3 segsum",
-                  "640^3 default fixed-order"):
+                  "640^3 default fixed-order", "640^3 fused_march fixed-order"):
         fixed = cs.deterministic_sums() if label.endswith("fixed-order") else contextlib.nullcontext()
         if label == "64^3":
             model = LocalTensorfs(cs.full_width_config(64), device=dev)

@@ -318,21 +318,86 @@ def _rewrite(path: str, out: str, edit) -> None:
 
 def test_xla_only_flags_are_mapped(jax_file, tmp_path, capsys):
     """A JAX file whose TensorfConfig sets the XLA gather workarounds loads
-    with the port's values (the same math) and says so; another shading
-    mode is another model and raises."""
+    with the port's values (the same math) and says so; fast_gather=False
+    is the grid-sample route, which the port has: it loads as False,
+    silently; an unknown shading mode raises as in JAX (ValueError)."""
     path, _, _ = jax_file
     out = str(tmp_path / "flags.th")
-    flags = dict(fast_gather=False, fused_plane_gather=True, fused_fwd_gather=2, fused_line_gather=True)
-    _rewrite(path, out, lambda s: s["kwargs"]["tensorf"].update(flags))
+    flags = dict(fused_plane_gather=True, fused_fwd_gather=2, fused_line_gather=True)
+    _rewrite(path, out, lambda s: s["kwargs"]["tensorf"].update(flags, fast_gather=False))
     tm = tckpt.load_checkpoint(out, device="cpu")
     said = capsys.readouterr().out
     for k, v in flags.items():
         assert getattr(tm.cfg.tensorf, k) == tckpt.XLA_ONLY_FLAGS[k] != v
         assert f"TensorfConfig.{k}={v!r}" in said
-    assert all(getattr(f["cfg"], "fast_gather") for f in tm.fields)
+    assert "fast_gather" not in tckpt.XLA_ONLY_FLAGS and "fast_gather" not in said
+    assert tm.cfg.tensorf.fast_gather is False
+    assert not any(getattr(f["cfg"], "fast_gather") for f in tm.fields)
     _rewrite(path, out, lambda s: s["kwargs"]["tensorf"].update(shading_mode="SH"))
-    with pytest.raises(NotImplementedError, match="shading_mode"):
+    with pytest.raises(ValueError, match="shading mode SH"):
         tckpt.load_checkpoint(out, device="cpu")
+
+
+def _mlp_fea(state: dict) -> None:
+    """The committed fixture rewritten to TensoRF's published head (MLP_Fea,
+    fea_pe 2, view_pe 2): each field's w1 re-shaped to that head's inputs
+    (seeded values) and w3 to its hidden width alone (the viewdirs enter at
+    layer 1), their Adam moments zeroed to match."""
+    tf = state["kwargs"]["tensorf"]
+    tf.update(shading_mode="MLP_Fea", fea_pe=2, view_pe=2)
+    n_in = 2 * 2 * 3 + 2 * 2 * tf["app_dim"] + 3 + tf["app_dim"]
+    rng = np.random.default_rng(0)
+    for entry in state["fields"]:
+        mlp = entry["params"]["mlp"]
+        fc = mlp["w1"].shape[1]
+        mlp["w1"] = (rng.uniform(-1, 1, (n_in, fc)) / np.sqrt(n_in)).astype(mlp["w1"].dtype)
+        mlp["w3"] = mlp["w3"][:fc]
+        opt = entry["opt"]
+        if opt is not None:
+            for part in (opt.m, opt.v):
+                part["mlp"]["w1"] = np.zeros((n_in, fc), np.asarray(part["mlp"]["w1"]).dtype)
+                part["mlp"]["w3"] = np.asarray(part["mlp"]["w3"])[:fc]
+
+
+def test_jax_file_in_the_mlp_fea_head_loads(tmp_path):
+    """The committed JAX fixture rewritten to shading_mode MLP_Fea loads bit
+    for bit, and the port renders its frame as JAX does from the same file
+    (rgb and depth rtol 1e-4 / atol 1e-4)."""
+    out = str(tmp_path / "mlp_fea.th")
+    _rewrite(fx.CKPT, out, _mlp_fea)
+    tm = tckpt.load_checkpoint(out, device="cpu")
+    assert tm.cfg.tensorf.shading_mode == "MLP_Fea" and tm.fields[-1]["params"]["mlp"]["w1"].shape[0] == 150
+    assert_model_is_file(tm, _raw(out))
+    jm = jckpt.load_checkpoint(out)
+    view, ids = fx.frame_view(jm), np.arange(fx.W * fx.H)
+    rgb_j, depth_j, _, _ = jm.forward_eval(ids, np.array([view]), fx.W, fx.H, chunk=fx.FRAME_CHUNK)
+    rgb, depth, _, _ = tm.forward_eval(ids, np.array([view]), fx.W, fx.H, chunk=fx.FRAME_CHUNK)
+    np.testing.assert_allclose(rgb.numpy(), np.asarray(rgb_j), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(depth.numpy(), np.asarray(depth_j), rtol=1e-4, atol=1e-4)
+
+
+def test_rgb_head_round_trips_with_an_empty_mlp(tmp_path):
+    """A port model in the RGB head (no MLP) writes `{"mlp": {}}` into each
+    field's params and moments, the tree JAX's init_tensorf makes for that
+    head, and loads back bit for bit."""
+    from localrf_tpu.models import tensorf as jtf
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import TensorfConfig
+
+    tf = dict(grid_size=(12, 12, 12), shading_mode="RGB", app_dim=3)
+    tm = LocalTensorfs(LocalConfig(WH=(fx.W, fx.H), n_init_frames=fx.N_INIT, tensorf=TensorfConfig(**tf)),
+                       device="cpu")
+    out = str(tmp_path / "rgb.th")
+    tckpt.save_checkpoint(tm, out)
+    raw = _raw(out)
+    entry = raw["fields"][-1]
+    assert entry["params"]["mlp"] == {} and entry["opt"]["m"]["mlp"] == {} and entry["opt"]["v"]["mlp"] == {}
+    want = jtf.init_tensorf(jax.random.PRNGKey(0), jtf.TensorfConfig(**tf))
+    assert jax.tree.structure(entry["params"]) == jax.tree.structure(want)
+    assert "mlp" not in raw["intr"]["opt"]["m"]
+    t2 = tckpt.load_checkpoint(out, device="cpu")
+    assert_model_is_file(t2, raw)
+    assert not list(t2.fields[-1]["params"].mlp.parameters())
 
 
 def test_loader_refuses_other_classes(tmp_path):

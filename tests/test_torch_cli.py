@@ -123,6 +123,9 @@ MAKE_MODEL_CASES = {
               "--moment_dtype", "bfloat16", "--gather_dtype", "float32", "--upsamp_list", "3", "7",
               "--N_voxel_final", str(40**3), "--n_init_frames", "9", "--binned_scatter", "0", "--occ_probe_ds", "0",
               "--refinement_speedup_factor", "2", "--app_top_k", "0", "--seed", "5", "--lr_upsample_reset", "0"],
+    # TensoRF's published head (configs/lego.txt), and the RGB head (no MLP)
+    "mlp-fea": ["--shadingMode", "MLP_Fea", "--fea_pe", "2", "--view_pe", "2"],
+    "rgb": ["--shadingMode", "RGB", "--data_dim_color", "3", "--pos_pe", "2"],
 }
 
 

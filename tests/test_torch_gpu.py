@@ -363,6 +363,37 @@ def test_k4_kernel_matches_plain_on_card(cuda_device, g_rows, p, dtype, mlp_dtyp
         k4.march_core(args[0][:, :-1], *args[1:], mlp_dtype)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("g_rows,p,dtype,mlp_dtype", [
+    (64, 4096 * 72, "bfloat16", "bfloat16"), (640, 4096 * 332, "bfloat16", "bfloat16"),
+    (32, 50_001, "float32", "float32"), (64, 5, "bfloat16", "bfloat16"),
+])
+def test_k4_line_gradient_is_fixed_order_on_card(cuda_device, g_rows, p, dtype, mlp_dtype):
+    """K4-bwd's dlines: two launches equal bit for bit; K3's sum of the
+    factor kernel's per-point cotangents (stage 2) equals
+    march_dlines_ordered of that same stage 1 bit for bit, and dlines is it
+    cast to the table dtype; stage 1 against march_line_cotangents_plain in
+    f32 to 1e-4 and in bf16 to 2e-2 of its largest entry (d_feat comes from
+    reordered sums, which can flip a bf16 rounding). K3 launches three times
+    a backward."""
+    args, gout = _march_args(g_rows, p, getattr(torch, dtype), cuda_device)
+    plain = [a.detach() for a in args]
+    n3 = k3.LAUNCHES["segment_sum_small"]
+    dlines = k4._launch_bwd(plain, gout, mlp_dtype)[5]
+    assert k3.LAUNCHES["segment_sum_small"] == n3 + 3
+    assert torch.equal(dlines, k4._launch_bwd(plain, gout, mlp_dtype)[5])
+    grads, d_lr = k4._launch_bwd_stage1(plain, gout, mlp_dtype)
+    assert grads[5] is None and d_lr.shape == (3, p, 64) and d_lr.dtype == plain[0].dtype
+    x0 = plain[5]
+    stage2 = k4.march_dlines(x0, d_lr, g_rows)
+    assert torch.equal(stage2.cpu(), k4.march_dlines_ordered(x0.cpu(), d_lr.cpu(), g_rows))
+    assert torch.equal(stage2.to(dlines.dtype), dlines)
+    want = k4.march_line_cotangents_plain(*plain, gout, mlp_dtype)
+    scale = float(want.abs().max())
+    err = float((d_lr.float() - want.float()).abs().max())
+    assert err <= (1e-4 if dtype == mlp_dtype == "float32" else 2e-2) * scale, f"{err:.3e} of {scale:.3e}"
+
+
 # (n_rows, P, index kind, index dtype, payload dtype)
 K5_CARD_CASES = [
     (4096, 4096 * 72, "uniform", torch.int64, torch.bfloat16),  # the 64^3 plane

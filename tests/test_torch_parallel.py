@@ -231,7 +231,7 @@ def test_sharded_eval_matches_one_rank(two_ranks, eval_single, call):
                                        err_msg=f"rank {rank} {part}")
 
 
-def _jax_sp(arrays: dict, shape: tuple, alpha) -> tuple[np.ndarray, np.ndarray]:
+def _jax_sp(arrays: dict, shape: tuple, alpha, **tf_kw) -> tuple[np.ndarray, np.ndarray]:
     mesh = jsp.make_sp_mesh(shape[0]) if len(shape) == 1 else jsp.make_dp_sp_mesh(*shape)
     params = {}
     for k, v in arrays.items():
@@ -242,7 +242,7 @@ def _jax_sp(arrays: dict, shape: tuple, alpha) -> tuple[np.ndarray, np.ndarray]:
                 d = d.setdefault(p, {})
             d[leaf] = v
     rays_o, rays_d = ranks.sp_rays()
-    cfg = jtf.TensorfConfig(**ranks.TF_KW)
+    cfg = jtf.TensorfConfig(**ranks.TF_KW, **tf_kw)
     # jitted: JAX's own tests run it eagerly, ~30 s a call here
     fn = jax.jit(lambda p, o, d, a: jsp.render_rays_sp(p, cfg, o, d, mesh, alpha_volume=a))
     rgb, depth = fn(params, rays_o, rays_d, alpha)
@@ -274,6 +274,31 @@ def test_render_rays_sp(case, occ, inputs, two_ranks, four_ranks):
             np.testing.assert_allclose(got[f"{case}/depth{occ}"], ref[1], rtol=1e-5, atol=2e-5)
     if occ:  # the ball culls: the result differs from the field without it
         assert not np.allclose(ranks.result(out, "sp", 0)[f"{case}/depth"], depth.numpy(), atol=1e-3)
+
+
+@pytest.mark.parametrize("occ", ["", "-occ"], ids=["no-alpha", "alpha"])
+def test_render_rays_sp_on_the_grid_route(occ, inputs, four_ranks):
+    """render_rays_sp on the grid-sample route (fast_gather=False: bilinear
+    lookups in the f32 grids, the alpha volume through sample_alpha) over a
+    sample group of 4, against the port's render_rays on that route (eval,
+    no compaction), JAX's render_rays_sp on it, and the quad route's
+    render_rays_sp (the same math): rtol 1e-5, atol 2e-5 as above."""
+    world, shape = ranks.SP_CASES[ranks.GRID_SP_CASE]
+    cfg = ttf.TensorfConfig(**ranks.TF_KW, fast_gather=False)
+    alpha = ranks.ball() if occ else None
+    rays_o, rays_d = (torch.from_numpy(a) for a in ranks.sp_rays())
+    with torch.no_grad():
+        rgb, depth = trender.render_rays(ranks.jax_field(inputs[1]), cfg, rays_o, rays_d, is_train=False,
+                                         white_bg=True,
+                                         alpha_volume=None if alpha is None else torch.from_numpy(alpha))
+    j_rgb, j_depth = _jax_sp(inputs[1], shape, alpha, fast_gather=False)
+    for rank in range(world):
+        got = ranks.result(four_ranks, "sp", rank)
+        case = ranks.GRID_SP_CASE
+        for ref in ((rgb.numpy(), depth.numpy()), (j_rgb, j_depth),
+                    (got[f"{case}/rgb{occ}"], got[f"{case}/depth{occ}"])):
+            np.testing.assert_allclose(got[f"{case}/grid/rgb{occ}"], ref[0], rtol=1e-5, atol=2e-5)
+            np.testing.assert_allclose(got[f"{case}/grid/depth{occ}"], ref[1], rtol=1e-5, atol=2e-5)
 
 
 def test_shard_batch_splits_views_with_their_rays():

@@ -48,6 +48,9 @@ SP_CASES = {
     "sample4": (4, (4,)),
     "data2xsample2": (4, (2, 2)),
 }
+# the case also rendered on the grid-sample route (fast_gather=False): a
+# sample group of 4, two of its 26 samples padding
+GRID_SP_CASE = "sample4"
 TIMEOUT_S = 60
 # torch threads per rank (the suite runs several test files at once)
 THREADS = 2
@@ -214,16 +217,18 @@ def ball(grid: int = 12) -> np.ndarray:
     return ((xx**2 + yy**2 + zz**2) < 0.6**2).astype(np.float32)
 
 
-def sp_render(inputs: dict, mesh) -> dict[str, np.ndarray]:
+def sp_render(inputs: dict, mesh, grid_route: bool = False) -> dict[str, np.ndarray]:
     """render_rays_sp of JAX's field init over the rays of sp_rays, with no
-    alpha volume and with the ball."""
+    alpha volume and with the ball; with `grid_route`, also on the
+    grid-sample route (fast_gather=False) under "grid/" keys."""
     params = jax_field(inputs)
-    cfg = ttf.TensorfConfig(**TF_KW)
     rays_o, rays_d = (torch.from_numpy(a) for a in sp_rays())
     out = {}
-    for occ, av in (("", None), ("-occ", torch.from_numpy(ball()))):
-        rgb, depth = sp.render_rays_sp(params, cfg, rays_o, rays_d, mesh, alpha_volume=av)
-        out[f"rgb{occ}"], out[f"depth{occ}"] = rgb.numpy(), depth.numpy()
+    for route, kw in (("", {}), ("grid/", dict(fast_gather=False)))[: 1 + grid_route]:
+        cfg = ttf.TensorfConfig(**TF_KW, **kw)
+        for occ, av in (("", None), ("-occ", torch.from_numpy(ball()))):
+            rgb, depth = sp.render_rays_sp(params, cfg, rays_o, rays_d, mesh, alpha_volume=av)
+            out[f"{route}rgb{occ}"], out[f"{route}depth{occ}"] = rgb.numpy(), depth.numpy()
     return out
 
 
@@ -290,7 +295,7 @@ def job_sp(rank: int, world: int, inputs: dict) -> dict:
             continue
         mesh = (sp.make_sp_mesh(shape[0], "cpu") if len(shape) == 1
                 else sp.make_dp_sp_mesh(*shape, device_type="cpu"))
-        out.update({f"{case}/{k}": v for k, v in sp_render(inputs, mesh).items()})
+        out.update({f"{case}/{k}": v for k, v in sp_render(inputs, mesh, grid_route=case == GRID_SP_CASE).items()})
     return out
 
 
