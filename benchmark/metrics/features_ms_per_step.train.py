@@ -1,0 +1,20 @@
+"""Device ms a training step spends in the field features (models/tensorf.py:
+the quad tables, the density and appearance gathers, lerps and products,
+forward and backward, K2), from the card's stamps inside each captured step
+(localrf_tpu_torch/utils/profiling.py: each stamp opens an interval of one
+group, so the four groups sum to the step's span), over the traced steps.
+None where the program records no stamps."""
+
+
+def read(ctx: dict):
+    if not ctx["traced"].get("steps"):
+        return None
+    try:
+        from localrf_tpu_torch.utils import profiling
+    except ImportError:
+        return None
+    summary = getattr(profiling, "summary", None)
+    train = summary().get("train") if summary is not None else None
+    if not train or not train["steps"]:
+        return None
+    return train["groups_ns"]["features"] / train["steps"] / 1e6

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import profiling
+
 
 class DevicePixelPool:
     def __init__(self, dataset, capacity: int, device="cuda"):
@@ -58,11 +60,15 @@ class DevicePixelPool:
         if self.ds.load_flow:
             host.update(fwd_flow=self.ds.all_fwd_flow, bwd_flow=self.ds.all_bwd_flow,
                         fwd_mask=self.ds.all_fwd_mask, bwd_mask=self.ds.all_bwd_mask)
+        n_bytes = 0
         for name, src in host.items():
             arr = self.arrays[name]
-            part = np.asarray(src[sl], np.float32).reshape((-1, *arr.shape[1:]))
-            arr[dst].copy_(torch.from_numpy(np.ascontiguousarray(part)))
+            part = np.ascontiguousarray(np.asarray(src[sl], np.float32).reshape((-1, *arr.shape[1:])))
+            arr[dst].copy_(torch.from_numpy(part))
+            n_bytes += part.nbytes
         self.slot_of_frame[frame] = slot
+        profiling.count("pool.upload_frames")
+        profiling.count("pool.upload_bytes", n_bytes)
 
     def slots_for(self, view_ids) -> np.ndarray:
         return np.asarray([self.slot_of_frame[int(v)] for v in np.asarray(view_ids)], np.int64)

@@ -31,7 +31,13 @@ one memory pool: they never run at once. Nothing falls back to eager steps:
 a failed capture or replay raises.
 
 The kernel wrappers' launch counters (LAUNCHES) count at capture, not at
-replay; a profiler trace of a replayed chunk shows which kernels ran.
+replay, and a host span inside the step runs only at capture too. What a
+replay does is seen on the card: every step graph holds the tracer's
+device stamps (utils/profiling.py) at its module boundaries, which write
+one row of this executor's stamp ring (`ring`) at each replay, the row
+taken from the step's static inputs; a profiler trace of a replayed chunk
+shows which kernels ran. `captures` and `replays` count here, and
+`run_chunk` hands them to the tracer's counters while it records.
 """
 from __future__ import annotations
 
@@ -39,6 +45,7 @@ import contextlib
 
 import torch
 
+from ..utils import profiling
 from .step import FieldState, IntrState, PoseState, StepBranches, StepStatics, metric_names, train_core
 from ..optim import AdamState, PyTreeAdamState
 
@@ -94,7 +101,7 @@ def _sync_check():
 class _Buffers:
     """The static buffers one set of graphs reads and writes."""
 
-    def __init__(self, pose: PoseState, intr: IntrState, seqs: dict[str, dict], n_metrics: int):
+    def __init__(self, pose: PoseState, intr: IntrState, seqs: dict[str, dict], n_metrics: int, ring_rows: int):
         self.pose = _pose_from([torch.empty_like(t) for t in _pose_leaves(pose)])
         self.intr = _intr_from([torch.empty_like(t) for t in _intr_leaves(intr)], intr)
         # step inputs: {"inputs": ..., "scalars": ..., "noise": ...}, each {key: one step's tensor}
@@ -103,6 +110,8 @@ class _Buffers:
             for part, seq in seqs.items()
         }
         self.metrics = torch.empty((n_metrics,), device=pose.r.device)
+        # every step's device stamps, row step["stamp"]["row"]
+        self.stamps = profiling.train_ring(ring_rows, pose.r.device, self.step["stamp"]["row"])
 
     def step_leaves(self) -> list[torch.Tensor]:
         return [t for part in self.step.values() for t in part.values()]
@@ -117,6 +126,7 @@ class ChunkGraphs:
             raise ValueError(f"ChunkGraphs captures CUDA graphs, got device {self.device}")
         self.graphs: dict[tuple[StepStatics, StepBranches], torch.cuda.CUDAGraph] = {}
         self.captures = 0  # graphs captured since construction
+        self.replays = 0  # graph replays since construction
         self._binding = None
         self._buf: _Buffers | None = None
         self._pool = None
@@ -126,6 +136,11 @@ class ChunkGraphs:
 
     def __len__(self) -> int:
         return len(self.graphs)
+
+    @property
+    def ring(self) -> profiling.StampRing | None:
+        """The stamp ring the graphs write (row k at a chunk's step k)."""
+        return None if self._buf is None else self._buf.stamps
 
     def drop(self) -> None:
         """Release every graph (and its memory) and the static buffers."""
@@ -144,7 +159,9 @@ class ChunkGraphs:
         the mesh must already have made one collective eagerly (NCCL makes
         its communicator at the first, which a capture cannot do):
         LocalTensorfs.set_mesh does, with its broadcast of the state."""
-        seqs = {"inputs": inputs_seq, "scalars": scalars_seq, "noise": noise_seq}
+        ring_rows = max(profiling.RING_ROWS, n_steps + 1)
+        seqs = {"inputs": inputs_seq, "scalars": scalars_seq, "noise": noise_seq,
+                "stamp": {"row": torch.arange(n_steps, device=self.device)}}
         names = metric_names(statics)
         binding = (
             tuple(_addr(t) for t in field.params.parameters()),
@@ -156,10 +173,11 @@ class ChunkGraphs:
             tuple((part, k, tuple(v.shape[1:]), v.dtype) for part, seq in seqs.items()
                   for k, v in seq.items()),
             id(mesh),
+            ring_rows,
         )
         if binding != self._binding:
             self.drop()
-            self._buf = _Buffers(pose, intr, seqs, len(names))
+            self._buf = _Buffers(pose, intr, seqs, len(names), ring_rows)
             self._binding = binding
         buf = self._buf
         _copy_into(_pose_leaves(buf.pose), _pose_leaves(pose))
@@ -167,12 +185,15 @@ class ChunkGraphs:
 
         def step(branches: StepBranches):
             b = buf.step
-            _, new_pose, _, metrics = train_core(
-                field, buf.pose, buf.intr, batch_of(b["inputs"]), b["scalars"], statics, b["noise"],
-                alpha_volume, branches, mesh,
-            )
-            _copy_into(_pose_leaves(buf.pose), _pose_leaves(new_pose))
-            buf.metrics.copy_(torch.stack([metrics[n] for n in names]))
+            with profiling.stamping(buf.stamps):
+                profiling.stamp("start")
+                _, new_pose, _, metrics = train_core(
+                    field, buf.pose, buf.intr, batch_of(b["inputs"]), b["scalars"], statics, b["noise"],
+                    alpha_volume, branches, mesh,
+                )
+                _copy_into(_pose_leaves(buf.pose), _pose_leaves(new_pose))
+                buf.metrics.copy_(torch.stack([metrics[n] for n in names]))
+                profiling.stamp("end")
 
         out = torch.empty((n_steps, len(names)), device=self.device)
         streams = [v for seq in seqs.values() for v in seq.values()]
@@ -184,6 +205,7 @@ class ChunkGraphs:
                 self.graphs[key] = self._warm_up_and_capture(lambda: step(key[1]))
             else:
                 graph.replay()
+                self.replays += 1
             out[k].copy_(buf.metrics)
         return field, buf.pose, buf.intr, {n: out[:, i] for i, n in enumerate(names)}
 
@@ -199,7 +221,7 @@ class ChunkGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self._pool):
+        with profiling.span("graph.capture"), torch.cuda.graph(graph, pool=self._pool):
             step()
         self.captures += 1
         return graph

@@ -42,6 +42,7 @@ from ..parallel.sharding import (
     replicate_tree,
     shard_batch,
 )
+from ..utils import profiling
 from .graph import ChunkGraphs
 from .render import draw_noise
 from .step import (
@@ -563,6 +564,10 @@ class LocalTensorfs:
         occupancy refresh, can_add_rf, the rescale at rf_iter 1) falls
         strictly inside the chunk; the same host schedule replays in
         run_chunk. Index-only batches when a pixel pool is attached."""
+        with profiling.span("plan_chunk", unit="chunk"):
+            return self._plan_chunk(dataset, optimize_poses, max_len)
+
+    def _plan_chunk(self, dataset, optimize_poses: bool, max_len: int) -> list[dict]:
         c = self.cfg
         batches = []
         sim_rf_iter = self.rf_iter[-1]
@@ -635,25 +640,29 @@ class LocalTensorfs:
         bookkeeping as a sequence of optimizer_step /
         optimizer_step_poses_only calls (test-pose batches are pose-only
         steps), the same noise stream, one read-back of the metrics. Returns
-        can_add_rf after the last step."""
+        can_add_rf after the last step. While the tracer records: host spans
+        for each part (pool_sync, schedule, upload, replay, readback, stamps,
+        events), the steps' device stamps read after the read-back, and the
+        graphs' captures and replays as counters."""
         if not batches:
             return False
-        self._replicate()
-        k = len(batches)
+        with profiling.span("run_chunk", unit="chunk"):
+            return self._run_chunk(batches, optimize_poses)
+
+    def _schedule(self, batches: list[dict]) -> tuple[list[dict], list[dict], int]:
+        """Each step's host scalars and host batch (index streams with a
+        pool), advancing the schedule as the steps will; returns them and
+        the last joint step's pre-increment rf_iter."""
         scal_seq: list[dict] = []
         host_batches: list[dict] = []
         rf_iter_pre_last = self.rf_iter[-1]
-        use_pool = self.pool is not None
-        if use_pool:
-            self.pool.sync()
-
         for b in batches:
             pose_only = bool(b["train_test_poses"])
             if not pose_only:
                 self._schedule_entry()
                 rf_iter_pre_last = self.rf_iter[-1]
             scal_seq.append(self._scalars_py(pose_only))
-            if use_pool:
+            if self.pool is not None:
                 hb = {
                     "px": np.asarray(b["idx"], np.int64) % self.pool.n_px,
                     "slots": self.pool.slots_for(b["view_ids"]),
@@ -665,41 +674,69 @@ class LocalTensorfs:
             host_batches.append(hb)
             if not pose_only and self.is_refining:
                 self.rf_iter[-1] += 1
+        return scal_seq, host_batches, rf_iter_pre_last
 
-        stacked = self._shard({key: np.stack([hb[key] for hb in host_batches]) for key in host_batches[0]},
-                              POOL_SHARDED_KEYS if use_pool else _SHARDED_KEYS, 1)
-        stacked = {key: torch.from_numpy(np.ascontiguousarray(v)).to(self.device) for key, v in stacked.items()}
-        scalars = stack_scalars(scal_seq, self.device)
-        branches = [StepBranches.of(sc) for sc in scal_seq]
-        f = self.fields[-1]
-        statics = self._statics(optimize_poses, stacked["view_ids"].shape[1])
-        # the noise stream of k sequential optimizer_step calls, in step order
-        noise = stack_noise([self._next_noise(statics.cfg) for _ in range(k)])
+    def _run_chunk(self, batches: list[dict], optimize_poses: bool) -> bool:
+        self._replicate()
+        k = len(batches)
+        use_pool = self.pool is not None
+        with profiling.span("pool_sync"):
+            if use_pool:
+                self.pool.sync()
+        with profiling.span("schedule"):
+            scal_seq, host_batches, rf_iter_pre_last = self._schedule(batches)
+        with profiling.span("upload"):
+            stacked = self._shard({key: np.stack([hb[key] for hb in host_batches]) for key in host_batches[0]},
+                                  POOL_SHARDED_KEYS if use_pool else _SHARDED_KEYS, 1)
+            stacked = {key: np.ascontiguousarray(v) for key, v in stacked.items()}
+            profiling.count("h2d.copies", len(stacked))
+            profiling.count("h2d.bytes", sum(v.nbytes for v in stacked.values()))
+            stacked = {key: torch.from_numpy(v).to(self.device) for key, v in stacked.items()}
+            scalars = stack_scalars(scal_seq, self.device)
+            branches = [StepBranches.of(sc) for sc in scal_seq]
+            f = self.fields[-1]
+            statics = self._statics(optimize_poses, stacked["view_ids"].shape[1])
+            # the noise stream of k sequential optimizer_step calls, in step order
+            noise = stack_noise([self._next_noise(statics.cfg) for _ in range(k)])
         field_state = FieldState(f["params"], f["opt"])
-        if use_pool:
-            out = train_chunk_pooled(
-                field_state, self._pose_dev, self.intr, self.pool.arrays, stacked, scalars, statics,
-                noise, k, self.pool.n_px, f["alpha_volume"], branches_seq=branches, graphs=self._graphs,
-                mesh=self.mesh,
-            )
-        else:
-            out = train_chunk(
-                field_state, self._pose_dev, self.intr, stacked, scalars, statics, noise, k,
-                f["alpha_volume"], branches_seq=branches, graphs=self._graphs, mesh=self.mesh,
-            )
+        recording = profiling.recording()
+        graphs = self._graphs
+        # without graphs, the loop stamps into a ring of this chunk while recording
+        stamps = profiling.train_ring(k, self.device) if recording and graphs is None else None
+        captures, replays = (graphs.captures, graphs.replays) if graphs is not None else (0, 0)
+        with profiling.span("replay"):
+            if use_pool:
+                out = train_chunk_pooled(
+                    field_state, self._pose_dev, self.intr, self.pool.arrays, stacked, scalars, statics,
+                    noise, k, self.pool.n_px, f["alpha_volume"], branches_seq=branches, graphs=graphs,
+                    mesh=self.mesh, stamps=stamps,
+                )
+            else:
+                out = train_chunk(
+                    field_state, self._pose_dev, self.intr, stacked, scalars, statics, noise, k,
+                    f["alpha_volume"], branches_seq=branches, graphs=graphs, mesh=self.mesh, stamps=stamps,
+                )
         new_field, self._pose_dev, self.intr, metrics = out
         f["params"], f["opt"] = new_field.params, new_field.opt
         # one read-back per chunk
-        names = list(metrics)
-        values = torch.stack([metrics[n] for n in names], dim=1).cpu().numpy()
+        with profiling.span("readback"):
+            names = list(metrics)
+            values = torch.stack([metrics[n] for n in names], dim=1).cpu().numpy()
         self.chunk_metrics = {n: values[:, i] for i, n in enumerate(names)}
         self.last_metrics = {n: float(values[-1, i]) for i, n in enumerate(names)}
+        if recording:
+            with profiling.span("stamps"):
+                profiling.record_steps(graphs.ring if graphs is not None else stamps, k)
+            if graphs is not None:
+                profiling.count("graph.captures", graphs.captures - captures)
+                profiling.count("graph.replays", graphs.replays - replays)
 
         # device-side events keyed on the last joint step's pre-increment iter
-        rf_iter_saved = self.rf_iter[-1]
-        self.rf_iter[-1] = rf_iter_pre_last
-        self._apply_post_step_events()
-        self.rf_iter[-1] = rf_iter_saved
+        with profiling.span("events"):
+            rf_iter_saved = self.rf_iter[-1]
+            self.rf_iter[-1] = rf_iter_pre_last
+            self._apply_post_step_events()
+            self.rf_iter[-1] = rf_iter_saved
         return self.rf_iter[-1] >= self.n_iters - 1
 
     # ------------------------------------------------------------------
@@ -784,96 +821,126 @@ class LocalTensorfs:
         zero-filled frames), whose callers all go on with it.
         Returns tensors on the model's device: rgb [N, 3], depth [N],
         directions [N, 3], ij [N, 2]."""
-        self._replicate()
-        self.sync_window_to_host()
-        view_ids = np.asarray(view_ids)
-        if blending_weights is None:
-            blending_weights = self.blending_weights[view_ids]
-        if cam2world is None:
-            cam2world = self.get_cam2world(view_ids)
-        if world2rf is None:
-            world2rf = self.world2rf
-        active_rf_ids = [int(i) for i in np.nonzero(blending_weights.sum(axis=0))[0]]
-        if not active_rf_ids:
-            raise RuntimeError("No valid field for the requested views")
+        with profiling.span("forward_eval", unit="frame"):
+            return self._forward_eval(ray_ids, view_ids, w, h, cam2world, world2rf, blending_weights, chunk,
+                                      test_id, floater_thresh)
 
-        dev = self.device
-        focal = self.focal(w)
-        center = self.center(w, h)
-        kw = dict(
-            w=w, h=h, floater_thresh=floater_thresh, fov360=(self.cfg.fov == 360),
-            refine=1.0 if self.is_refining else 0.0,
-            focal=torch.tensor(focal, dtype=torch.float32, device=dev),
-            center=torch.from_numpy(center).to(dev),
-        )
-        n_rays = ray_ids.shape[0]
-        rays_per_view = n_rays // len(view_ids)
-        chunk = max(chunk // len(active_rf_ids), 1)
-        n_chunks = (n_rays + chunk - 1) // chunk
-        n_pad = n_chunks * chunk
-        # this rank's rays: [lo, lo + part) of every chunk
-        rank, world = (0, 1) if self.mesh is None else data_rank(self.mesh)
-        split = world > 1 and chunk % world == 0
-        part = chunk // world if split else chunk
-        lo = rank * part if split else 0
-        ids = torch.from_numpy(np.asarray(ray_ids, np.int64)).to(dev)
-        # the last chunk padded with ray id 0: one chunk shape a frame
-        ids_p = torch.cat([ids, ids.new_zeros(n_pad - n_rays)])
-        bw = torch.from_numpy(np.asarray(blending_weights, np.float32)).to(dev)  # [V, n_rf]
-        # the padded frame's blended rgb (columns 0-2) and depth (column 3)
-        out = torch.zeros((n_pad, 4), device=dev)
+    def _forward_eval(self, ray_ids, view_ids, w, h, cam2world, world2rf, blending_weights, chunk, test_id,
+                      floater_thresh):
+        """forward_eval's body in three host spans (prologue, chunks,
+        epilogue). While the tracer records, the card stamps the frame's
+        entry and end (row 0 of the frame's ring) and each chunk and
+        field's start, features and end (one row each)."""
+        with profiling.span("prologue"):
+            view_ids = np.asarray(view_ids)
+            if blending_weights is None:
+                blending_weights = self.blending_weights[view_ids]
+            active_rf_ids = [int(i) for i in np.nonzero(blending_weights.sum(axis=0))[0]]
+            if not active_rf_ids:
+                raise RuntimeError("No valid field for the requested views")
+            n_rays = ray_ids.shape[0]
+            rays_per_view = n_rays // len(view_ids)
+            chunk = max(chunk // len(active_rf_ids), 1)
+            n_chunks = (n_rays + chunk - 1) // chunk
+            n_pad = n_chunks * chunk
+            dev = self.device
+            ring = profiling.eval_ring(n_chunks * len(active_rf_ids), dev)
+            if ring is not None:
+                ring.stamp("start")
+            self._replicate()
+            self.sync_window_to_host()
+            if cam2world is None:
+                cam2world = self.get_cam2world(view_ids)
+            if world2rf is None:
+                world2rf = self.world2rf
 
-        def cam2rf(c2w: np.ndarray, rf_id: int) -> torch.Tensor:
-            c2w = c2w.copy()
-            c2w[..., :3, 3] += world2rf[rf_id]
-            return torch.from_numpy(np.ascontiguousarray(c2w, np.float32)).to(dev)
-
-        if len(view_ids) == 1:
-            mine = (torch.arange(n_chunks, device=dev)[:, None] * chunk + lo
-                    + torch.arange(part, device=dev)[None]).reshape(-1)
-            for rf_id in active_rf_ids:
-                f = self.fields[rf_id]
-                rgb, depth = render_frame(
-                    self._eval_params(f), f["cfg"], ids_p[mine].reshape(n_chunks, part),
-                    cam2rf(cam2world[0], rf_id), alpha_volume=self._eval_alpha(f), **kw,
-                )
-                out[mine] += torch.cat([rgb, depth[:, None]], dim=1) * bw[0, rf_id]
-        else:
-            # padded rays weigh 0
-            bw_exp = torch.cat([bw.repeat_interleave(rays_per_view, dim=0), bw.new_zeros(n_pad - n_rays, bw.shape[1])])
-            c2w_exp = np.repeat(cam2world, rays_per_view, axis=0)
-            c2w_exp = np.concatenate([c2w_exp, np.repeat(c2w_exp[-1:], n_pad - n_rays, axis=0)])
-            fields = []
-            for rf_id in active_rf_ids:
-                f = self.fields[rf_id]
-                params = self._eval_params(f)
-                quad = build_combined_quad_views(params, f["cfg"]) if f["cfg"].fast_gather else None
-                fields.append((rf_id, f, params, quad, cam2rf(c2w_exp, rf_id)))
-            for ci in range(n_chunks):
-                sl = slice(ci * chunk + lo, ci * chunk + lo + part)
-                for rf_id, f, params, quad, c2rf in fields:
-                    rgb, depth, _, _ = render_chunk(
-                        params, f["cfg"], ids_p[sl], c2rf[sl], alpha_volume=self._eval_alpha(f),
-                        quad=quad, **kw,
-                    )
-                    out[sl] += torch.cat([rgb, depth[:, None]], dim=1) * bw_exp[sl, rf_id, None]
-        if split:
-            all_sum_(out, self.mesh)
-        rgbs, depths = out[:n_rays, :3].contiguous(), out[:n_rays, 3].contiguous()
-
-        if self.cfg.lr_exposure_init > 0:
-            rgbs = _apply_exposure(
-                rgbs, torch.from_numpy(self.exp_all).to(dev), torch.from_numpy(view_ids.astype(np.int64)).to(dev),
-                rays_per_view, torch.tensor(self.n_frames, device=dev), 1.0 if test_id else 0.0,
+            focal = self.focal(w)
+            center = self.center(w, h)
+            kw = dict(
+                w=w, h=h, floater_thresh=floater_thresh, fov360=(self.cfg.fov == 360),
+                refine=1.0 if self.is_refining else 0.0,
+                focal=torch.tensor(focal, dtype=torch.float32, device=dev),
+                center=torch.from_numpy(center).to(dev),
             )
-        rgbs = torch.clamp(rgbs, 0.0, 1.0)
+            # this rank's rays: [lo, lo + part) of every chunk
+            rank, world = (0, 1) if self.mesh is None else data_rank(self.mesh)
+            split = world > 1 and chunk % world == 0
+            part = chunk // world if split else chunk
+            lo = rank * part if split else 0
+            ids = torch.from_numpy(np.asarray(ray_ids, np.int64)).to(dev)
+            # the last chunk padded with ray id 0: one chunk shape a frame
+            ids_p = torch.cat([ids, ids.new_zeros(n_pad - n_rays)])
+            bw = torch.from_numpy(np.asarray(blending_weights, np.float32)).to(dev)  # [V, n_rf]
+            # the padded frame's blended rgb (columns 0-2) and depth (column 3)
+            out = torch.zeros((n_pad, 4), device=dev)
 
-        i = ids % w
-        j = (ids // w) % h
-        # in float64 and rounded once, as JAX's numpy does
-        directions = torch.stack([
-            (i.double() + 0.5 - float(center[0])) / focal,
-            -(j.double() + 0.5 - float(center[1])) / focal,
-            -torch.ones_like(i, dtype=torch.float64),
-        ], dim=-1).float()
-        return rgbs, depths, directions, torch.stack([i, j], dim=-1)
+            def cam2rf(c2w: np.ndarray, rf_id: int) -> torch.Tensor:
+                c2w = c2w.copy()
+                c2w[..., :3, 3] += world2rf[rf_id]
+                return torch.from_numpy(np.ascontiguousarray(c2w, np.float32)).to(dev)
+
+            if len(view_ids) > 1:
+                # padded rays weigh 0
+                bw_exp = torch.cat([bw.repeat_interleave(rays_per_view, dim=0),
+                                    bw.new_zeros(n_pad - n_rays, bw.shape[1])])
+                c2w_exp = np.repeat(cam2world, rays_per_view, axis=0)
+                c2w_exp = np.concatenate([c2w_exp, np.repeat(c2w_exp[-1:], n_pad - n_rays, axis=0)])
+                fields = []
+                for rf_id in active_rf_ids:
+                    f = self.fields[rf_id]
+                    params = self._eval_params(f)
+                    quad = build_combined_quad_views(params, f["cfg"]) if f["cfg"].fast_gather else None
+                    fields.append((rf_id, f, params, quad, cam2rf(c2w_exp, rf_id)))
+
+        with profiling.span("chunks"), profiling.stamping(ring):
+            if ring is not None:
+                ring.row = 1
+            if len(view_ids) == 1:
+                mine = (torch.arange(n_chunks, device=dev)[:, None] * chunk + lo
+                        + torch.arange(part, device=dev)[None]).reshape(-1)
+                for rf_id in active_rf_ids:
+                    f = self.fields[rf_id]
+                    rgb, depth = render_frame(
+                        self._eval_params(f), f["cfg"], ids_p[mine].reshape(n_chunks, part),
+                        cam2rf(cam2world[0], rf_id), alpha_volume=self._eval_alpha(f), **kw,
+                    )
+                    out[mine] += torch.cat([rgb, depth[:, None]], dim=1) * bw[0, rf_id]
+            else:
+                for ci in range(n_chunks):
+                    sl = slice(ci * chunk + lo, ci * chunk + lo + part)
+                    for rf_id, f, params, quad, c2rf in fields:
+                        profiling.stamp("start")
+                        rgb, depth, _, _ = render_chunk(
+                            params, f["cfg"], ids_p[sl], c2rf[sl], alpha_volume=self._eval_alpha(f),
+                            quad=quad, **kw,
+                        )
+                        out[sl] += torch.cat([rgb, depth[:, None]], dim=1) * bw_exp[sl, rf_id, None]
+                        profiling.stamp("end")
+                        if ring is not None:
+                            ring.row += 1
+
+        with profiling.span("epilogue"):
+            if split:
+                all_sum_(out, self.mesh)
+            rgbs, depths = out[:n_rays, :3].contiguous(), out[:n_rays, 3].contiguous()
+
+            if self.cfg.lr_exposure_init > 0:
+                rgbs = _apply_exposure(
+                    rgbs, torch.from_numpy(self.exp_all).to(dev),
+                    torch.from_numpy(view_ids.astype(np.int64)).to(dev),
+                    rays_per_view, torch.tensor(self.n_frames, device=dev), 1.0 if test_id else 0.0,
+                )
+            rgbs = torch.clamp(rgbs, 0.0, 1.0)
+            if ring is not None:
+                ring.row = 0
+                ring.stamp("end")
+
+            i = ids % w
+            j = (ids // w) % h
+            # in float64 and rounded once, as JAX's numpy does
+            directions = torch.stack([
+                (i.double() + 0.5 - float(center[0])) / focal,
+                -(j.double() + 0.5 - float(center[1])) / focal,
+                -torch.ones_like(i, dtype=torch.float64),
+            ], dim=-1).float()
+            return rgbs, depths, directions, torch.stack([i, j], dim=-1)

@@ -23,6 +23,7 @@ from ..ops.occupancy import (
     pack_alpha_corners,
 )
 from ..ops.rays import sample_ray_contracted
+from ..utils import profiling
 from .tensorf import (
     TensorfConfig,
     apply_mlp,
@@ -96,8 +97,6 @@ def render_rays(
     )
     r, s = pts.shape[0], pts.shape[1]
     pts_norm = normalize_coord(pts, cfg)
-    if quad is None and cfg.fast_gather:
-        quad = build_combined_quad_views(params, cfg)
 
     compact = alpha_volume is not None and 0 < cfg.occ_m < s and floater_thresh == 0.0
     probe = cfg.occ_probe_ds if compact and 1 < cfg.occ_probe_ds < s else 0
@@ -161,8 +160,13 @@ def render_rays(
         )
         s = cfg.occ_m
 
-    flat = pts_norm.reshape(-1, 3)
+    # the field features, between the tracer's marks: made after the
+    # sampling and the cull, so their backward runs as one block (autograd
+    # runs later-made nodes first), the quad tables' backward included
+    (flat,) = profiling.mark("features", "features.bwd_end", pts_norm.reshape(-1, 3))
     vd = viewdirs.detach()[:, None, :].expand(r, s, 3).reshape(-1, 3)
+    if quad is None and cfg.fast_gather:
+        quad = build_combined_quad_views(params, cfg)
     rgb_all = app_feat_all = None
     if not cfg.fast_gather:
         # the grid-sample route: appearance only once the weights are known
@@ -172,6 +176,8 @@ def render_rays(
         sigma_feat, rgb_all = fused_march_features(params, quad, flat, vd, cfg)
     else:
         sigma_feat, app_feat_all = compute_density_app_features(params, flat, cfg, quad)
+    sigma_feat, rgb_all, app_feat_all = profiling.mark("features.end", "features.bwd", sigma_feat, rgb_all,
+                                                       app_feat_all)
     sigma = feature2density(sigma_feat.reshape(r, s), cfg)
 
     if compact:

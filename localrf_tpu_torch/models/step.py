@@ -33,6 +33,7 @@ from ..optim import (
     scale_lr,
 )
 from ..parallel.sharding import all_mean, captures_collectives
+from ..utils import profiling
 from .render import render_rays
 from .tensorf import TensorfConfig, build_combined_quad_views, density_l1, tv_loss_app, tv_loss_density
 
@@ -130,11 +131,15 @@ def stack_scalars(seq: list[dict], device) -> dict:
     copies: the float32 scalars packed into one [K, n] array (each key a
     column view), world2rf [K, 3] and n_valid [K] int64."""
     keys = [k for k in seq[0] if k not in ("world2rf", "n_valid")]
-    packed = torch.from_numpy(np.asarray([[sc[k] for k in keys] for sc in seq], np.float32)).to(device)
+    host = (np.asarray([[sc[k] for k in keys] for sc in seq], np.float32),
+            np.stack([np.asarray(sc["world2rf"], np.float32) for sc in seq]),
+            np.asarray([sc["n_valid"] for sc in seq], np.int64))
+    profiling.count("h2d.copies", len(host))
+    profiling.count("h2d.bytes", sum(a.nbytes for a in host))
+    packed, world2rf, n_valid = (torch.from_numpy(a).to(device) for a in host)
     out = {k: packed[:, i] for i, k in enumerate(keys)}
-    out["world2rf"] = torch.from_numpy(
-        np.stack([np.asarray(sc["world2rf"], np.float32) for sc in seq])).to(device)
-    out["n_valid"] = torch.from_numpy(np.asarray([sc["n_valid"] for sc in seq], np.int64)).to(device)
+    out["world2rf"] = world2rf
+    out["n_valid"] = n_valid
     return out
 
 
@@ -291,12 +296,24 @@ def _losses(field_params, pose, intr_params, statics, batch, scalars, noise, bra
         metrics["depth_loss"] = depth_loss
 
     # TV / density-L1 regularizers with host-computed weights; the branches
-    # are JAX's lax.conds on tv_wd, tv_wa, l1_w > 0, decided on the host
+    # are JAX's lax.conds on tv_wd, tv_wa, l1_w > 0, decided on the host.
+    # The tracer's marks bracket them (their backward runs first, as they
+    # are made last); with no branch on, the same stamps mark an empty span
     zero = torch.zeros((), device=rgb.device)
-    tv = tv_loss_density(field_params) * scalars["tv_wd"] if branches.tv_density else zero
-    if branches.tv_app:
-        tv = tv + tv_loss_app(field_params) * scalars["tv_wa"]
-    l1 = density_l1(field_params, s.cfg) * scalars["l1_w"] if branches.l1 else zero
+    kinds = (("density",) if branches.tv_density or branches.l1 else ()) + (("app",) if branches.tv_app else ())
+    names = [f"{kind}_{part}_{i}" for kind in kinds for part in ("plane", "line") for i in range(3)]
+    if names:
+        reg_params = dict(zip(names, profiling.mark(
+            "regularizer", "regularizer.bwd_end", *(field_params[n] for n in names))))
+        tv = tv_loss_density(reg_params) * scalars["tv_wd"] if branches.tv_density else zero
+        if branches.tv_app:
+            tv = tv + tv_loss_app(reg_params) * scalars["tv_wa"]
+        l1 = density_l1(reg_params, s.cfg) * scalars["l1_w"] if branches.l1 else zero
+        tv, l1 = profiling.mark("regularizer.end", "regularizer.bwd", tv, l1)
+    else:
+        tv = l1 = zero
+        for name in ("regularizer", "regularizer.end", "regularizer.bwd", "regularizer.bwd_end"):
+            profiling.stamp(name)
     total = total + tv + l1
     metrics["tv_loss"] = tv
     metrics["l1_loss"] = l1
@@ -382,6 +399,7 @@ def train_core(
     g_field, (g_r, g_t, g_e), g_intr, metrics = loss_grads(
         field.params, pose, intr.params, s, batch, scalars, noise, alpha_volume, branches, mesh
     )
+    profiling.stamp("adam")
 
     lr_factor = scalars["lr_factor"]
     is_refining = scalars["is_refining"] > 0
@@ -465,7 +483,7 @@ def pooled_batch(pool: dict, idx: dict, px_per_view: int, n_px: int) -> dict:
 
 
 def _run_chunk(field, pose, intr, batch_of, inputs_seq, scalars_seq, statics, noise_seq, n_steps,
-               alpha_volume, branches_seq, graphs, mesh, bound=()):
+               alpha_volume, branches_seq, graphs, mesh, bound=(), stamps=None):
     if len(branches_seq) != n_steps:
         raise ValueError(f"{len(branches_seq)} step branches for {n_steps} steps")
     if graphs is not None:
@@ -476,39 +494,46 @@ def _run_chunk(field, pose, intr, batch_of, inputs_seq, scalars_seq, statics, no
         raise ValueError("a chunk on CUDA replays captured graphs: pass graphs=ChunkGraphs(device)")
     out = []
     for k in range(n_steps):
-        field, pose, intr, metrics = train_core(
-            field, pose, intr, batch_of(row(inputs_seq, k)), row(scalars_seq, k), statics,
-            row(noise_seq, k), alpha_volume, branches_seq[k], mesh,
-        )
-        out.append(metrics)
+        if stamps is not None:
+            stamps.row = k
+        with profiling.stamping(stamps):
+            profiling.stamp("start")
+            field, pose, intr, metrics = train_core(
+                field, pose, intr, batch_of(row(inputs_seq, k)), row(scalars_seq, k), statics,
+                row(noise_seq, k), alpha_volume, branches_seq[k], mesh,
+            )
+            out.append(metrics)
+            profiling.stamp("end")
     return field, pose, intr, {name: torch.stack([m[name] for m in out]) for name in out[0]}
 
 
 def train_chunk(field, pose, intr, batches: dict, scalars_seq: dict, statics: StepStatics,
                 noise_seq: dict, n_steps: int, alpha_volume=None, *,
-                branches_seq: list[StepBranches], graphs=None, mesh=None):
+                branches_seq: list[StepBranches], graphs=None, mesh=None, stamps=None):
     """K training steps on [K, ...]-stacked batches, scalars (stack_scalars)
     and noise (stack_noise); `branches_seq` holds each step's StepBranches.
     On the CPU a loop over train_core; on CUDA every step replays a captured
     graph of one step (`graphs`, a models.graph.ChunkGraphs): the PyTorch
     counterpart of JAX's one lax.scan dispatch; under a gloo `mesh`, whose
-    collectives no graph captures, the loop again. Returns (field, pose,
-    intr, metrics {name: [K]})."""
+    collectives no graph captures, the loop again. The loop stamps step k
+    into row k of `stamps` (a profiling.StampRing, or None); the graphs
+    stamp into their own ring. Returns (field, pose, intr, metrics {name:
+    [K]})."""
     return _run_chunk(field, pose, intr, lambda b: b, batches, scalars_seq, statics, noise_seq,
-                      n_steps, alpha_volume, branches_seq, graphs, mesh)
+                      n_steps, alpha_volume, branches_seq, graphs, mesh, stamps=stamps)
 
 
 def train_chunk_pooled(field, pose, intr, pool: dict, index_seq: dict, scalars_seq: dict,
                        statics: StepStatics, noise_seq: dict, n_steps: int, n_px: int,
                        alpha_volume=None, *, branches_seq: list[StepBranches], graphs=None,
-                       mesh=None):
+                       mesh=None, stamps=None):
     """train_chunk over the device-resident pixel pool (data/pool.py): the
     host ships index streams {"px" [K, B], "slots" [K, V], "view_ids" [K, V],
     "gate" [K, Wc]} and every step gathers its pixel values from `pool`."""
     return _run_chunk(
         field, pose, intr, lambda idx: pooled_batch(pool, idx, statics.px_per_view, n_px),
         index_seq, scalars_seq, statics, noise_seq, n_steps, alpha_volume, branches_seq, graphs,
-        mesh, bound=tuple(pool.values()),
+        mesh, bound=tuple(pool.values()), stamps=stamps,
     )
 
 
@@ -562,8 +587,17 @@ def render_frame(field_params, cfg: TensorfConfig, ray_idx: torch.Tensor, cam2rf
     c2rf = cam2rf[None].expand(chunk, 3, 4)
     rgb = torch.empty((n_chunks, chunk, 3), device=ray_idx.device)
     depth = torch.empty((n_chunks, chunk), device=ray_idx.device)
+    # while the tracer stamps a frame: chunk c at the ring's row cursor + c
+    ring = profiling.active_ring()
+    base = ring.row if ring is not None else 0
     for c in range(n_chunks):
+        if ring is not None:
+            ring.row = base + c
+        profiling.stamp("start")
         rgb[c], depth[c], _, _ = _eval_rays(
             field_params, cfg, ray_idx[c], c2rf, focal, center, w, h, floater_thresh, white_bg,
             fov360, refine, alpha_volume, quad)
+        profiling.stamp("end")
+    if ring is not None:
+        ring.row = base + n_chunks
     return rgb.reshape(-1, 3), depth.reshape(-1)

@@ -66,6 +66,8 @@ SIGNATURES = {
     "lrf_march_bwd": (_P,) * 25 + (_L, _I, _I, _I, _I, _P),
     # -> length of the march backward's packed parameter gradient
     "lrf_march_n_params": (),
+    # ring (int64), step (int64 device scalar or NULL), row, n_slots, slot, stream
+    "lrf_stamp": (_P, _P, _L, _I, _I, _P),
 }
 
 # entry points that return a value, not an error code

@@ -343,19 +343,6 @@ def test_profiling_trace_writes_on_the_cpu(tmp_path):
     assert prof is None
 
 
-def test_throughput_counts_steps_and_rays(monkeypatch):
-    """Throughput: steps over the seconds since reset, times the batch."""
-    clock = iter([10.0, 12.0, 12.0, 20.0, 21.0])
-    monkeypatch.setattr(profiling.time, "perf_counter", lambda: next(clock))
-    t = profiling.Throughput(batch_size=4096)  # t0 = 10
-    t.add()
-    t.add(3)
-    assert t.it_per_sec == 2.0  # 4 steps at 12
-    assert t.rays_per_sec == 2.0 * 4096  # at 12
-    t.reset()  # t0 = 20
-    assert t.it_per_sec == 0.0
-
-
 CLI_FLAGS = [
     "--batch_size", "64", "--n_views", "4", "--n_init_frames", "3", "--n_iters_per_frame", "6",
     "--n_iters_reg", "3", "--N_voxel_init", str(14**3), "--N_voxel_final", str(20**3), "--upsamp_list", "4",
