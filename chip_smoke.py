@@ -25,7 +25,10 @@
    order; on K2's uniform and real-step inputs, indices out of range and
    P = 0: bit for bit against its ordered plain version and a second
    launch, its two sort levels against merged_bins_plain; timed beside K2,
-   with its kernels' device us from one profiled call).
+   with its kernels' device us from one profiled call), and the density L1
+   kernel (the term's value and both gradients on a cubic grid, 300^3 with
+   48 channels and 640^3 with 24: against the blocked path in f32 and f64,
+   bit for bit against a second launch and a captured replay).
 3. One small training step card vs CPU (32^3, f32) for the default path,
    the fused march (--fused_march 1) and the segsum lines (--line_bwd
    segsum); and a small spawn card vs CPU: a 32^3 f32 model spawns a field,
@@ -803,6 +806,98 @@ def check_k4(dev, gen) -> list[dict]:
     return rows
 
 
+# the density L1 kernel: VM-192's 48 channels at 300^3, the default 24 at 640^3
+L1_CASES = ((300, (16, 16, 16)), (640, (8, 8, 8)))
+L1_TOL = 1e-5  # of a gradient's largest entry (tests/test_torch_gpu.py says why)
+# its bound: 3 K fused multiply-adds a voxel on the CUDA cores (f32, 67
+# TFLOP/s on an H100 SXM, NVIDIA's data sheet) or 4 special-function
+# operations a voxel (exp, log1p's log, sqrt's reciprocal root, the
+# division's reciprocal: 16 a clock on each of 132 SMs at 1.98 GHz),
+# whichever takes longer: the two pipes issue side by side
+F32_FLOP_PER_S = 67e12
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+
+
+def _l1_blocked(planes, lines, dtype) -> tuple:
+    """(value, plane gradients..., line gradients...) of the kernel's plain
+    version, models/tensorf.py's density_l1_blocked, on the factors cast to
+    `dtype` (softplus, density_shift -5)."""
+    import torch
+
+    from localrf_tpu_torch.models import tensorf as ttf
+
+    g = lines[0].shape[1]
+    cfg = ttf.TensorfConfig(grid_size=(g, g, g), density_n_comp=tuple(p.shape[0] for p in planes),
+                            density_shift=-5.0)
+    leaves = [t.detach().to(dtype).requires_grad_(True) for t in (*planes, *lines)]
+    params = {f"density_{part}_{i}": leaves[3 * j + i] for j, part in enumerate(("plane", "line")) for i in range(3)}
+    value = ttf.density_l1_blocked(params, cfg)
+    return (value.detach(), *torch.autograd.grad(value, leaves))
+
+
+def check_l1(dev) -> list[dict]:
+    """The density L1 kernel (value and both gradients in one pass) against
+    its plain version (the blocked path, f32): the value within 1e-5
+    relative, each gradient within L1_TOL of its largest entry; the kernel's
+    and the plain version's errors against the blocked path in f64 beside
+    it; two launches and a captured replay equal bit for bit to the eager
+    call; one launch a call. Timed as a replayed graph of 20 calls beside
+    the plain version (f32 einsums and autograd in checkpointed blocks of
+    ~16.8M voxels, eager, as the program ran the term before the kernel)."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import density_l1 as l1
+
+    rows = []
+    for g, ranks in L1_CASES:
+        gen = torch.Generator(device=dev).manual_seed(g)
+        planes = [0.1 * torch.randn(c, g, g, generator=gen, device=dev) for c in ranks]
+        lines = [0.1 * torch.randn(c, g, generator=gen, device=dev) for c in ranks]
+        n0 = l1.LAUNCHES["density_l1"]
+        got = l1._launch(planes, lines, -5.0, False)
+        if l1.LAUNCHES["density_l1"] != n0 + 1:
+            raise AssertionError("density_l1: the call did not count one launch")
+        if not all(torch.equal(a, b) for a, b in zip(got, l1._launch(planes, lines, -5.0, False))):
+            raise AssertionError(f"density_l1 {g}^3: two launches differ")
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            l1._launch(planes, lines, -5.0, False)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            replayed = l1._launch(planes, lines, -5.0, False)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, replayed)):
+            raise AssertionError(f"density_l1 {g}^3: the captured replay differs from the eager call")
+        del graph, replayed
+        ref = _l1_blocked(planes, lines, torch.float32)
+        value_rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+        if value_rel > 1e-5:
+            raise AssertionError(f"density_l1 {g}^3: value {float(got[0])} against {float(ref[0])}")
+        err = max(_close(a, b, 0.0, L1_TOL * float(b.abs().max())) / float(b.abs().max())
+                  for a, b in zip(got[1:], ref[1:]))
+        exact = _l1_blocked(planes, lines, torch.float64)
+        f64_err = {name: max(float((a.double() - b).abs().max() / b.abs().max()) for a, b in zip(out[1:], exact[1:]))
+                   for name, out in (("kernel", got), ("plain", ref))}
+        del exact
+        k, n_vox = sum(ranks), g**3
+        t_ffma, t_sfu = 6 * k * n_vox / F32_FLOP_PER_S * 1e3, 4 * n_vox / SFU_OPS_PER_S * 1e3
+        rows.append(dict(
+            name="density_l1", shape=f"{g}^3, K {k}, f32", main=g == 640, max_abs_err=err,
+            value_rel_err=value_rel, f64_err=f64_err,
+            ms=_time_ms(lambda: l1._launch(planes, lines, -5.0, False)),
+            plain_ms=_time_ms(lambda: _l1_blocked(planes, lines, torch.float32), reps=3, eager=True),
+            library_ms=None, bound_ms=max(t_ffma, t_sfu),
+            bound_by=f"f32 FFMA {t_ffma:.4f} ms beside SFU {t_sfu:.4f} ms",
+            bound_bytes=2 * _nbytes(*planes, *lines), bound_flop=6 * k * n_vox,
+        ))
+        del got, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
 KERNELS = {
     # name -> (source, pallas_call site of the TPU kernel it replaces)
     "fused_weights_fwd": ("localrf_tpu_torch/csrc/composite.cu",
@@ -817,6 +912,8 @@ KERNELS = {
     "march_bwd": ("localrf_tpu_torch/csrc/march.cu", "localrf_tpu/ops/pallas/march.py:380"),
     "segment_sum_merged": ("localrf_tpu_torch/csrc/segment_sum_merged.cu",
                            "localrf_tpu/ops/pallas/binned_scatter.py:365"),
+    "density_l1": ("localrf_tpu_torch/csrc/density_l1.cu",
+                   "none: the JAX package computes the term in jnp (localrf_tpu/models/tensorf.py density_l1)"),
 }
 # K5 is on no training path as it runs; with every sum in a fixed order
 # (deterministic_sums) it takes K2's place as the plane gathers' VJP
@@ -830,16 +927,18 @@ SYMBOLS = {
     "march_fwd": "march_fwd_mma_kernel",
     "march_bwd": "march_bwd_mlp_mma_kernel",
     "segment_sum_merged": "merged_reduce_kernel",
+    "density_l1": "density_l1_kernel",
 }
-# the kernels each training path launches (and no other)
+# the kernels each training path launches (and no other); every step this
+# script trains runs the L1 term on a cubic grid, so density_l1 is on each
 PATH_KERNELS = {
-    "default": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum"},
+    "default": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "density_l1"},
     # K4-bwd sums its line gradient with K3
     "fused_march": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "march_fwd", "march_bwd",
-                    "segment_sum_small"},
-    "segsum": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "segment_sum_small"},
+                    "segment_sum_small", "density_l1"},
+    "segsum": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "segment_sum_small", "density_l1"},
     # the grid-sample route gathers with plain indexing: no K2
-    "grid": {"fused_weights_fwd", "fused_weights_bwd"},
+    "grid": {"fused_weights_fwd", "fused_weights_bwd", "density_l1"},
 }
 # the grid-sample route's top-K shading: bench.py's app_top_k, K of the 332
 # samples a ray keeps at 640^3
@@ -850,8 +949,9 @@ PATH_TF = {"default": {}, "fused_march": {"fused_march": True}, "segsum": {"line
 
 def _counters() -> list[dict]:
     from localrf_tpu_torch.ops.kernels import binned_scatter, composite, march, segsum
+    from localrf_tpu_torch.ops.kernels import density_l1 as l1
 
-    return [composite.LAUNCHES, binned_scatter.LAUNCHES, segsum.LAUNCHES, march.LAUNCHES]
+    return [composite.LAUNCHES, binned_scatter.LAUNCHES, segsum.LAUNCHES, march.LAUNCHES, l1.LAUNCHES]
 
 
 def _launch_counts() -> dict:
@@ -2804,7 +2904,7 @@ def main() -> None:
     rows = check_k1(dev, gen) + check_k2(dev, gen, real) + check_k5(dev, gen, real)
     del real
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows += check_k3(dev, gen, real_lines) + check_k4(dev, gen)
+    rows += check_k3(dev, gen, real_lines) + check_k4(dev, gen) + check_l1(dev)
     del real_lines
     for row in rows:
         extra = (f"  bit for bit = ordered plain = 2nd launch, bins = merged_bins_plain; K2 {row['k2_ms']:.4f}"
@@ -2815,6 +2915,9 @@ def main() -> None:
         if "occupied_tiles" in row:
             extra += (f"  bf16 out err {row['bf16_err']:.3e} (within one ulp); tiles hit"
                       f" {row['occupied_tiles']}, most points in a tile {row['max_tile_points']}")
+        if "f64_err" in row:
+            extra += (f"  value rel err {row['value_rel_err']:.3e}; against f64 (of the largest entry):"
+                      f" kernel {row['f64_err']['kernel']:.3e}, plain {row['f64_err']['plain']:.3e}")
         if "partial_bytes" in row:
             with_partials = (row["bound_bytes"] + row["partial_bytes"]) / HBM_BYTES_PER_S * 1e3
             extra += (f"  bit for bit = ordered plain = 2nd launch; index_add_ err {row['index_add_err']:.3e};"
@@ -2915,6 +3018,10 @@ def main() -> None:
             "bound_by": row["bound_by"], "bound_share": row["bound_ms"] / row["ms"],
             "bound_bytes": row["bound_bytes"], "library_ms": row["library_ms"], "shape": row["shape"],
             "replayed": sum(ph["replayed"][name] for ph in chunks.values()),
+            # the main path's first chunk (counts reset just before it):
+            # wrapper calls at warm-up and capture, kernels per replayed step
+            "main_chunk_launches": chunks["640^3 default"]["launches"][name],
+            "main_chunk_replayed_per_step": chunks["640^3 default"]["replayed"][name] / CHUNK,
         }
         if name in FIXED_ORDER.values():
             # on the fixed-order chunks' path only
@@ -2925,6 +3032,8 @@ def main() -> None:
                          max_row_points=row["max_row_points"])
         if "kernel_us" in row:
             entry["kernel_us"] = row["kernel_us"]
+        if "f64_err" in row:
+            entry["f64_err"] = row["f64_err"]
         for r in mine:
             if r["shape"] == EVAL_K1_SHAPE:
                 entry.update(eval_shape=r["shape"], eval_ms=r["ms"], eval_plain_ms=r["plain_ms"],

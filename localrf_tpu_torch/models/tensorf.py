@@ -36,7 +36,9 @@ from ..ops.grid import (
     resize_align_corners_1d,
     resize_align_corners_2d,
 )
+from ..ops.kernels import density_l1 as l1_kernel
 from ..ops.math import positional_encoding, tv_loss
+from ..utils import profiling
 
 MAT_MODE = ((0, 1), (0, 2), (1, 2))
 VEC_MODE = (2, 1, 0)
@@ -341,12 +343,16 @@ def compute_app_feature(params, pts: torch.Tensor) -> torch.Tensor:
     return torch.matmul(torch.cat(prods, dim=-1), params["basis_mat"])
 
 
+def density_relu(cfg: TensorfConfig) -> bool:
+    """Whether the density activation is relu (else softplus(f + shift));
+    raises for any other cfg.fea2dense_act."""
+    if cfg.fea2dense_act not in ("softplus", "relu"):
+        raise ValueError(cfg.fea2dense_act)
+    return cfg.fea2dense_act == "relu"
+
+
 def feature2density(feat: torch.Tensor, cfg: TensorfConfig) -> torch.Tensor:
-    if cfg.fea2dense_act == "softplus":
-        return F.softplus(feat + cfg.density_shift)
-    if cfg.fea2dense_act == "relu":
-        return F.relu(feat)
-    raise ValueError(cfg.fea2dense_act)
+    return F.relu(feat) if density_relu(cfg) else F.softplus(feat + cfg.density_shift)
 
 
 def apply_mlp(mlp, pts, viewdirs, features, cfg: TensorfConfig, refine=1.0) -> torch.Tensor:
@@ -452,10 +458,26 @@ def _l1_block(cfg: TensorfConfig, *tensors) -> torch.Tensor:
 def density_l1(params, cfg: TensorfConfig) -> torch.Tensor:
     """mean sqrt(density) over the full outer-product grid, each plane's
     [P, D] outer product flattened in its own axis order before the three
-    are summed (the reference's layout quirk). At and above
+    are summed (the reference's layout quirk). A cubic grid on the card
+    takes the kernel (ops/kernels/density_l1.py: one pass for the value and
+    both gradients; there every orientation's voxel p D + d has the same
+    (p, d)) and counts `l1.kernel`; any other grid, and every grid on the
+    CPU, takes density_l1_blocked and counts `l1.blocked`."""
+    g = cfg.grid_size
+    if params["density_plane_0"].device.type == "cuda" and g[0] == g[1] == g[2]:
+        profiling.count("l1.kernel")
+        return l1_kernel.density_l1([params[f"density_plane_{i}"] for i in range(3)],
+                                    [params[f"density_line_{i}"] for i in range(3)],
+                                    cfg.density_shift, density_relu(cfg))
+    profiling.count("l1.blocked")
+    return density_l1_blocked(params, cfg)
+
+
+def density_l1_blocked(params, cfg: TensorfConfig) -> torch.Tensor:
+    """density_l1 in plain PyTorch, on any grid: at and above
     cfg.l1_stream_min_vox voxels the grid is produced in checkpointed blocks
     (same per-voxel values; only the order of the f32 sum differs), so
-    neither pass holds the dense volume."""
+    neither pass holds the dense volume. The kernel's plain version."""
     n_vox = int(np.prod(cfg.grid_size))
     planes = [
         params[f"density_plane_{i}"].reshape(params[f"density_plane_{i}"].shape[0], -1)

@@ -68,10 +68,15 @@ SIGNATURES = {
     "lrf_march_n_params": (),
     # ring (int64), step (int64 device scalar or NULL), row, n_slots, slot, stream
     "lrf_stamp": (_P, _P, _L, _I, _I, _P),
+    # planes a0..a2, lines b0..b2, plane gradients da0..da2, C0, C1, C2, G,
+    # shift, relu, partials (f32), sums (f64), dlines, value, n_blocks, stream
+    "lrf_density_l1": (_P,) * 9 + (_I,) * 4 + (_F, _I) + (_P,) * 4 + (_I, _P),
+    # K, G -> bytes of shared memory a block of the density L1 kernel needs
+    "lrf_density_l1_smem": (_I, _I),
 }
 
 # entry points that return a value, not an error code
-RESTYPES = {"lrf_segment_sum_merged_workspace": ctypes.c_int64}
+RESTYPES = {"lrf_segment_sum_merged_workspace": ctypes.c_int64, "lrf_density_l1_smem": ctypes.c_int64}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

@@ -1,4 +1,4 @@
-"""Time K1, K2, K3, K4 and K5 of two checkouts on one card, in turns.
+"""Time K1, K2, K3, K4, K5 and the L1 term of two checkouts on one card, in turns.
 
     python3 localrf_tpu_torch/scripts/kernel_ab.py --parent DIR [--chunks]
 
@@ -17,7 +17,10 @@ other two plane sums ("real step" is the first of three), and K4
 forward and backward (bf16 tables and MLP, chip_smoke.march_inputs of that
 checkout: G 64, P 4096 x 72 and G 640, P 4096 x 332, line rows x0 drawn
 uniformly; K4-bwd also with x0 sorted within each ray's samples, as a
-march gives them). A time is a CUDA graph of 20 calls (K4: 10) replayed
+march gives them), and the density L1 term forward and backward as a
+training step runs it (models/tensorf.py `density_l1` and autograd: the
+kernel on a cubic grid where the checkout has it) at 300^3 with 48
+channels and 640^3 with 24. A time is a CUDA graph of 20 calls (K4: 10) replayed
 (as a captured training step launches them), per call; each worker also
 lists the device time of every CUDA kernel a K2, K3, K5 or K4-bwd call
 ran (torch.profiler). With --chunks each worker also trains
@@ -150,6 +153,20 @@ def worker(root: str, indices: str) -> dict:
         times[key] = graph_ms(lambda: k4._launch_bwd(plain, gout, "bfloat16"), reps=10)
         kernels[key] = kernel_us(lambda: k4._launch_bwd(plain, gout, "bfloat16"))
         del args, plain, gout
+        torch.cuda.empty_cache()
+    from localrf_tpu_torch.models import tensorf as ttf
+
+    for label, g, ranks in (("300^3 K 48", 300, (16, 16, 16)), ("640^3 K 24", 640, (8, 8, 8))):
+        cfg = ttf.TensorfConfig(grid_size=(g, g, g), density_n_comp=ranks)
+        gen_l1 = torch.Generator(device=dev).manual_seed(2)
+        params = {f"density_{part}_{i}": (0.1 * torch.randn(c, g, *((g,) if part == "plane" else ()),
+                                                             generator=gen_l1, device=dev)).requires_grad_(True)
+                  for part in ("plane", "line") for i, c in enumerate(ranks)}
+        leaves = list(params.values())
+        key = f"L1 fwd+bwd {label}"
+        times[key] = graph_ms(lambda: torch.autograd.grad(ttf.density_l1(params, cfg), leaves))
+        kernels[key] = kernel_us(lambda: torch.autograd.grad(ttf.density_l1(params, cfg), leaves))
+        del params, leaves
         torch.cuda.empty_cache()
     return {"root": root, "ms": times, "kernel_us": kernels}
 

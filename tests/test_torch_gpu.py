@@ -538,6 +538,118 @@ def test_k5_calls_no_library_sort(cuda_device, monkeypatch):
     assert torch.equal(got, k2.binned_segment_sum_merged_ordered(idx, g, 409_600, torch.bfloat16))
 
 
+# density L1 kernel cases: (G, ranks, scale of the factors, relu). 64^3 and
+# 640^3 with the default ranks, 300^3 with VM-192's; 300 and 100 are no
+# multiple of the 128-column tile, and 300^2 and 100^2 no multiple of the
+# 64-row tile; uneven ranks; features of std ~20 put voxels past softplus's
+# threshold and under the clamp; relu in place of softplus, on factors that
+# are multiples of 2^-10 (the field is then exact in any summation order, so
+# the relu and clamp masks are compared voxel for voxel; random factors put
+# voxels just above the clamp, where the gradient 1/(2 sqrt f) magnifies
+# f's rounding: there the kernel and the blocked path, which sums f in
+# another order, differ by up to 8.5e-5 of the largest entry on the H100)
+L1_CARD_CASES = [(64, (8, 8, 8), 1.0, False), (300, (16, 16, 16), 1.0, False), (640, (8, 8, 8), 1.0, False),
+                 (100, (16, 4, 4), 1.0, False), (64, (8, 8, 8), 20.0, False), (64, (8, 8, 8), 1.0, True)]
+
+
+def _l1_field(dev, g: int, ranks, scale: float):
+    gen = torch.Generator(device=dev).manual_seed(g)
+    planes = [0.1 * scale * torch.randn(c, g, g, generator=gen, device=dev) for c in ranks]
+    lines = [0.1 * scale * torch.randn(c, g, generator=gen, device=dev) for c in ranks]
+    return planes, lines
+
+
+def _l1_blocked(planes, lines, relu: bool) -> tuple:
+    """(value, plane gradients..., line gradients...) of the kernel's plain
+    version, models/tensorf.py's density_l1_blocked, in f32."""
+    from localrf_tpu_torch.models import tensorf as ttf
+
+    g = lines[0].shape[1]
+    cfg = ttf.TensorfConfig(grid_size=(g, g, g), density_n_comp=tuple(p.shape[0] for p in planes),
+                            density_shift=-5.0, fea2dense_act="relu" if relu else "softplus")
+    leaves = [t.detach().clone().requires_grad_(True) for t in (*planes, *lines)]
+    params = {f"density_{part}_{i}": leaves[3 * j + i] for j, part in enumerate(("plane", "line")) for i in range(3)}
+    value = ttf.density_l1_blocked(params, cfg)
+    return (value.detach(), *torch.autograd.grad(value, leaves))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,ranks,scale,relu", L1_CARD_CASES)
+def test_density_l1_kernel_matches_plain_on_card(cuda_device, g, ranks, scale, relu):
+    """The kernel through its autograd Function against its plain version
+    (the blocked path, f32): the value within 1e-5 relative; each gradient
+    entry within 1e-5 of the gradient's largest entry (an entry sums G plane
+    or G^2 line products of both signs, here in another order; each side's
+    own f32 error against an f64 reference stays under that at 640^3:
+    chip_smoke.py's check_l1 prints both); one launch per call, two
+    launches bit-equal."""
+    from localrf_tpu_torch.ops.kernels import density_l1 as l1
+
+    planes, lines = _l1_field(cuda_device, g, ranks, scale)
+    if relu:
+        planes, lines = ([torch.round(t * 640) / 1024 for t in ts] for ts in (planes, lines))
+    leaves = [t.clone().requires_grad_(True) for t in planes + lines]
+    n0 = l1.LAUNCHES["density_l1"]
+    val = l1.density_l1(leaves[:3], leaves[3:], -5.0, relu)
+    grads = torch.autograd.grad(val * 3.0, leaves)
+    assert l1.LAUNCHES["density_l1"] == n0 + 1
+    ref = _l1_blocked(planes, lines, relu)
+    assert abs(float(val.detach()) - float(ref[0])) <= 1e-5 * abs(float(ref[0]))
+    for got, want in zip(grads, ref[1:]):
+        torch.testing.assert_close(got, 3.0 * want, rtol=0.0, atol=3e-5 * float(want.abs().max()))
+    again = l1._launch(planes, lines, -5.0, relu)
+    first = l1._launch(planes, lines, -5.0, relu)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.gpu
+def test_density_l1_captured_replay_equals_eager_call(cuda_device):
+    """The kernel captured in a CUDA graph (no host sync, every buffer from
+    PyTorch's allocator) and replayed on new factors equals the eager call."""
+    from localrf_tpu_torch.ops.kernels import density_l1 as l1
+
+    planes, lines = _l1_field(cuda_device, 300, (16, 16, 16), 1.0)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        l1._launch(planes, lines, -5.0, False)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = l1._launch(planes, lines, -5.0, False)
+    new_planes, new_lines = _l1_field(cuda_device, 300, (16, 16, 16), 2.0)
+    for t, new in zip(planes + lines, new_planes + new_lines):
+        t.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, l1._launch(planes, lines, -5.0, False)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(48, 48, 48), (48, 40, 56)])
+def test_density_l1_takes_the_kernel_on_cubic_grids_on_card(cuda_device, grid):
+    """models/tensorf.py's density_l1 on the card: a cubic grid launches the
+    kernel (`l1.kernel` counts), any other takes the blocked path
+    (`l1.blocked`, no launch); both agree with the blocked path's value."""
+    from localrf_tpu_torch.models import tensorf as ttf
+    from localrf_tpu_torch.ops.kernels import density_l1 as l1
+    from localrf_tpu_torch.utils import profiling
+
+    cfg = ttf.TensorfConfig(grid_size=grid)
+    field = ttf.init_tensorf(cfg, torch.Generator().manual_seed(0), "cpu").to(cuda_device)
+    n0 = l1.LAUNCHES["density_l1"]
+    profiling.RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        val = ttf.density_l1(field, cfg)
+        counts = profiling.counters()
+    cubic = grid[0] == grid[1] == grid[2]
+    assert counts.get("l1.kernel" if cubic else "l1.blocked") == 1
+    assert ("l1.blocked" if cubic else "l1.kernel") not in counts
+    assert l1.LAUNCHES["density_l1"] == n0 + cubic
+    blocked = ttf.density_l1({k: v.cpu() for k, v in field.named_parameters()}, cfg)
+    assert abs(float(val.detach()) - float(blocked.detach())) <= 1e-5 * abs(float(blocked.detach()))
+
+
 def _chunk_models(dev, n: int):
     from localrf_tpu_torch.data.dataset import SyntheticDataset
     from localrf_tpu_torch.data.pool import DevicePixelPool

@@ -29,6 +29,8 @@ from localrf_tpu_torch.ops import grid as tgrid
 from localrf_tpu_torch.ops import math as tmath
 from localrf_tpu_torch.ops import occupancy as tocc
 from localrf_tpu_torch.ops import rays as trays
+from localrf_tpu_torch.ops.kernels import density_l1 as l1_kernel
+from localrf_tpu_torch.utils import profiling
 from localrf_tpu_torch import optim as toptim
 
 RTOL, ATOL = 1e-5, 1e-6
@@ -572,24 +574,49 @@ def test_feature2density_and_tv(rng):
     close(ttf.tv_loss_app(field), jtf.tv_loss_app(jp))
 
 
-@pytest.mark.parametrize("streamed", [False, True])
-def test_density_l1_dense_and_streamed(monkeypatch, streamed):
+@pytest.mark.parametrize("streamed,grid,ranks,scale,act", [
+    pytest.param(False, (8, 12, 10), (8, 8, 8), 1.0, "softplus", id="False"),
+    pytest.param(True, (8, 12, 10), (8, 8, 8), 1.0, "softplus", id="True"),
+    # cubic grids, the kernel's on the card: on the CPU the blocked path
+    pytest.param(True, (10, 10, 10), (8, 8, 8), 1.0, "softplus", id="cubic-8-8-8"),
+    pytest.param(True, (10, 10, 10), (16, 4, 4), 1.0, "softplus", id="cubic-16-4-4"),
+    # features of std ~20: voxels past softplus's threshold and under the clamp
+    pytest.param(True, (10, 10, 10), (8, 8, 8), 20.0, "softplus", id="cubic-8-8-8-wide"),
+    pytest.param(True, (10, 10, 10), (8, 8, 8), 1.0, "relu", id="cubic-relu"),
+])
+def test_density_l1_dense_and_streamed(monkeypatch, streamed, grid, ranks, scale, act):
     """The streamed/dense choice is TensorfConfig.l1_stream_min_vox in the
-    port (env vars in JAX); both match JAX's dense sum, values and grads."""
-    grid = (8, 12, 10)
-    jcfg = jtf.TensorfConfig(grid_size=grid)
-    tcfg = ttf.TensorfConfig(grid_size=grid, l1_stream_min_vox=1 if streamed else 10**9)
+    port (env vars in JAX); both match JAX's dense sum, values and grads.
+    On the CPU every grid, cubic (even and uneven ranks) or not, takes the
+    blocked path: `l1.blocked` counts, `l1.kernel` does not."""
+    jcfg = jtf.TensorfConfig(grid_size=grid, density_n_comp=ranks, fea2dense_act=act)
+    tcfg = ttf.TensorfConfig(grid_size=grid, density_n_comp=ranks, fea2dense_act=act,
+                             l1_stream_min_vox=1 if streamed else 10**9)
     monkeypatch.setattr(ttf, "L1_BLOCK_TARGET", 240)
-    jp, field = _field(cfg=jcfg)
-    val = ttf.density_l1(field, tcfg)
+    jp, field = _field(cfg=jcfg, density_scale=scale)
+    names = [f"density_{part}_{i}" for part in ("plane", "line") for i in range(3)]
+    profiling.RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        val = ttf.density_l1(field, tcfg)
+        counts = profiling.counters()
+    assert counts.get("l1.blocked") == 1 and "l1.kernel" not in counts
     val_j, g_pj = jax.jit(jax.value_and_grad(lambda p: jtf.density_l1(p, jcfg)))(jp)
     close(val, val_j)
-    g_t = dict(zip([n for n, _ in field.named_parameters()],
-                   torch.autograd.grad(val, list(field.parameters()), allow_unused=True)))
+    g_t = dict(zip(names, torch.autograd.grad(val, [field[n] for n in names])))
     g_j = params_from_jax(jax.device_get(g_pj), device="cpu")
-    for i in range(3):
-        for k in (f"density_plane_{i}", f"density_line_{i}"):
-            close(g_t[k], g_j[k].numpy(), rtol=1e-4, atol=1e-7)
+    for k in names:
+        close(g_t[k], g_j[k].numpy(), rtol=1e-4, atol=1e-7)
+
+
+def test_density_l1_kernel_has_no_cpu_route():
+    """The kernel's wrapper launches or raises: a CPU tensor is refused (the
+    program sends it to the blocked path), and so is a non-cubic grid."""
+    planes = [torch.zeros(8, 10, 10) for _ in range(3)]
+    lines = [torch.zeros(8, 10) for _ in range(3)]
+    with pytest.raises(ValueError, match="no kernel"):
+        l1_kernel.density_l1(planes, lines, -5.0)
+    with pytest.raises(ValueError, match="cubic"):
+        l1_kernel._check_cubic([torch.zeros(8, 10, 12)] * 3, lines)
 
 
 def test_upsample_dense_alpha_and_alpha_volume():
