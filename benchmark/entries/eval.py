@@ -40,13 +40,12 @@ def _frame(model, traj: np.ndarray, k: int, n_frames: int, w: int, h: int, chunk
 def reference_frames(spec: dict, weights: dict, traj: np.ndarray, ks: list, device,
                      precision: str = "f32") -> list:
     config, traffic = spec["config"], spec["traffic"]
-    wd = scene.widths(config)
-    head = {k: wd[k] for k in ("shading_mode", "fea_pe", "view_pe")}
+    model = scene.reference_model(spec["field"], scene.widths(config))
     (w, h), grid = traffic["wh"], traffic["grid"]
     alpha = ball_volume(grid // 2, traffic["ball_radius"], device)
     weights = {k: v.to(device) for k, v in weights.items()}
     c2w = torch.from_numpy(traj).to(device)
-    return [render_frame(weights, head, c2w[k], w, h, grid, alpha, precision, config["batch_size"],
+    return [render_frame(weights, model, c2w[k], w, h, grid, alpha, precision, config["batch_size"],
                          occ_min=traffic["occ_min"]).cpu() for k in ks]
 
 
@@ -56,7 +55,7 @@ def program_frames(spec: dict, run, ks: list) -> tuple[list, dict, np.ndarray]:
     config, traffic = spec["config"], spec["traffic"]
     sd = scene.seeds(run.seed)
     (w, h), n = traffic["wh"], traffic["frames"]
-    model, weights = program.build(config, traffic, sd, run.device)
+    model, weights = program.build(spec["field"], config, traffic, sd, run.device)
     traj = scene.trajectory(TRAJECTORY, PATH_SEED)
     frames = [_frame(model, traj, k, n, w, h, config["batch_size"]) for k in ks]
     return frames, {k: v.cpu() for k, v in weights.items()}, traj
@@ -74,7 +73,7 @@ def run(spec: dict, run) -> dict:
     sd = scene.seeds(run.seed)
     (w, h), n = traffic["wh"], traffic["frames"]
     chunk = config["batch_size"]
-    model, weights = program.build(config, traffic, sd, dev)
+    model, weights = program.build(spec["field"], config, traffic, sd, dev)
     weights = {k: v.cpu() for k, v in weights.items()}
     traj = scene.trajectory(TRAJECTORY, PATH_SEED)
     run.mark("model")

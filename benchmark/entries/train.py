@@ -28,12 +28,12 @@ from reference.step import B1, POSE_LEAVES, noise_draws, sampled_batches, train_
 from reference.render import n_samples
 
 
-def reference_cell(config: dict, traffic: dict) -> dict:
-    """What the reference reads of the configuration and the traffic."""
-    wd = scene.widths(config)
+def reference_cell(field, config: dict, traffic: dict) -> dict:
+    """What the reference reads of the field module, the configuration and
+    the traffic."""
     return {
         "w": traffic["wh"][0], "h": traffic["wh"][1], "n_frames": traffic["frames"], "grid": traffic["grid"],
-        "head": {k: wd[k] for k in ("shading_mode", "fea_pe", "view_pe")},
+        "model": scene.reference_model(field, scene.widths(config)),
         "ball_radius": traffic["ball_radius"], "occ_min": traffic["occ_min"], "rf_iter": traffic["rf_iter"],
         "flow_weight": config["loss_flow_weight_inital"], "depth_weight": config["loss_depth_weight_inital"],
         "l1_weight": config["L1_weight"], "lr_spatial": config["lr_init"], "lr_basis": config["lr_basis"],
@@ -87,7 +87,7 @@ def setup(spec: dict, run) -> dict:
                           n_init_frames=n, test_frame_every=0, frames_chunk=n)
     ds._rng = np.random.default_rng(sd["sampler"])
     run.mark("dataset")
-    model, weights = program.build(config, traffic, sd, dev)
+    model, weights = program.build(spec["field"], config, traffic, sd, dev)
     slots = config["n_max_frames"] + config["n_overlap"] + 16
     if slots != traffic["pool_slots"]:
         raise ValueError(f"pool of {slots} slots, traffic says {traffic['pool_slots']}")
@@ -172,7 +172,7 @@ def reference_side(spec: dict, sd: dict, frames: dict, weights: dict, device, pl
     program's plan (when given) drew other batches than the reference's
     sampler."""
     config, traffic = spec["config"], spec["traffic"]
-    cell = reference_cell(config, traffic)
+    cell = reference_cell(spec["field"], config, traffic)
     k, (w, h) = traffic["check_steps"], traffic["wh"]
     drawn = sampled_batches(sd["sampler"], k, traffic["frames"], w * h, config["n_views"], config["batch_size"])
     if plans is not None:

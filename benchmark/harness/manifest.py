@@ -2,13 +2,18 @@
 
 - `workloads/<cell>.json`: the cell ({"config", "traffic", "chips",
   "trace_units", "limits"});
-- `configs/<config>.json`: the model configuration as it is run;
+- `configs/<config>.json`: the model configuration as it is run; its
+  "field" key (absent: "field") names its field module;
+- `reference/<field>.py`: the field module, the plain reference of what
+  differs between field architectures, and their operation counts
+  (reference/__init__.py gives its interface);
 - `traffic/<traffic>.json`: the mix the one generator (harness/scene.py)
   and the cell's entry read ({"entry", ...});
 - `entries/<entry>.py`: what drives the program for that kind of cell;
 - `metrics/<metric>.py`: one per-layer metric's reader, `read(ctx)`.
-Adding a cell, a configuration, a traffic mix or a metric adds files and
-entries; no file here changes.
+Adding a cell, a configuration (of a field architecture the benchmark has
+or of a new one, with its field module), a traffic mix or a metric adds
+files and entries in BENCHMARK.json; no file here changes.
 """
 from __future__ import annotations
 
@@ -50,9 +55,21 @@ def applies(metric: dict, cell: str, reported: set | None = None) -> bool:
     return reported is None or metric.get("moves") in reported
 
 
+def field_module(config: dict, bench_dir: Path = BENCH_DIR):
+    """reference/<stem>.py, the field module that the configuration's
+    "field" key names ("field", TensoRF-VM, where it has none). It is loaded
+    as a module of the reference package, so it may import the shared
+    parts relatively (`from .field import density, rounder`)."""
+    stem = config.get("field", "field")
+    if not NAME.match(stem) or "." in stem:
+        raise ValueError(f"field {stem!r} is not a module name")
+    return load_module(bench_dir / "reference" / f"{stem}.py", f"reference.{stem}")
+
+
 def cell_spec(name: str, bench_dir: Path = BENCH_DIR) -> dict:
     """Everything a run of cell `name` reads: its BENCHMARK.json entry, its
-    cell, config and traffic files, its end-to-end and per-layer metrics."""
+    cell, config and traffic files, the configuration's field module, its
+    end-to-end and per-layer metrics."""
     man = manifest(bench_dir)
     entry = _one(man["workloads"], name, "workload")
     cell = load_json(bench_dir / "workloads" / f"{name}.json")
@@ -62,12 +79,14 @@ def cell_spec(name: str, bench_dir: Path = BENCH_DIR) -> dict:
     config_entry = _one(man["configs"], entry["config"], "config")
     e2e = [m for m in man["end_to_end"] if applies(m, name)]
     reported = {m["name"] for m in e2e}
+    config = load_json(bench_dir.parent / config_entry["file"])
     return {
         "name": name,
         "bench_dir": bench_dir,
         "entry": entry,
         "cell": cell,
-        "config": load_json(bench_dir.parent / config_entry["file"]),
+        "config": config,
+        "field": field_module(config, bench_dir),
         "traffic": load_json(bench_dir / "traffic" / f"{entry['traffic']}.json"),
         "end_to_end": e2e,
         "per_layer": [m for m in man["per_layer"] if applies(m, name, reported)],

@@ -12,37 +12,77 @@ from reference.render import ball_volume, compacted_samples
 
 from . import scene
 
+# Every published key a configuration file may hold: the TensorfConfig
+# ("tensorf") or LocalConfig ("local") field it sets, or None where the
+# harness reads it itself (N_voxel_final: checked against the traffic's
+# grid in build; n_max_frames: the pool's slots, entries/train.py). A list
+# becomes a tuple. A key left out keeps the dataclass's default.
+KEYS = {
+    "n_lamb_sigma": ("tensorf", "density_n_comp"),
+    "n_lamb_sh": ("tensorf", "app_n_comp"),
+    "data_dim_color": ("tensorf", "app_dim"),
+    "featureC": ("tensorf", "feature_c"),
+    "shadingMode": ("tensorf", "shading_mode"),
+    "fea2denseAct": ("tensorf", "fea2dense_act"),
+    "pos_pe": ("tensorf", "pos_pe"),
+    "view_pe": ("tensorf", "view_pe"),
+    "fea_pe": ("tensorf", "fea_pe"),
+    "gather_dtype": ("tensorf", "gather_dtype"),
+    "mlp_dtype": ("tensorf", "mlp_dtype"),
+    "fov": ("local", "fov"),
+    "n_overlap": ("local", "n_overlap"),
+    "n_iters_per_frame": ("local", "n_iters_per_frame"),
+    "n_iters_reg": ("local", "n_iters_reg"),
+    "lr_R_init": ("local", "lr_R_init"),
+    "lr_t_init": ("local", "lr_t_init"),
+    "lr_i_init": ("local", "lr_i_init"),
+    "lr_exposure_init": ("local", "lr_exposure_init"),
+    "lr_init": ("local", "rf_lr_init"),
+    "lr_basis": ("local", "rf_lr_basis"),
+    "lr_decay_target_ratio": ("local", "lr_decay_target_ratio"),
+    "loss_flow_weight_inital": ("local", "loss_flow_weight"),
+    "loss_depth_weight_inital": ("local", "loss_depth_weight"),
+    "TV_weight_density": ("local", "tv_weight_density"),
+    "TV_weight_app": ("local", "tv_weight_app"),
+    "L1_weight": ("local", "l1_weight"),
+    "n_views": ("local", "n_views"),
+    "batch_size": ("local", "batch_size"),
+    "moment_dtype": ("local", "moment_dtype"),
+    "N_voxel_final": None,
+    "n_max_frames": None,
+}
+# keys that describe the configuration, or that the harness reads beside
+# the table: "field" names the reference field module (harness/manifest.py),
+# "program" holds TensorfConfig fields passed to the program verbatim
+DESCRIPTIVE = frozenset({"source", "about", "reduced", "assumed", "field", "program"})
+
 
 def local_config(config: dict, traffic: dict, n_frames: int):
-    """LocalConfig / TensorfConfig at the traffic's grid, with train.py's
-    defaults for every flag the configuration leaves out."""
+    """LocalConfig / TensorfConfig at the traffic's grid: each key of the
+    configuration through KEYS, then its "program" fields. Raises on a key
+    that is neither in KEYS nor in DESCRIPTIVE."""
     from localrf_tpu_torch.models.local import LocalConfig
     from localrf_tpu_torch.models.tensorf import TensorfConfig
 
+    unknown = sorted(set(config) - set(KEYS) - DESCRIPTIVE)
+    if unknown:
+        raise ValueError(f"configuration keys the harness does not map: {', '.join(unknown)}")
+    fields = {"tensorf": {}, "local": {}}
+    for key, value in config.items():
+        if KEYS.get(key) is not None:
+            kind, name = KEYS[key]
+            fields[kind][name] = tuple(value) if isinstance(value, list) else value
     g = traffic["grid"]
-    wd = scene.widths(config)
-    tf = TensorfConfig(
-        grid_size=(g, g, g), density_n_comp=tuple(wd["density"]), app_n_comp=tuple(wd["app"]),
-        app_dim=wd["app_dim"], feature_c=wd["feature_c"], shading_mode=wd["shading_mode"],
-        fea_pe=wd["fea_pe"], view_pe=wd["view_pe"], pos_pe=wd["pos_pe"],
-        gather_dtype=config["gather_dtype"], mlp_dtype=config["mlp_dtype"], pallas_composite=True,
-    )
-    return LocalConfig(
-        fov=config["fov"], n_init_frames=n_frames, n_overlap=config["n_overlap"], WH=tuple(traffic["wh"]),
-        n_iters_per_frame=config["n_iters_per_frame"], n_iters_reg=config["n_iters_reg"],
-        lr_R_init=config["lr_R_init"], lr_t_init=config["lr_t_init"], lr_i_init=config["lr_i_init"],
-        lr_exposure_init=config["lr_exposure_init"], rf_lr_init=config["lr_init"],
-        rf_lr_basis=config["lr_basis"], lr_decay_target_ratio=config["lr_decay_target_ratio"],
-        loss_flow_weight=config["loss_flow_weight_inital"], loss_depth_weight=config["loss_depth_weight_inital"],
-        tv_weight_density=config["TV_weight_density"], tv_weight_app=config["TV_weight_app"],
-        l1_weight=config["L1_weight"], n_views=config["n_views"], batch_size=config["batch_size"],
-        occ_min=traffic["occ_min"], moment_dtype=config["moment_dtype"], tensorf=tf,
-    )
+    tf = TensorfConfig(grid_size=(g, g, g), pallas_composite=True, **fields["tensorf"])
+    tf = dataclasses.replace(tf, **config.get("program", {}))
+    return LocalConfig(n_init_frames=n_frames, WH=tuple(traffic["wh"]), occ_min=traffic["occ_min"], tensorf=tf,
+                       **fields["local"])
 
 
-def build(config: dict, traffic: dict, sd: dict, device):
+def build(field, config: dict, traffic: dict, sd: dict, device):
     """A LocalTensorfs over traffic["frames"] frames whose field holds the
-    benchmark's weights (returned too, f32) and its ball occupancy volume,
+    benchmark's weights (returned too, f32; shaped by the field module
+    `field`) and its ball occupancy volume,
     compacted to the traffic's occ_m samples a ray, its jitter drawn from
     sd["noise"], in steady refinement: the schedule past the rescale at
     rf_iter 1 with every frame training (n_iters and n_iters_reg scaled by
@@ -54,7 +94,7 @@ def build(config: dict, traffic: dict, sd: dict, device):
     if grid**3 != config["N_voxel_final"]:
         raise ValueError(f"traffic grid {grid}^3 is not the configuration's final grid")
     model = LocalTensorfs(local_config(config, traffic, n), device=device)
-    weights = scene.make_weights(scene.widths(config), grid, sd["weights"], device)
+    weights = scene.make_weights(field, scene.widths(config), grid, sd["weights"], device)
     f = model.fields[-1]
     named = dict(f["params"].named_parameters())
     if {k: tuple(p.shape) for k, p in named.items()} != {k: tuple(v.shape) for k, v in weights.items()}:

@@ -18,11 +18,19 @@ def seeds(seed: int) -> dict:
 
 
 def widths(config: dict) -> dict:
-    """The field's widths from a configuration file (LocalRF / TensoRF key names)."""
+    """The field's widths and its density activation from a configuration
+    file (LocalRF / TensoRF key names; no fea2denseAct means softplus, as
+    in their opt.py)."""
     return {"density": list(config["n_lamb_sigma"]), "app": list(config["n_lamb_sh"]),
             "app_dim": config["data_dim_color"], "feature_c": config["featureC"],
             "shading_mode": config["shadingMode"], "fea_pe": config["fea_pe"], "view_pe": config["view_pe"],
-            "pos_pe": config["pos_pe"]}
+            "pos_pe": config["pos_pe"], "act": config.get("fea2denseAct", "softplus")}
+
+
+def reference_model(field, wd: dict) -> dict:
+    """What the reference renders with: the field module, the density
+    activation and the shading head."""
+    return {"field": field, **{k: wd[k] for k in ("act", "shading_mode", "fea_pe", "view_pe")}}
 
 
 def mlp_shapes(wd: dict) -> dict:
@@ -37,35 +45,37 @@ def mlp_shapes(wd: dict) -> dict:
     raise NotImplementedError(f"shading mode {mode}")
 
 
-def weight_shapes(wd: dict, grid: int) -> dict:
-    """{name: shape} of a field at grid^3, in the published layout."""
-    shapes = {}
-    for kind in ("density", "app"):
-        for i in range(3):
-            shapes[f"{kind}_plane_{i}"] = (wd[kind][i], grid, grid)
-            shapes[f"{kind}_line_{i}"] = (wd[kind][i], grid)
-    shapes["basis_mat"] = (sum(wd["app"]), wd["app_dim"])
-    for k, (fan_in, fan_out) in mlp_shapes(wd).items():
-        shapes[f"mlp.w{k}"] = (fan_in, fan_out)
-        shapes[f"mlp.b{k}"] = (fan_out,)
-    return shapes
+def _shapes(field, wd: dict, grid: int) -> tuple[dict, dict, dict]:
+    """(factor tables {name: shape}, dense weights {name: shape}, {dense
+    name: fan_in}): the field module's, then the shading head's."""
+    factors, dense = field.weight_shapes(wd, grid)
+    fan_in = {k: shape[0] for k, shape in dense.items()}
+    dense = dict(dense)
+    for k, (f, fan_out) in mlp_shapes(wd).items():
+        dense[f"mlp.w{k}"], dense[f"mlp.b{k}"] = (f, fan_out), (fan_out,)
+        fan_in[f"mlp.w{k}"] = fan_in[f"mlp.b{k}"] = f
+    return factors, dense, fan_in
 
 
-def make_weights(wd: dict, grid: int, seed: int, device) -> dict:
-    """f32 weights: factor grids 0.1 N(0, 1) (one draw), basis and MLP
-    uniform in +-1/sqrt(fan_in) (one draw), the last bias 0."""
-    shapes = weight_shapes(wd, grid)
+def weight_shapes(field, wd: dict, grid: int) -> dict:
+    """{name: shape} of a field at grid^3 and its shading head, in the
+    published layout."""
+    factors, dense, _ = _shapes(field, wd, grid)
+    return {**factors, **dense}
+
+
+def make_weights(field, wd: dict, grid: int, seed: int, device) -> dict:
+    """f32 weights: the field module's factor tables 0.1 N(0, 1) (one draw),
+    its dense weights ([fan_in, fan_out]) and the MLP uniform in
+    +-1/sqrt(fan_in) (one draw), the last bias 0."""
+    factors, dense, fan_in = _shapes(field, wd, grid)
     gen = torch.Generator(device=device).manual_seed(seed)
-    grids = [k for k in shapes if "plane" in k or "line" in k]
-    dense = [k for k in shapes if k not in grids]
-    normal = 0.1 * torch.randn(sum(math.prod(shapes[k]) for k in grids), generator=gen, device=device)
-    uniform = torch.rand(sum(math.prod(shapes[k]) for k in dense), generator=gen, device=device)
+    normal = 0.1 * torch.randn(sum(math.prod(s) for s in factors.values()), generator=gen, device=device)
+    uniform = torch.rand(sum(math.prod(s) for s in dense.values()), generator=gen, device=device)
     out = {}
-    for flat, keys in ((normal, grids), (uniform, dense)):
-        for k, part in zip(keys, torch.split(flat, [math.prod(shapes[k]) for k in keys])):
-            out[k] = part.reshape(shapes[k])
-    fan_in = {"basis_mat": shapes["basis_mat"][0]}
-    fan_in.update({f"mlp.{p}{k}": f for k, (f, _) in mlp_shapes(wd).items() for p in "wb"})
+    for flat, shapes in ((normal, factors), (uniform, dense)):
+        for (k, shape), part in zip(shapes.items(), torch.split(flat, [math.prod(s) for s in shapes.values()])):
+            out[k] = part.reshape(shape)
     for k in dense:
         bound = 1.0 / math.sqrt(fan_in[k])
         out[k] = out[k] * (2 * bound) - bound

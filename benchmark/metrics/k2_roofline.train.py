@@ -1,8 +1,10 @@
 """K2's share of its roofline in the training step: the least time of the
-step's three plane sums (harness/flops.py k2_bytes: bf16 payload and int64
-row ids read once, the bf16 gradient table written once, over 3.35 TB/s)
-times the traced steps, over the device time of the kernels of
-localrf_tpu_torch/csrc/segment_sum.cu in the trace."""
+step's plane sums (harness/flops.py k2_bytes, the field module's
+plane_sum_bytes: for TensoRF-VM three sums, each reading its bf16 payload
+and int64 row ids once and writing the bf16 gradient table once, over
+3.35 TB/s) times the traced steps, over the device time of the kernels of
+localrf_tpu_torch/csrc/segment_sum.cu in the trace. None for a field with
+no plane sums."""
 import re
 
 from harness import flops, scene
@@ -19,5 +21,8 @@ def read(ctx: dict):
         return None
     spec = ctx["spec"]
     traffic, batch = spec["traffic"], spec["config"]["batch_size"]
-    need = flops.k2_bytes(scene.widths(spec["config"]), traffic["grid"], batch, traffic["occ_m"])
+    wd = scene.widths(spec["config"])
+    need = flops.k2_bytes(spec["field"], wd, traffic["grid"], batch, traffic["occ_m"])
+    if need is None:
+        return None
     return 100.0 * need * traced["steps"] / flops.HBM_BYTES_S / seconds

@@ -1,5 +1,8 @@
-"""TensoRF-VM field in plain f32: factor-grid lookups by F.grid_sample, the
-shading heads of TensoRF and LocalRF, and the density L1 regularizer.
+"""TensoRF-VM field in plain f32 (the field module of a configuration with
+no "field" key; the interface: reference/__init__.py): factor-grid lookups
+by F.grid_sample, the density L1 regularizer and the field's operation and
+byte counts. Beside it, what every field shares: the density activation,
+the shading heads of TensoRF and LocalRF, the fp8 rounding and full_f32.
 
 Parameters are a {name: tensor} dict with the published layout: for each
 orientation i, `density_plane_i` / `app_plane_i` [C, H, W] and
@@ -18,6 +21,8 @@ import torch.nn.functional as F
 PLANE_AXES = ((0, 1), (0, 2), (1, 2))
 LINE_AXIS = (2, 1, 0)
 DENSITY_SHIFT = -5.0
+# operations of one linear interpolation (a lerp) in a lookup
+LERP = 3
 FP8_MAX = 448.0
 FP8_GRAD_MAX = 57344.0
 
@@ -86,6 +91,17 @@ def line_lookup(line: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
     return out[0, :, :, 0].t()
 
 
+def weight_shapes(wd: dict, grid: int) -> tuple[dict, dict]:
+    """({name: shape} of the factor tables, {name: shape} of the dense
+    weights) of a field at grid^3, in the published layout."""
+    factors = {}
+    for kind in ("density", "app"):
+        for i in range(3):
+            factors[f"{kind}_plane_{i}"] = (wd[kind][i], grid, grid)
+            factors[f"{kind}_line_{i}"] = (wd[kind][i], grid)
+    return factors, {"basis_mat": (sum(wd["app"]), wd["app_dim"])}
+
+
 def features(params: dict, pts: torch.Tensor, q) -> tuple[torch.Tensor, torch.Tensor]:
     """Density feature [P] and appearance feature [P, app_dim] at normalized
     points [P, 3] in [-1, 1]."""
@@ -101,8 +117,13 @@ def features(params: dict, pts: torch.Tensor, q) -> tuple[torch.Tensor, torch.Te
     return sigma, app
 
 
-def density(feat: torch.Tensor) -> torch.Tensor:
-    return F.softplus(feat + DENSITY_SHIFT)
+def density(feat: torch.Tensor, act: str) -> torch.Tensor:
+    """TensoRF's feature2density: softplus(feat - 5) or relu(feat)."""
+    if act == "softplus":
+        return F.softplus(feat + DENSITY_SHIFT)
+    if act == "relu":
+        return torch.relu(feat)
+    raise ValueError(f"fea2denseAct {act!r}")
 
 
 def positional_encoding(x: torch.Tensor, freqs: int) -> torch.Tensor:
@@ -138,13 +159,14 @@ def shade(params: dict, feat: torch.Tensor, viewdirs: torch.Tensor, head: dict, 
     raise NotImplementedError(f"shading mode {mode}")
 
 
-def density_l1_grads(params: dict, rows_per_block: int = 16384) -> tuple[torch.Tensor, dict]:
-    """LocalRF's L1 term, sum over the voxels of sqrt(max(density, 1e-5)),
-    where voxel (p, d) of a cubic grid adds plane_i[:, p] . line_i[:, d]
-    over the three orientations (each plane's outer product with its line
-    flattened in its own (p, d) order, as the published code sums them),
-    divided by the voxel count; with its gradients w.r.t. the density
-    planes and lines. Evaluated in blocks of plane pixels."""
+def density_l1_grads(params: dict, act: str, rows_per_block: int = 16384) -> tuple[torch.Tensor, dict]:
+    """LocalRF's L1 term, sum over the voxels of sqrt(max(density(f, act),
+    1e-5)), where the feature f of voxel (p, d) of a cubic grid adds
+    plane_i[:, p] . line_i[:, d] over the three orientations (each plane's
+    outer product with its line flattened in its own (p, d) order, as the
+    published code sums them), divided by the voxel count; with its
+    gradients w.r.t. the density planes and lines. Evaluated in blocks of
+    plane pixels."""
     planes = [params[f"density_plane_{i}"].detach() for i in range(3)]
     lines = [params[f"density_line_{i}"].detach() for i in range(3)]
     n_pix, n_d = planes[0][0].numel(), lines[0].shape[1]
@@ -160,7 +182,7 @@ def density_l1_grads(params: dict, rows_per_block: int = 16384) -> tuple[torch.T
         leaves = [f[:, r0:r1].clone().requires_grad_(True) for f in flat] + [
             ln.clone().requires_grad_(True) for ln in lines]
         feat = sum(leaves[i].t() @ leaves[3 + i] for i in range(3))
-        s = torch.sqrt(torch.clamp(density(feat), min=1e-5)).sum()
+        s = torch.sqrt(torch.clamp(density(feat, act), min=1e-5)).sum()
         grads = torch.autograd.grad(s, leaves)
         for i in range(3):
             g_planes[i][:, r0:r1] += grads[i]
@@ -169,3 +191,26 @@ def density_l1_grads(params: dict, rows_per_block: int = 16384) -> tuple[torch.T
     out = {f"density_plane_{i}": g_planes[i].reshape(planes[i].shape) / n_vox for i in range(3)}
     out.update({f"density_line_{i}": g_lines[i] / n_vox for i in range(3)})
     return (total / n_vox).float(), out
+
+
+def lookup_ops(wd: dict) -> int:
+    """Operations of the lookups at one sample point: per orientation and
+    channel a plane (3 lerps) and a line (1 lerp) and their product, plus
+    the density sum."""
+    return sum((3 * LERP + LERP + 1) * (d + a) + d for d, a in zip(wd["density"], wd["app"]))
+
+
+def l1_voxel_ops(wd: dict) -> int:
+    """Operations of the L1 term at one voxel: 3 dot products of the density
+    ranks, the activation and the root."""
+    return 2 * sum(wd["density"]) + 6
+
+
+def plane_sum_bytes(wd: dict, grid: int, rays: int, samples: int) -> int:
+    """Bytes the step's three plane sums (K2) must move: each reads its
+    bf16 payload [P, 4C] (a quad row of the density and appearance
+    channels per point) and its int64 row ids [P] once, and writes the
+    bf16 gradient table [grid^2, 4C] once; P = rays * samples."""
+    p = rays * samples
+    return sum(p * 4 * (d + a) * 2 + p * 8 + grid * grid * 4 * (d + a) * 2
+               for d, a in zip(wd["density"], wd["app"]))

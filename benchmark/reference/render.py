@@ -22,7 +22,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .field import density, features, full_f32, rounder, shade
+from .field import density, full_f32, rounder, shade
 
 NEAR, FAR = 1.0, 1e3
 AABB = (-2.0, 2.0)
@@ -104,10 +104,12 @@ def coarse_volume(vol: torch.Tensor, probe: int) -> torch.Tensor:
     return F.max_pool3d(x, kernel_size=3, stride=1, padding=1)[0, 0]
 
 
-def render(params: dict, head: dict, rays_o, rays_d, z, dists, alpha: torch.Tensor, coarse: torch.Tensor,
+def render(params: dict, model: dict, rays_o, rays_d, z, dists, alpha: torch.Tensor, coarse: torch.Tensor,
            occ_m: int, q, refine: float = 1.0, probe: int = 4):
     """rgb [R, 3], depth [R] of rays against one field with an occupancy
-    volume `alpha` and its `coarse` probe volume."""
+    volume `alpha` and its `coarse` probe volume. `model`: the field module
+    ("field"), the density activation ("act") and the shading head
+    ("shading_mode", "fea_pe", "view_pe"; harness/scene.py reference_model)."""
     r, s = rays_o.shape[0], z.numel()
     norm = rays_d.norm(dim=-1, keepdim=True)
     vd = rays_d / norm
@@ -134,15 +136,15 @@ def render(params: dict, head: dict, rays_o, rays_d, z, dists, alpha: torch.Tens
     keep[:, -1] = False
 
     m = zs.shape[1]
-    feat, app = features(params, pts.reshape(-1, 3), q)
-    sigma = torch.where(keep, density(feat).reshape(r, m), 0.0)
+    feat, app = model["field"].features(params, pts.reshape(-1, 3), q)
+    sigma = torch.where(keep, density(feat, model["act"]).reshape(r, m), 0.0)
     a = 1.0 - torch.exp(-sigma * ds * DIST_SCALE)
     a = torch.cat([a[:, :-1], torch.ones_like(a[:, -1:])], dim=1)
     trans = torch.cumprod(torch.cat([torch.ones_like(a[:, :1]), 1.0 - a[:, :-1] + 1e-10], dim=1), dim=1)
     weight = a * trans
     depth = (weight * zs).sum(dim=1) / norm[:, 0]
     vdirs = vd.detach()[:, None, :].expand(r, m, 3).reshape(-1, 3)
-    rgb_s = shade(params, app, vdirs, head, q, refine).reshape(r, m, 3)
+    rgb_s = shade(params, app, vdirs, model, q, refine).reshape(r, m, 3)
     rgb_s = torch.where((weight > WEIGHT_THRES)[..., None], rgb_s, 0.0)
     rgb = (weight[..., None] * rgb_s).sum(dim=1) + (1.0 - weight.sum(dim=1))[:, None]
     return rgb, depth
@@ -160,7 +162,7 @@ def exposure_clip(rgb: torch.Tensor, exposure: torch.Tensor) -> torch.Tensor:
     return torch.clamp((exposure @ rgb[..., None])[..., 0], 0.0, 1.0)
 
 
-def render_frame(params: dict, head: dict, c2w: torch.Tensor, w: int, h: int, grid: int,
+def render_frame(params: dict, model: dict, c2w: torch.Tensor, w: int, h: int, grid: int,
                  alpha: torch.Tensor, precision: str = "f32", chunk: int = 4096,
                  occ_min: int = 256) -> torch.Tensor:
     """An eval frame (no jitter) through one camera c2w [3, 4] at w x h with
@@ -178,6 +180,6 @@ def render_frame(params: dict, head: dict, c2w: torch.Tensor, w: int, h: int, gr
         for c0 in range(0, px_all.numel(), chunk):
             px = px_all[c0:c0 + chunk]
             o, d, _, _ = camera_rays(px, c2w[None].expand(px.numel(), 3, 4), w, h, focal, center)
-            rgb, _ = render(params, head, o, d, z, dists, alpha, coarse, occ_m, q)
+            rgb, _ = render(params, model, o, d, z, dists, alpha, coarse, occ_m, q)
             out.append(exposure_clip(rgb, torch.eye(3, device=dev).expand(px.numel(), 3, 3)))
     return torch.cat(out)

@@ -15,7 +15,7 @@ One step, at refinement iteration `it` of a schedule whose lr decays by
   by its median and scaled by its mean absolute deviation; squared
   difference; per view the values above its 80th percentile dropped; mean
   * weight * lr_factor^it;
-- L1: field.density_l1_grads * its weight.
+- L1: the field module's density_l1_grads * its weight.
 Adam (0.9, 0.99, eps 1e-8) on every leaf: the pose and exposure learning
 rates first decay by lr_factor; the field's groups (factor grids at the
 spatial rate, basis and MLP at the network rate) share a scale that
@@ -26,7 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .field import density_l1_grads, full_f32, rounder
+from .field import full_f32, rounder
 from .render import (
     ball_volume,
     camera_rays,
@@ -95,7 +95,7 @@ def losses(params: dict, pose: tuple, batch: dict, cell: dict, noise: dict, reg_
     cams = c2w[views][:, None].expand(v, p, 3, 4).reshape(-1, 3, 4)
     o, d, dirs, ij = camera_rays(px.reshape(-1), cams, w, h, focal, center)
     z, dists = sample_depths(n_samples(cell["grid"]), o.device, noise)
-    rgb, depth = render(params, cell["head"], o, d, z, dists, cell["alpha"], cell["coarse"],
+    rgb, depth = render(params, cell["model"], o, d, z, dists, cell["alpha"], cell["coarse"],
                         cell["occ_m"], q)
     rgb = exposure_clip(rgb, expo[views].repeat_interleave(p, dim=0))
     out = {"rgb_loss": 0.25 * (rgb - batch["rgbs"].reshape(-1, 3)).abs().mean()}
@@ -169,7 +169,7 @@ def train_steps(weights: dict, batches: list, noises: list, cell: dict, precisio
                            batch, cell, noise, reg_w, q)
             grads = torch.autograd.grad(sum(parts.values()), list(leaves.values()), allow_unused=True)
             grads = {key: torch.zeros_like(leaves[key]) if g is None else g for key, g in zip(leaves, grads)}
-            l1, l1_grads = density_l1_grads(p)
+            l1, l1_grads = cell["model"]["field"].density_l1_grads(p, cell["model"]["act"])
             for key, g in l1_grads.items():
                 grads[key] = grads[key] + cell["l1_weight"] * g
             parts["l1_loss"] = l1 * cell["l1_weight"]

@@ -1,6 +1,7 @@
 """A tiny copy of the benchmark for CPU tests: the repository's benchmark
 folder and BENCHMARK.json copied under a temporary directory, with one
-configuration (`tiny`: LocalRF's widths at 32^3, 256 rays over 4 views)
+configuration (`tiny`: LocalRF's widths, or another configuration file's,
+at 32^3, 256 rays over 4 views)
 and two cells (`tiny.tiny-train`, `tiny.tiny-eval`: 40x30 frames, 16 kept
 samples a ray) added as new files and entries, as a later change adds
 them. Their limits are set as the real cells' are (PERF.md), from the
@@ -31,12 +32,14 @@ TINY_LIMITS = {
 }
 
 
-def make_tiny(root: Path, config_overrides: dict | None = None) -> Path:
-    """The tiny copy under `root`; returns its benchmark folder."""
+def make_tiny(root: Path, config_overrides: dict | None = None,
+              config: Path = BENCH / "configs" / "localrf-default.json") -> Path:
+    """The tiny copy under `root`, its configuration `tiny` cut from the
+    file `config`, then `config_overrides`; returns its benchmark folder."""
     bench = root / "benchmark"
     shutil.copytree(BENCH, bench, ignore=shutil.ignore_patterns("__pycache__", "tests"))
     man = json.loads((ROOT / "BENCHMARK.json").read_text())
-    cfg = json.loads((BENCH / "configs" / "localrf-default.json").read_text())
+    cfg = json.loads(config.read_text())
     cfg.update(N_voxel_final=32**3, batch_size=256, n_views=4, n_max_frames=4, n_overlap=2,
                **(config_overrides or {}))
     (bench / "configs" / "tiny.json").write_text(json.dumps(cfg))

@@ -102,25 +102,28 @@ def test_no_file_of_the_benchmark_imports_jax_and_the_reference_imports_no_progr
 
 
 def test_counts_on_hand_computed_shapes():
-    wd = scene.widths(json.loads((BENCH / "configs" / "localrf-default.json").read_text()))
+    cfg = json.loads((BENCH / "configs" / "localrf-default.json").read_text())
+    vm = manifest.field_module(cfg)
+    wd = scene.widths(cfg)
     # per orientation 13 operations a channel of 32 and a density sum of 8;
     # basis 2*72*27; layers 2*27*128+256, 2*128*128+256, 2*131*3+6; 10 compositing
-    assert flops.point_forward(wd) == 3 * (13 * 32 + 8) + 3888 + 7168 + 33024 + 792 + 10 == 46154
+    assert flops.point_forward(vm, wd) == 3 * (13 * 32 + 8) + 3888 + 7168 + 33024 + 792 + 10 == 46154
     # PERF.md's K4 count: 45.7k a point forward (the MLP and basis it fuses)
-    assert abs(flops.point_forward(wd) / 45.7e3 - 1) < 0.02
+    assert abs(flops.point_forward(vm, wd) / 45.7e3 - 1) < 0.02
     # 640^3, 4096 x 332 points: per plane sum the bf16 payload [P, 128], the
     # int64 ids [P], the bf16 table [409600, 128]: PERF.md's 463.9 MB
     p = 4096 * 332
     per_sum = p * 128 * 2 + p * 8 + 640 * 640 * 128 * 2
     assert per_sum == 463_863_808
-    assert flops.k2_bytes(wd, 640, 4096, 332) == 3 * per_sum
-    vm = scene.widths(json.loads((BENCH / "configs" / "tensorf-vm192.json").read_text()))
-    assert flops.k2_bytes(vm, 300, 4096, 256) == 3 * (4096 * 256 * (256 * 2 + 8) + 300 * 300 * 256 * 2)
+    assert flops.k2_bytes(vm, wd, 640, 4096, 332) == 3 * per_sum
+    vm192 = scene.widths(json.loads((BENCH / "configs" / "tensorf-vm192.json").read_text()))
+    assert flops.k2_bytes(vm, vm192, 300, 4096, 256) == 3 * (4096 * 256 * (256 * 2 + 8) + 300 * 300 * 256 * 2)
     # MLP_Fea: 27 + 3 + 2*2*27 + 2*2*3 = 150 inputs
-    assert scene.mlp_shapes(vm)["1"] == (150, 128)
-    assert flops.n_params(wd, 640) == 3 * 32 * 640 * 640 + 3 * 32 * 640 + 72 * 27 + 27 * 128 + 128 + 128 * 128 + 128 + 131 * 3 + 3
-    step = flops.train_step(wd, 640, 4096, 332)
-    assert step == 3 * 46154 * 4096 * 332 + 3 * (2 * 24 + 6) * 640**3 + 12 * flops.n_params(wd, 640)
+    assert scene.mlp_shapes(vm192)["1"] == (150, 128)
+    assert flops.n_params(vm, wd, 640) == (3 * 32 * 640 * 640 + 3 * 32 * 640 + 72 * 27 + 27 * 128 + 128
+                                           + 128 * 128 + 128 + 131 * 3 + 3)
+    step = flops.train_step(vm, wd, 640, 4096, 332)
+    assert step == 3 * 46154 * 4096 * 332 + 3 * (2 * 24 + 6) * 640**3 + 12 * flops.n_params(vm, wd, 640)
 
 
 @pytest.mark.parametrize("bare", [False, True])
