@@ -17,7 +17,9 @@
    at 64^3 and 640^3, its bin schedule against tile_bins_plain, with
    indices out of range and with P = 0), K3 (line segment sum; on uniform
    indices and on the line indices of a real 640^3 segsum step, bit for
-   bit against its ordered plain version and against a second launch), K4
+   bit against its ordered plain version and against a second launch; and
+   768 columns wide into 500 rows on the line indices of a real TensoRF-CP
+   500^3 step, in column tiles, also against a captured replay), K4
    (fused march core, forward and backward; K4-bwd also by its kernels' device
    us from one profiled call, and its line gradient bit for bit against a
    second launch and against the ordered sum of its own per-point
@@ -27,12 +29,14 @@
    launch, its two sort levels against merged_bins_plain; timed beside K2,
    with its kernels' device us from one profiled call), and the density L1
    kernel (the term's value and both gradients on a cubic grid, 300^3 with
-   48 channels and 640^3 with 24: against the blocked path in f32 and f64,
-   bit for bit against a second launch and a captured replay).
+   48 channels, 640^3 with 24, and a CP field's virtual plane at 500^3 with
+   96, whose lines the kernel streams: against the blocked path in f32 and
+   f64, bit for bit against a second launch and a captured replay).
 3. One small training step card vs CPU (32^3, f32) for the default path,
-   the fused march (--fused_march 1) and the segsum lines (--line_bwd
-   segsum); and a small spawn card vs CPU: a 32^3 f32 model spawns a field,
-   slides, takes one step on it and renders one 40x30 blended frame.
+   the fused march (--fused_march 1), the segsum lines (--line_bwd
+   segsum) and a TensoRF-CP field (PATH_TF["cp"]); and a small spawn card
+   vs CPU: a 32^3 f32 model spawns a field, slides, takes one step on it
+   and renders one 40x30 blended frame.
 4. Eager steps: trains the full-width TensoRF-VM model through the port's
    entry points (LocalTensorfs.optimizer_step on SyntheticDataset batches
    of 4096 rays over 960x540 frames): 5 steps from 64^3 (alpha refresh,
@@ -44,8 +48,11 @@
    960x540) is attached and LocalTensorfs.plan_chunk / run_chunk train
    chunks of 16 steps, every step a replay of a captured CUDA graph: at
    64^3 (ending in an alpha refresh, which drops the graphs, and one chunk
-   captured again after it), and at 640^3 on the default, the fused march
-   and the segsum-lines paths. Every chunk phase first trains a chunk with
+   captured again after it), at 640^3 on the default, the fused march
+   and the segsum-lines paths, and at 500^3 on TensoRF-CP-384 (model_cp:
+   ranks [96] / [288], MLP_Fea, segsum lines, a 250^3 ball alpha volume,
+   256 samples a ray; its profiled chunk also reads the tracer's counters
+   k3.launches, k3.column_tiles and l1.cp). Every chunk phase first trains a chunk with
    every sum in a fixed order (torch's deterministic algorithms, the plane
    VJP through K5, captured in the chunk's graphs; K3 sums in a fixed order
    of its own, also as K4-bwd's line gradient on the fused march) and holds
@@ -184,6 +191,11 @@ K4_TOL = {"out": 1e-2, "grad": 2e-2}
 # 4096 x 72 samples at 64^3, 640 rows with 4096 x 332 at 640^3; K3's payload
 # rows are 64 bf16 (2C), K4 runs bf16 tables and MLP
 K3_CASES = ((64, 4096 * 72), (640, 4096 * 332))
+# a TensoRF-CP-384 step at 500^3 (model_cp): 259 compacted samples a ray,
+# kept in the probe's groups of 4 (256 a ray), so 4096 x 256 points, rows
+# of 2 (96 + 288) = 768 channels, in 12 column tiles of MAX_C
+CP_OCC_M = 259
+K3_CP_CASE = (500, 4096 * 256, 768)
 # K1-fwd in an eval chunk of a blended 960x540 frame: 4096 rays shared by
 # two fields, 2048 each, 332 compacted samples at 640^3
 EVAL_K1_SHAPE = "eval [2048,332], dists [2048,332]"
@@ -468,6 +480,21 @@ def real_line_indices(dev, ds) -> tuple:
     return out
 
 
+def real_cp_line_indices(dev, ds) -> tuple:
+    """(idx, n_rows) of the first line segment sum (K3) of one step of
+    model_cp: the ball's 4096 x 256 compacted points on a 500-row line
+    table."""
+    import torch
+
+    from localrf_tpu_torch.ops.kernels import segsum as k3
+
+    model = model_cp(dev)
+    out = record_sums(model, ds, k3, "segment_sum_small")[0]
+    del model
+    torch.cuda.empty_cache()
+    return out
+
+
 def real_plane_indices(dev, ds) -> dict:
     """The three plane segment sums' (idx, n_rows) of one step at each
     main-path shape: the full-width model at 64^3 (dense march, 4096 x 72
@@ -687,48 +714,79 @@ K4_FWD_FLOP = 1_300 + 3_888 + 6_912 + 32_768 + 786
 K4_BWD_FLOP = K4_FWD_FLOP + 2 * (3_888 + 6_912 + 32_768 + 786) + 2_000
 
 
-def check_k3(dev, gen, real: tuple) -> list[dict]:
+def _check_captured(label: str, fn, got) -> None:
+    """fn() captured in a CUDA graph (after a warm-up call on a side
+    stream) and replayed equals `got` bit for bit (a tensor or a tuple)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        replayed = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = zip(got, replayed) if isinstance(got, tuple) else [(got, replayed)]
+    if not all(torch.equal(a, b) for a, b in pairs):
+        raise AssertionError(f"{label}: the captured replay differs from the eager call")
+
+
+def check_k3(dev, gen, real: tuple, real_cp: tuple) -> list[dict]:
     """K3 at the main path's line-table shapes, on uniform random indices
     and on the line indices of a real 640^3 segsum step (`real`), with a
-    random bf16 payload of 64 channels: bit for bit against its ordered
-    plain version (segment_sum_small_ordered on copies on the CPU) and
-    against a second launch, and to K3_TOL against the plain index_add_;
-    timed beside the plain version and index_add_. The bound counts the
-    function's bytes; `partial_bytes` are the partial tables the kernel
-    writes and reads back besides."""
+    random bf16 payload of 64 channels, and at TensoRF-CP-384's (K3_CP_CASE:
+    768 channels into 500 rows, in column tiles) on the line indices of a
+    real model_cp step (`real_cp`): bit for bit against its ordered plain
+    version (segment_sum_small_ordered on copies on the CPU) and against a
+    second launch, one launch a call, and to K3_TOL against the plain
+    index_add_; the CP case also against a captured replay; timed beside
+    the plain version and index_add_. The bound counts the function's
+    bytes; `partial_bytes` are the partial tables the kernel writes and
+    reads back besides."""
     import torch
 
     from localrf_tpu_torch.ops.kernels import segsum as k3
 
-    cases = [(f"{n_rows} rows uniform", torch.randint(0, n_rows, (p,), generator=gen, device=dev), n_rows)
+    cases = [(f"{n_rows} rows uniform", torch.randint(0, n_rows, (p,), generator=gen, device=dev), n_rows, 64)
              for n_rows, p in K3_CASES]
-    r_idx, r_rows = real
-    if r_idx.shape[0] != K3_CASES[1][1] or r_rows != K3_CASES[1][0]:
-        raise AssertionError(f"640^3 segsum step: the line sum has P {r_idx.shape[0]} on {r_rows} rows")
-    cases.append((f"{r_rows} rows real step", r_idx, r_rows))
+    for (r_idx, r_rows), (n_rows, p, c), what in ((real, (*K3_CASES[1], 64), "real step"),
+                                                 (real_cp, K3_CP_CASE, "real CP step")):
+        if r_idx.shape[0] != p or r_rows != n_rows:
+            raise AssertionError(f"{what}: the line sum has P {r_idx.shape[0]} on {r_rows} rows")
+        cases.append((f"{r_rows} rows {what}", r_idx, r_rows, c))
     rows = []
-    for label, idx, n_rows in cases:
+    for label, idx, n_rows, c in cases:
         p = idx.shape[0]
-        g = torch.randn(p, 64, generator=gen, device=dev).to(torch.bfloat16)
+        g = torch.randn(p, c, generator=gen, device=dev).to(torch.bfloat16)
+        n0 = k3.LAUNCHES["segment_sum_small"]
         got = k3.segment_sum_small(idx, g, n_rows)
+        if k3.LAUNCHES["segment_sum_small"] != n0 + 1:
+            raise AssertionError(f"segment_sum_small {label}: the call did not count one launch")
         if not torch.equal(got, k3.segment_sum_small(idx, g, n_rows)):
             raise AssertionError(f"segment_sum_small {label}: two launches differ")
+        if c > k3.MAX_C:
+            _check_captured(f"segment_sum_small {label}", lambda: k3.segment_sum_small(idx, g, n_rows), got)
         if not torch.equal(got.cpu(), k3.segment_sum_small_ordered(idx.cpu(), g.cpu(), n_rows)):
             raise AssertionError(f"segment_sum_small {label}: differs from its ordered plain version")
         want = k3.segment_sum_small_plain(idx, g, n_rows)
         err = _close(got, want, K3_TOL[0], K3_TOL[1] * float(want.abs().max()))
-        plan = k3.segsum_plan(p, n_rows, 64)
+        plan = k3.segsum_plan(p, n_rows, c)
         rows.append(dict(
-            name="segment_sum_small", shape=f"{label}, P {p}, bf16 -> f32", main="real" in label,
-            max_abs_err=0.0, index_add_err=err,
+            name="segment_sum_small", shape=f"{label}, P {p}, C {c}, bf16 -> f32",
+            main=label.endswith(" real step"), cp=c == K3_CP_CASE[2], max_abs_err=0.0, index_add_err=err,
             ms=_time_ms(lambda: k3.segment_sum_small(idx, g, n_rows)),
             plain_ms=_time_ms(lambda: k3.segment_sum_small_plain(idx, g, n_rows)),
             library_ms=_index_add_ms(idx, g, n_rows), **_bound(_nbytes(idx, g, got)),
-            partial_bytes=0 if plan.n_ranges == 1 else 2 * plan.n_ranges * n_rows * 64 * 4,
-            n_ranges=plan.n_ranges, rows_hit=int((torch.bincount(idx, minlength=n_rows) > 0).sum()),
+            partial_bytes=0 if plan.n_ranges == 1 else 2 * plan.n_ranges * n_rows * c * 4,
+            n_ranges=plan.n_ranges, n_col_tiles=plan.n_col_tiles,
+            rows_hit=int((torch.bincount(idx, minlength=n_rows) > 0).sum()),
             # consecutive points on one row, on average
             mean_run=p / (int((idx[1:] != idx[:-1]).sum()) + 1),
         ))
+        del g, got, want
     return rows
 
 
@@ -806,8 +864,10 @@ def check_k4(dev, gen) -> list[dict]:
     return rows
 
 
-# the density L1 kernel: VM-192's 48 channels at 300^3, the default 24 at 640^3
-L1_CASES = ((300, (16, 16, 16)), (640, (8, 8, 8)))
+# the density L1 kernel: VM-192's 48 channels at 300^3, the default 24 at
+# 640^3, and TensoRF-CP-384's 96 at 500^3 (one rank: a CP field, its
+# virtual plane line_1 (x) line_2 and line_0; the kernel streams the lines)
+L1_CASES = ((300, (16, 16, 16)), (640, (8, 8, 8)), (500, (96,)))
 L1_TOL = 1e-5  # of a gradient's largest entry (tests/test_torch_gpu.py says why)
 # its bound: 3 K fused multiply-adds a voxel on the CUDA cores (f32, 67
 # TFLOP/s on an H100 SXM, NVIDIA's data sheet) or 4 special-function
@@ -820,18 +880,16 @@ SFU_OPS_PER_S = 132 * 16 * 1.98e9
 
 def _l1_blocked(planes, lines, dtype) -> tuple:
     """(value, plane gradients..., line gradients...) of the kernel's plain
-    version, models/tensorf.py's density_l1_blocked, on the factors cast to
+    version, models/tensorf.py's blocked path, on the factors cast to
     `dtype` (softplus, density_shift -5)."""
     import torch
 
     from localrf_tpu_torch.models import tensorf as ttf
 
     g = lines[0].shape[1]
-    cfg = ttf.TensorfConfig(grid_size=(g, g, g), density_n_comp=tuple(p.shape[0] for p in planes),
-                            density_shift=-5.0)
+    cfg = ttf.TensorfConfig(grid_size=(g, g, g), density_shift=-5.0)
     leaves = [t.detach().to(dtype).requires_grad_(True) for t in (*planes, *lines)]
-    params = {f"density_{part}_{i}": leaves[3 * j + i] for j, part in enumerate(("plane", "line")) for i in range(3)}
-    value = ttf.density_l1_blocked(params, cfg)
+    value = ttf._density_l1_blocked(leaves[:len(planes)], leaves[len(planes):], cfg)
     return (value.detach(), *torch.autograd.grad(value, leaves))
 
 
@@ -841,7 +899,8 @@ def check_l1(dev) -> list[dict]:
     relative, each gradient within L1_TOL of its largest entry; the kernel's
     and the plain version's errors against the blocked path in f64 beside
     it; two launches and a captured replay equal bit for bit to the eager
-    call; one launch a call. Timed as a replayed graph of 20 calls beside
+    call; one launch a call. A case of one rank is a CP field's: the
+    virtual plane line_1 (x) line_2 [K, G, G] and line_0 [K, G]. Timed as a replayed graph of 20 calls beside
     the plain version (f32 einsums and autograd in checkpointed blocks of
     ~16.8M voxels, eager, as the program ran the term before the kernel)."""
     import torch
@@ -851,27 +910,20 @@ def check_l1(dev) -> list[dict]:
     rows = []
     for g, ranks in L1_CASES:
         gen = torch.Generator(device=dev).manual_seed(g)
-        planes = [0.1 * torch.randn(c, g, g, generator=gen, device=dev) for c in ranks]
-        lines = [0.1 * torch.randn(c, g, generator=gen, device=dev) for c in ranks]
+        cp = len(ranks) == 1
+        if cp:
+            line0, line1, line2 = (0.1 * torch.randn(ranks[0], g, generator=gen, device=dev) for _ in range(3))
+            planes, lines = [line1[:, :, None] * line2[:, None, :]], [line0]
+        else:
+            planes = [0.1 * torch.randn(c, g, g, generator=gen, device=dev) for c in ranks]
+            lines = [0.1 * torch.randn(c, g, generator=gen, device=dev) for c in ranks]
         n0 = l1.LAUNCHES["density_l1"]
         got = l1._launch(planes, lines, -5.0, False)
         if l1.LAUNCHES["density_l1"] != n0 + 1:
             raise AssertionError("density_l1: the call did not count one launch")
         if not all(torch.equal(a, b) for a, b in zip(got, l1._launch(planes, lines, -5.0, False))):
             raise AssertionError(f"density_l1 {g}^3: two launches differ")
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            l1._launch(planes, lines, -5.0, False)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            replayed = l1._launch(planes, lines, -5.0, False)
-        graph.replay()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(got, replayed)):
-            raise AssertionError(f"density_l1 {g}^3: the captured replay differs from the eager call")
-        del graph, replayed
+        _check_captured(f"density_l1 {g}^3", lambda: l1._launch(planes, lines, -5.0, False), got)
         ref = _l1_blocked(planes, lines, torch.float32)
         value_rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
         if value_rel > 1e-5:
@@ -885,7 +937,8 @@ def check_l1(dev) -> list[dict]:
         k, n_vox = sum(ranks), g**3
         t_ffma, t_sfu = 6 * k * n_vox / F32_FLOP_PER_S * 1e3, 4 * n_vox / SFU_OPS_PER_S * 1e3
         rows.append(dict(
-            name="density_l1", shape=f"{g}^3, K {k}, f32", main=g == 640, max_abs_err=err,
+            name="density_l1", shape=f"{g}^3, K {k}{' (CP virtual plane)' if cp else ''}, f32", main=g == 640,
+            cp=cp, max_abs_err=err,
             value_rel_err=value_rel, f64_err=f64_err,
             ms=_time_ms(lambda: l1._launch(planes, lines, -5.0, False)),
             plain_ms=_time_ms(lambda: _l1_blocked(planes, lines, torch.float32), reps=3, eager=True),
@@ -939,12 +992,18 @@ PATH_KERNELS = {
     "segsum": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum", "segment_sum_small", "density_l1"},
     # the grid-sample route gathers with plain indexing: no K2
     "grid": {"fused_weights_fwd", "fused_weights_bwd", "density_l1"},
+    # a CP field has no planes (no K2); its line gradients sum in K3
+    "cp": {"fused_weights_fwd", "fused_weights_bwd", "segment_sum_small", "density_l1"},
 }
 # the grid-sample route's top-K shading: bench.py's app_top_k, K of the 332
 # samples a ray keeps at 640^3
 GRID_TOP_K = 128
+# TensoRF-CP-384 (benchmark/configs/tensorf-cp384.json): 96 density and 288
+# appearance components, lego.txt's MLP_Fea head, K3's line sums
 PATH_TF = {"default": {}, "fused_march": {"fused_march": True}, "segsum": {"line_bwd": "segsum"},
-           "grid": {"fast_gather": False, "app_top_k": GRID_TOP_K}}
+           "grid": {"fast_gather": False, "app_top_k": GRID_TOP_K},
+           "cp": {"decomposition": "cp", "density_n_comp": (96,), "app_n_comp": (288,), "line_bwd": "segsum",
+                  "shading_mode": "MLP_Fea", "fea_pe": 2, "view_pe": 2}}
 
 
 def _counters() -> list[dict]:
@@ -1063,13 +1122,56 @@ def run_slice(label: str, model, ds, n_steps: int, path: str = "default") -> dic
     return {"ms": ms, "peak": peak, "launches": launches}
 
 
+# a relu input this close to 0 may take either sign on the card and on the
+# CPU: their f32 sums of one pre-activation differ by up to ~4e-7 (H100
+# against the CPU, a 32^3 step), and one input that does moves a gradient
+# by up to ~1e-2 of its largest entry (seen: 1.5e-3, one of 2.4M inputs of
+# a TensoRF-CP-384 MLP_Fea step exactly 0.0 on the card)
+KINK_TOL = 1e-6
+
+
+@contextlib.contextmanager
+def relu_branches(masks: list, follow: bool):
+    """Inside, the relus of models/tensorf.py record their masks in `masks`
+    (follow False) or take the recorded ones in call order (follow True),
+    so a second run takes the branches of the first; there, an input whose
+    sign differs from the recorded mask must lie within KINK_TOL of 0.
+    Yields a list that counts such inputs."""
+    import types
+
+    import torch.nn.functional as F
+
+    from localrf_tpu_torch.models import tensorf as ttf
+
+    flips, calls = [], iter(list(masks))
+
+    def relu(x):
+        if not follow:
+            masks.append((x > 0).detach().cpu())
+            return F.relu(x)
+        mask = next(calls).to(x.device)
+        off = (x.detach() > 0) != mask
+        if (x.detach().abs()[off] > KINK_TOL).any():
+            raise AssertionError(f"a relu input off the recorded branch by more than {KINK_TOL}")
+        flips.append(int(off.sum()))
+        return x * mask.to(x.dtype)
+
+    saved = ttf.F
+    ttf.F = types.SimpleNamespace(**{**vars(F), "relu": relu})
+    try:
+        yield flips
+    finally:
+        ttf.F = saved
+
+
 def check_small_step_against_cpu(dev, path: str = "default") -> None:
     """Losses and gradients of one training step on a small field, on the
     card (kernels) and on the CPU (plain versions), from the same weights,
     batch and noise: without an alpha volume (dense march) and with a ball
     alpha volume (coarse probe + compaction), with the flags of `path`.
     f32 tables and MLP; gradients agree to 1e-3 of their largest entry
-    (atomic-add order on the card)."""
+    (atomic-add order on the card). The CPU takes the card's relu branches
+    (relu_branches): a gradient is not continuous at a relu's kink."""
     import torch
 
     from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
@@ -1092,18 +1194,19 @@ def check_small_step_against_cpu(dev, path: str = "default") -> None:
     zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
     ball = ((xx**2 + yy**2 + zz**2) < 0.6**2).to(torch.float32)
     for label, alpha in (("dense", None), ("probe", ball)):
-        out = []
-        for m in (gpu, cpu):
+        out, masks = [], []
+        for m, follow in ((gpu, False), (cpu, True)):
             m.is_refining = True
             m.rf_iter[-1] = 2
             f = m.fields[-1]
             f["alpha_volume"] = None if alpha is None else alpha.to(m.device)
             f["cfg"] = dataclasses.replace(f["cfg"], occ_m=m._occ_m(f["cfg"], alpha is not None))
-            g_field, g_pose, _, metrics = loss_grads(
-                f["params"], m._pose_dev, m.intr.params, m._statics(True),
-                m._device_batch(batch), m._scalars_py(),
-                {k: v.to(m.device) for k, v in noise.items()}, f["alpha_volume"],
-            )
+            with relu_branches(masks, follow) as flips:
+                g_field, g_pose, _, metrics = loss_grads(
+                    f["params"], m._pose_dev, m.intr.params, m._statics(True),
+                    m._device_batch(batch), m._scalars_py(),
+                    {k: v.to(m.device) for k, v in noise.items()}, f["alpha_volume"],
+                )
             grads = {**g_field, "r": g_pose[0], "t": g_pose[1], "exposure": g_pose[2]}
             out.append(({k: float(v) for k, v in metrics.items()},
                         {k: v.detach().float().cpu() for k, v in grads.items()}))
@@ -1120,16 +1223,18 @@ def check_small_step_against_cpu(dev, path: str = "default") -> None:
                 raise AssertionError(f"small step {label}: grad {k} off by {rel:.2e} of max")
         print(f"small step card vs cpu ({path}, {label}, occ_m {gpu.fields[-1]['cfg'].occ_m}):"
               f" total_loss {m_gpu['total_loss']:.6f} vs {m_cpu['total_loss']:.6f},"
-              f" worst grad err {worst:.2e} of max")
+              f" worst grad err {worst:.2e} of max; {sum(flips)} relu input(s) on the card's branch"
+              f" against their own sign (each within {KINK_TOL} of 0)")
     missing = [k for k, n in _launch_counts().items() if k in PATH_KERNELS[path] and n <= 0]
     if missing:
         raise AssertionError(f"small step ({path}): kernels {missing} did not launch on the card")
 
 
-def _with_ball(model, dev) -> None:
+def _with_ball(model, dev, occ_m: int = 332) -> None:
     """Put a ~8% ball alpha volume at half the grid (320^3 at 640^3) on the
     model's current field, past the schedule's rescale (rf_iter 10): coarse
-    probe + compaction to 332 samples per ray at 640^3."""
+    probe + compaction to `occ_m` samples per ray (332 at 640^3, 259 at
+    500^3)."""
     import torch
 
     model.is_refining = True
@@ -1140,8 +1245,8 @@ def _with_ball(model, dev) -> None:
     zz, yy, xx = torch.meshgrid(ax, ax, ax, indexing="ij")
     f["alpha_volume"] = ((xx**2 + yy**2 + zz**2) < 0.535**2).to(torch.float32)
     f["cfg"] = dataclasses.replace(f["cfg"], occ_m=model._occ_m(f["cfg"], True))
-    if f["cfg"].occ_m != 332:
-        raise AssertionError(f"640^3 field: occ_m {f['cfg'].occ_m}, expected 332")
+    if f["cfg"].occ_m != occ_m:
+        raise AssertionError(f"{f['cfg'].grid_size} field: occ_m {f['cfg'].occ_m}, expected {occ_m}")
 
 
 def model_640(dev, path: str, tf_kw: dict | None = None, **local_kw):
@@ -1152,6 +1257,17 @@ def model_640(dev, path: str, tf_kw: dict | None = None, **local_kw):
 
     model = LocalTensorfs(full_width_config(640, path, tf_kw, **local_kw), device=dev)
     _with_ball(model, dev)
+    return model
+
+
+def model_cp(dev):
+    """TensoRF-CP-384 at full width (PATH_TF["cp"]) at 500^3 with the ball
+    alpha volume at 250^3 (occ_m 259: 256 samples per ray), past the schedule's
+    rescale: the benchmark cell tensorf-cp384.refine-500's field."""
+    from localrf_tpu_torch.models.local import LocalTensorfs
+
+    model = LocalTensorfs(full_width_config(K3_CP_CASE[0], "cp"), device=dev)
+    _with_ball(model, dev, CP_OCC_M)
     return model
 
 
@@ -1520,6 +1636,32 @@ def chunk_640(ds, dev, pool, path: str, tf_kw: dict | None = None, label: str | 
         return m
 
     out, model = run_chunks(label or f"640^3 {path}", make, ds, path)
+    del model
+    return out
+
+
+def chunk_cp(ds, dev, pool) -> dict:
+    """The chunk path of model_cp (run_chunks on the "cp" path); the
+    profiled chunk's tracer counters (its record, fresh at the profiler's
+    start): K3 three launches a step in 12 column tiles each, and the L1
+    term through the virtual plane on every step."""
+    from localrf_tpu_torch.utils import profiling
+
+    def make(with_pool: bool):
+        m = model_cp(dev)
+        if with_pool:
+            m.attach_pool(pool)
+        return m
+
+    out, model = run_chunks("500^3 cp", make, ds, "cp")
+    counters = profiling.counters()
+    n_tiles = -(-K3_CP_CASE[2] // 64)
+    want = {"k3.launches": 3 * CHUNK, "k3.column_tiles": 3 * CHUNK * n_tiles, "l1.cp": CHUNK}
+    got = {k: counters.get(k, 0) for k in want}
+    if got != want:
+        raise AssertionError(f"500^3 cp: the profiled chunk's tracer counters {got}, expected {want}")
+    print(f"chunk 500^3 cp: tracer counters of the profiled chunk {got}")
+    out["counters"] = got
     del model
     return out
 
@@ -2900,12 +3042,13 @@ def main() -> None:
     ds = make_dataset(W, H, N_FRAMES)
     real = real_plane_indices(dev, ds)
     real_lines = real_line_indices(dev, ds)
+    real_cp = real_cp_line_indices(dev, ds)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = check_k1(dev, gen) + check_k2(dev, gen, real) + check_k5(dev, gen, real)
     del real
     gen = torch.Generator(device=dev).manual_seed(1)
-    rows += check_k3(dev, gen, real_lines) + check_k4(dev, gen) + check_l1(dev)
-    del real_lines
+    rows += check_k3(dev, gen, real_lines, real_cp) + check_k4(dev, gen) + check_l1(dev)
+    del real_lines, real_cp
     for row in rows:
         extra = (f"  bit for bit = ordered plain = 2nd launch, bins = merged_bins_plain; K2 {row['k2_ms']:.4f}"
                  f" ms; most points in a tile {row['max_tile_points']}, in a row {row['max_row_points']}"
@@ -2921,7 +3064,7 @@ def main() -> None:
         if "partial_bytes" in row:
             with_partials = (row["bound_bytes"] + row["partial_bytes"]) / HBM_BYTES_PER_S * 1e3
             extra += (f"  bit for bit = ordered plain = 2nd launch; index_add_ err {row['index_add_err']:.3e};"
-                      f" {row['n_ranges']} ranges, {row['rows_hit']} rows hit, runs of"
+                      f" {row['n_ranges']} ranges, {row['n_col_tiles']} column tiles, {row['rows_hit']} rows hit, runs of"
                       f" {row['mean_run']:.2f} points on one row on average; bound with the partial"
                       f" tables ({row['partial_bytes']} B) {with_partials:.4f} ms")
         lib = "-" if row["library_ms"] is None else f"{row['library_ms']:.4f} ms"
@@ -2964,6 +3107,8 @@ def main() -> None:
     for path in ("default", "fused_march", "segsum"):
         torch.cuda.empty_cache()
         chunks[f"640^3 {path}"] = chunk_640(ds, dev, pool, path)
+    torch.cuda.empty_cache()
+    chunks["500^3 cp"] = chunk_cp(ds, dev, pool)
     # phase 11 (shading heads), its chunk: TensoRF's published head
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3035,6 +3180,13 @@ def main() -> None:
         if "f64_err" in row:
             entry["f64_err"] = row["f64_err"]
         for r in mine:
+            if r.get("cp"):
+                # the TensoRF-CP-384 shape, and its chunk's counts (reset just before it)
+                entry.update(cp_shape=r["shape"], cp_ms=r["ms"], cp_plain_ms=r["plain_ms"],
+                             cp_library_ms=r["library_ms"], cp_bound_ms=r["bound_ms"],
+                             cp_bound_share=r["bound_ms"] / r["ms"],
+                             cp_chunk_launches=chunks["500^3 cp"]["launches"][name],
+                             cp_chunk_replayed_per_step=chunks["500^3 cp"]["replayed"][name] / CHUNK)
             if r["shape"] == EVAL_K1_SHAPE:
                 entry.update(eval_shape=r["shape"], eval_ms=r["ms"], eval_plain_ms=r["plain_ms"],
                              eval_bound_ms=r["bound_ms"])

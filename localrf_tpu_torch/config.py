@@ -12,6 +12,9 @@ from __future__ import annotations
 import argparse
 import shlex
 
+# --model_name -> TensorfConfig.decomposition (TensoRF's model classes)
+MODEL_NAMES = {"TensorVMSplit": "vm", "TensorCP": "cp"}
+
 
 def _add_config_file_args(argv: list[str]) -> list[str]:
     """Expand `--config file` into its `key = value` lines (CLI wins)."""
@@ -49,10 +52,6 @@ _XLA_GATHER = (
 )
 INERT_FLAGS: dict[str, str] = {
     "config": "consumed by the parser itself (_add_config_file_args)",
-    "model_name": (
-        "reference CLI compatibility (ref: opt.py:21); validated by argparse"
-        " choices — TensorVMSplit is the only model in the reference too"
-    ),
     "matmul_precision": (
         "JAX's jax_default_matmul_precision for the TPU's single-pass bf16"
         " dots; the port's f32 matmuls are full f32 (TF32 stays off), so every"
@@ -78,7 +77,9 @@ def config_parser(cmd: str | list[str] | None = None) -> argparse.Namespace:
     parser.add_argument("--progress_refresh_rate", type=int, default=200)
     parser.add_argument("--downsampling", type=float, default=-1)
     parser.add_argument(
-        "--model_name", type=str, default="TensorVMSplit", choices=["TensorVMSplit"]
+        "--model_name", type=str, default="TensorVMSplit", choices=list(MODEL_NAMES),
+        help="the field: TensoRF-VM (TensorVMSplit, LocalRF's) or TensoRF-CP (TensorCP: one"
+        " rank a kind, e.g. --n_lamb_sigma 96 --n_lamb_sh 288)",
     )
     # loader
     parser.add_argument("--batch_size", type=int, default=4096)

@@ -34,7 +34,12 @@
 //   memory ([K, G] f32, 61 KB at K = 24, G = 640), per row tile the tile's
 //   [K, 64] slice of A, and per visit (64 rows x 128 columns) the visit's g
 //   (34 KB); with ~103 KB a block, two blocks share an SM at both cells'
-//   shapes, and the register tiles fit 128 registers a thread.
+//   shapes, and the register tiles fit 128 registers a thread. Where B
+//   whole does not fit (a CP field's K = 96 at G = 500 would take 250 KB),
+//   a block holds only the visit's [K, 128] columns of B, loaded at each
+//   visit from L2 (`stream_b`: 109 KB at K = 96); the sums are the same,
+//   in the same order. Past K = 64 the register tiles need more than 128
+//   registers a thread, so one block takes an SM.
 // - A visit runs three phases between block barriers (see the kernel): f,
 //   the square roots and g from 4 x 8 register tiles; the plane gradient
 //   g B^T, kept in registers across the tile's visits and written once; the
@@ -68,7 +73,10 @@ constexpr int kRows = 4;        // forward: a lane's rows, 4 (lane >> 2) + 0..3 
 constexpr int kCols = 8;        // forward: a lane's columns, 8 (lane & 3) + 0..7 of its warp's 32
 constexpr int kGStride = kTileRows + 4;  // floats a column of the g tile: 17 float4, odd, so
                                          // that float4 reads of 32 columns spread over the banks
-constexpr int kMaxK = 64;
+constexpr int kMaxK = 96;
+// dynamic shared memory a block may opt into on sm_90 (227 KB), less the
+// kernel's static bytes
+constexpr int64_t kSmemOptin = 232448 - 64;
 constexpr float kClampMin = 1e-5f;
 constexpr float kSoftplusThreshold = 20.0f;
 constexpr unsigned kFull = 0xffffffffu;
@@ -87,6 +95,7 @@ struct Args {
   float n_vox;        // G^3 (exact in f32 for the grids in use)
   float* partials;    // [n_blocks, K, gp]: each block's line gradient
   double* sums;       // [n_blocks]: each block's sum of square roots
+  int stream_b;       // B in shared memory one visit's columns at a time (else whole)
 };
 
 __device__ __forceinline__ float plane_at(const Args& s, int k, int64_t p) {
@@ -144,11 +153,13 @@ __device__ __forceinline__ float root_and_grad(float f, float shift, bool relu, 
 //   A g over the tile's 64 rows, added to this thread's entries of the
 //   block's partial in device memory.
 template <int KP>
-__global__ void __launch_bounds__(kThreads, 2) density_l1_kernel(const __grid_constant__ Args s) {
+__global__ void __launch_bounds__(kThreads, KP > 64 ? 1 : 2) density_l1_kernel(const __grid_constant__ Args s) {
   constexpr int KM = KP / 8;  // channels a thread of the gradient phases
   extern __shared__ __align__(16) float smem[];
-  float* b_s = smem;                     // [KP, gp]: B, 0 past K and G
-  float* a_s = b_s + KP * s.gp;          // [KP, kTileRows]: the row tile of A, 0 past K and G^2
+  // B, 0 past K and G: whole [KP, gp], or the visit's columns [KP, kTileCols]
+  const int BS = s.stream_b ? kTileCols : s.gp;  // a channel's stride in b_s
+  float* b_s = smem;
+  float* a_s = b_s + KP * BS;            // [KP, kTileRows]: the row tile of A, 0 past K and G^2
   float* gs = a_s + KP * kTileRows;      // [kTileCols, kGStride]: g of the visit, column-major
   __shared__ double warp_sums[kThreads / 32];
 
@@ -159,9 +170,11 @@ __global__ void __launch_bounds__(kThreads, 2) density_l1_kernel(const __grid_co
   const int k_base = warp * KM;              // gradient phases: the thread's first channel
   const int K = s.k, G = s.g, GP = s.gp;
 
-  for (int i = tid; i < KP * GP; i += kThreads) {
-    const int k = i / GP, d = i - k * GP;
-    b_s[i] = (k < K && d < G) ? line_at(s, k, d) : 0.0f;
+  if (!s.stream_b) {
+    for (int i = tid; i < KP * GP; i += kThreads) {
+      const int k = i / GP, d = i - k * GP;
+      b_s[i] = (k < K && d < G) ? line_at(s, k, d) : 0.0f;
+    }
   }
   // the block's partial line gradient: this thread adds to (and so zeroes)
   // channels k_base.. at columns d = lane (mod 32)
@@ -190,6 +203,15 @@ __global__ void __launch_bounds__(kThreads, 2) density_l1_kernel(const __grid_co
 
     for (int col0 = 0; col0 < G; col0 += kTileCols) {
       const int n_cols = min(kTileCols, G - col0);
+      // the visit's columns of B: b_v[k * BS + c] is B[k][col0 + c]
+      const float* b_v = s.stream_b ? b_s : b_s + col0;
+      if (s.stream_b) {
+        for (int i = tid; i < KP * kTileCols; i += kThreads) {
+          const int k = i / kTileCols, d = col0 + i % kTileCols;
+          b_s[i] = (k < K && d < G) ? line_at(s, k, d) : 0.0f;
+        }
+        __syncthreads();
+      }
       // forward
       float4* my_gs = reinterpret_cast<float4*>(gs + (q * 32 + lc * kCols) * kGStride + row_base);
       if (rows_on && q * 32 < n_cols) {
@@ -202,8 +224,8 @@ __global__ void __launch_bounds__(kThreads, 2) density_l1_kernel(const __grid_co
 #pragma unroll
         for (int k = 0; k < KP; ++k) {
           const float4 a4 = *reinterpret_cast<const float4*>(a_s + k * kTileRows + row_base);
-          const float4 b4 = *reinterpret_cast<const float4*>(b_s + k * GP + cbase);
-          const float4 b8 = *reinterpret_cast<const float4*>(b_s + k * GP + cbase + 4);
+          const float4 b4 = *reinterpret_cast<const float4*>(b_v + k * BS + cbase - col0);
+          const float4 b8 = *reinterpret_cast<const float4*>(b_v + k * BS + cbase - col0 + 4);
           const float av[kRows] = {a4.x, a4.y, a4.z, a4.w};
           const float bv[kCols] = {b4.x, b4.y, b4.z, b4.w, b8.x, b8.y, b8.z, b8.w};
 #pragma unroll
@@ -234,8 +256,8 @@ __global__ void __launch_bounds__(kThreads, 2) density_l1_kernel(const __grid_co
       __syncthreads();
 
       // plane gradient: da[r][m] += sum_c g[c][2 lane + r] B[k_base + m][col0 + c],
-      // over the visit's columns rounded up to 8 (g and B are 0 past G; gp >=
-      // that round-up), two steps of 4 at a time
+      // over the visit's columns rounded up to 8 (g and B are 0 past G; gp
+      // and kTileCols >= that round-up), two steps of 4 at a time
       const int n_cols8 = (n_cols + 7) & ~7;
 #pragma unroll 2
       for (int c = 0; c < n_cols8; c += 4) {
@@ -244,7 +266,7 @@ __global__ void __launch_bounds__(kThreads, 2) density_l1_kernel(const __grid_co
         for (int j = 0; j < 4; ++j) gv[j] = *reinterpret_cast<const float2*>(gs + (c + j) * kGStride + 2 * lane);
 #pragma unroll
         for (int m = 0; m < KM; ++m) {
-          const float4 bv = *reinterpret_cast<const float4*>(b_s + (k_base + m) * GP + col0 + c);
+          const float4 bv = *reinterpret_cast<const float4*>(b_v + (k_base + m) * BS + c);
           const float bj[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
@@ -347,12 +369,20 @@ cudaError_t launch_main(const Args& s, int n_blocks, size_t smem, cudaStream_t s
 
 }  // namespace
 
+// Shared memory a block holding B whole (stream_b = 0) or one visit's
+// columns of it (stream_b = 1) needs for K channels and lines of length G.
+static int64_t smem_bytes(int k, int g, int stream_b) {
+  const int kp = (k + 7) / 8 * 8, gp = (g + 31) / 32 * 32;
+  return static_cast<int64_t>(sizeof(float)) * (kp * ((stream_b ? kTileCols : gp) + kTileRows) +
+                                                kTileCols * kGStride);
+}
+
+// B is held whole where that fits the card's shared memory
+static int stream_b(int k, int g) { return smem_bytes(k, g, 0) > kSmemOptin ? 1 : 0; }
+
 // Shared memory a block needs for K channels and lines of length G (the
 // wrapper checks it against the card's limit before launching).
-extern "C" int64_t lrf_density_l1_smem(int k, int g) {
-  const int kp = (k + 7) / 8 * 8, gp = (g + 31) / 32 * 32;
-  return static_cast<int64_t>(sizeof(float)) * (kp * (gp + kTileRows) + kTileCols * kGStride);
-}
+extern "C" int64_t lrf_density_l1_smem(int k, int g) { return smem_bytes(k, g, stream_b(k, g)); }
 
 // planes a0..a2 [C_i, G^2], lines b0..b2 [C_i, G] (f32, contiguous); writes
 // the planes' gradients da0..da2, the lines' gradient dlines [K, G] and the
@@ -384,8 +414,9 @@ extern "C" int lrf_density_l1(const void* a0, const void* a1, const void* a2, co
   s.n_vox = static_cast<float>(s.n_pix * g);
   s.partials = static_cast<float*>(partials);
   s.sums = static_cast<double*>(sums);
+  s.stream_b = stream_b(s.k, g);
   if (s.k < 1 || s.k > kMaxK || g < 1 || n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = static_cast<size_t>(lrf_density_l1_smem(s.k, g));
+  const size_t smem = static_cast<size_t>(smem_bytes(s.k, g, s.stream_b));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch ((s.k + 7) / 8 * 8) {
@@ -396,7 +427,11 @@ extern "C" int lrf_density_l1(const void* a0, const void* a1, const void* a2, co
     case 40: err = launch_main<40>(s, n_blocks, smem, st); break;
     case 48: err = launch_main<48>(s, n_blocks, smem, st); break;
     case 56: err = launch_main<56>(s, n_blocks, smem, st); break;
-    default: err = launch_main<64>(s, n_blocks, smem, st); break;
+    case 64: err = launch_main<64>(s, n_blocks, smem, st); break;
+    case 72: err = launch_main<72>(s, n_blocks, smem, st); break;
+    case 80: err = launch_main<80>(s, n_blocks, smem, st); break;
+    case 88: err = launch_main<88>(s, n_blocks, smem, st); break;
+    default: err = launch_main<96>(s, n_blocks, smem, st); break;
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const int kg = s.k * g;

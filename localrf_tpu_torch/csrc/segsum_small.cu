@@ -18,18 +18,27 @@
 // result does not depend on timing or on the SM count, and a plain version
 // (ops/kernels/segsum.py `segment_sum_small_ordered`) reproduces it bit
 // for bit.
-// - Blocks: grid (row tiles, point ranges) from `segsum_plan` (P, n_rows
-//   and C alone): range k holds the points [k L, (k + 1) L). A table taller
-//   than one block's accumulator is cut into row tiles, as the TPU kernel
-//   tiles T; every row-tile block of a range reads the range's points and
-//   skips the rows of other tiles, and indices outside [0, n_rows) too.
+// - Blocks: grid (row tiles x column tiles, point ranges) from
+//   `segsum_plan` (P, n_rows and C alone): range k holds the points
+//   [k L, (k + 1) L). A table taller than one block's accumulator is cut
+//   into row tiles, as the TPU kernel tiles T; every row-tile block of a
+//   range reads the range's points and skips the rows of other tiles, and
+//   indices outside [0, n_rows) too. Rows wider than kMaxC (a CP field's
+//   quad line row holds 768 values) are cut into column tiles of kMaxC:
+//   each block sums its columns of every point of its range into a
+//   [tile_rows, kMaxC] accumulator. A column tile splits the table, never a
+//   sum, so the order of every output value is the same as with one tile.
 // - Stream: the range passes through shared memory in stages of up to 256
 //   points (indices and payload rows), kStages buffers deep, so two stages
 //   are in flight while the block sums the third. One thread copies a
 //   stage with two TMA bulk copies (`cp.async.bulk`, completing on the
 //   buffer's mbarrier): a `cp.async` of 16 bytes from each of the 1,024
 //   threads kept the load/store queue full, and the block then spent
-//   longer issuing copies than summing.
+//   longer issuing copies than summing. A column tile of wider rows is not
+//   one contiguous piece: the 32 lanes of warp 0 copy its stage by one
+//   bulk copy per point (the tile's columns of that point's row, 128 bytes
+//   of bf16), or by plain copies where those do not start and end on
+//   16-byte boundaries.
 // - Rows are owned by warps: row r of the tile belongs to warp r % 32, so
 //   rows spread over warps however the points cluster (the ball of a 640^3
 //   step hits the middle ~350 rows). Each warp ballots over a stage's
@@ -63,7 +72,7 @@ namespace {
 
 constexpr int kWarps = 32;  // blockDim: row r of a tile belongs to warp r % kWarps
 constexpr int kThreads = 32 * kWarps;
-constexpr int kMaxC = 64;   // payload width: two channels a lane (a quad line row is 2C = 64)
+constexpr int kMaxC = 64;   // a column tile: two channels a lane (a VM quad line row is 2C = 64)
 constexpr int kStages = 3;  // stage buffers: two in flight while one is summed
 constexpr int kMaxStage = 256;                    // points in a stage at most
 constexpr int kSmemBytes = 226 * 1024;  // dynamic shared memory: of the 227 KB a block can opt into,
@@ -232,21 +241,31 @@ __device__ __forceinline__ void mark_flush(const long long (&)[N_PHASES + 1], in
 #endif
 
 // One block: the points [p_lo, p_hi) of range blockIdx.y into the rows of
-// tile blockIdx.x, then that tile of the range's partial table. Shared
-// memory: the f32 accumulator [tile_rows, c] (acc_bytes), then kStages
-// index buffers [stage] int64, then kStages payload buffers [stage, c].
+// row tile blockIdx.x % row_tiles, columns [c0, c0 + c) of column tile
+// blockIdx.x / row_tiles (ld: the payload's and the partials' row length,
+// C; c = ld with one column tile), then that tile of the range's partial
+// table. Shared memory: the f32 accumulator [tile_rows, c] (acc_bytes),
+// then kStages index buffers [stage] int64, then kStages payload buffers
+// [stage, c].
 template <typename T, bool PAIR>
 __global__ void __launch_bounds__(kThreads, 1)
     segsum_small_kernel(const int64_t* __restrict__ idx, const T* __restrict__ g,
-                        float* __restrict__ partials, int64_t p_total, int c, int64_t n_rows,
-                        int tile_rows, int64_t range_len, int stage, int acc_bytes) {
+                        float* __restrict__ partials, int64_t p_total, int ld, int col_tile, int64_t n_rows,
+                        int tile_rows, int row_tiles, int64_t range_len, int stage, int acc_bytes) {
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ uint64_t full[kStages];  // stage buffer b holds its stage
   float* acc = reinterpret_cast<float*>(smem);
   int64_t* sidx = reinterpret_cast<int64_t*>(smem + acc_bytes);
   T* spay = reinterpret_cast<T*>(smem + acc_bytes + kStages * stage * 8);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * tile_rows;
+  const int c0 = static_cast<int>(blockIdx.x / row_tiles) * col_tile;
+  const int c = ld - c0 < col_tile ? ld - c0 : col_tile;  // this block's columns
+  const bool tiled = c < ld;                               // a column tile of wider rows
+  // a point's columns as bulk copies: both ends on 16-byte boundaries
+  const bool bulk_rows = (ld * static_cast<int>(sizeof(T))) % 16 == 0 &&
+                         (c0 * static_cast<int>(sizeof(T))) % 16 == 0 &&
+                         (c * static_cast<int>(sizeof(T))) % 16 == 0;
+  const int64_t row0 = static_cast<int64_t>(blockIdx.x % row_tiles) * tile_rows;
   const int rows_here = static_cast<int>(n_rows - row0 < tile_rows ? n_rows - row0 : tile_rows);
   const int64_t p_lo = static_cast<int64_t>(blockIdx.y) * range_len;
   const int64_t p_hi = p_lo + range_len < p_total ? p_lo + range_len : p_total;
@@ -276,9 +295,36 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (ib) bulk_copy(si, idx + q0, ib, &full[b]);
     if (pb) bulk_copy(sp, g + q0 * c, pb, &full[b]);
   };
+  // Warp 0, for a column tile: the stage's indices as above (lane 0), its
+  // payload as one bulk copy a point (or plain copies where those are not
+  // 16-byte pieces), the points spread over the lanes; lane 0 arrives with
+  // the bytes of every copy before any is issued.
+  auto issue_tile = [&](int s, int b) {
+    const int64_t q0 = p_lo + static_cast<int64_t>(s) * stage;
+    const int n = static_cast<int>(p_hi - q0 < stage ? p_hi - q0 : stage);
+    const int row_bytes = c * static_cast<int>(sizeof(T));
+    const unsigned ib = (n * 8) & ~15;
+    int64_t* si = sidx + b * stage;
+    T* sp = spay + static_cast<int64_t>(b) * stage * c;
+    if (lane == 0 && ib < static_cast<unsigned>(n * 8)) si[n - 1] = idx[q0 + n - 1];
+    if (!bulk_rows) {
+      for (int e = lane; e < n * c; e += 32) {
+        const int i = e / c;
+        sp[e] = g[(q0 + i) * ld + c0 + (e - i * c)];
+      }
+    }
+    fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) bar_arrive_expect(&full[b], ib + (bulk_rows ? n * row_bytes : 0));
+    __syncwarp();
+    if (lane == 0 && ib) bulk_copy(si, idx + q0, ib, &full[b]);
+    if (bulk_rows) {
+      for (int i = lane; i < n; i += 32) bulk_copy(sp + i * c, g + (q0 + i) * ld + c0, row_bytes, &full[b]);
+    }
+  };
 
-  if (tid == 0) {
-    for (int s = 0; s < kStages - 1 && s < n_st; ++s) issue(s, s);
+  if (tiled ? warp == 0 : tid == 0) {
+    for (int s = 0; s < kStages - 1 && s < n_st; ++s) tiled ? issue_tile(s, s) : issue(s, s);
   }
   Run run;
   long long ph[N_PHASES + 1] = {};
@@ -288,7 +334,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     mark(ph, PH_WAIT);
     __syncthreads();  // and every warp is done with stage s - 1, whose buffer is refilled next
     mark(ph, PH_BARRIER);
-    if (tid == 0 && s + kStages - 1 < n_st) issue(s + kStages - 1, (s + kStages - 1) % kStages);
+    if (s + kStages - 1 < n_st) {
+      if (tiled && warp == 0) issue_tile(s + kStages - 1, (s + kStages - 1) % kStages);
+      if (!tiled && tid == 0) issue(s + kStages - 1, (s + kStages - 1) % kStages);
+    }
     mark(ph, PH_ISSUE);
     const int b = s % kStages;
     const int64_t q0 = p_lo + static_cast<int64_t>(s) * stage;
@@ -321,8 +370,11 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (run.cur >= 0) store_acc<PAIR>(acc + run.cur * c, run.a, lane, c);
   __syncthreads();
 
-  float* dst = partials + (static_cast<int64_t>(blockIdx.y) * n_rows + row0) * c;
-  for (int e = tid; e < rows_here * c; e += kThreads) dst[e] = acc[e];
+  float* dst = partials + (static_cast<int64_t>(blockIdx.y) * n_rows + row0) * ld + c0;
+  for (int e = tid; e < rows_here * c; e += kThreads) {
+    const int r = e / c;
+    dst[static_cast<int64_t>(r) * ld + (e - r * c)] = acc[e];
+  }
 }
 
 // out[e] = sum over ranges k, in order from 0, of partials[k][e]
@@ -339,27 +391,30 @@ __global__ void __launch_bounds__(kReduceThreads)
 
 template <typename T>
 cudaError_t launch(const int64_t* idx, const T* g, float* partials, float* out, int64_t p, int c,
-                   int64_t n_rows, int tile_rows, int n_ranges, int64_t range_len,
+                   int col_tile, int64_t n_rows, int tile_rows, int n_ranges, int64_t range_len,
                    cudaStream_t s) {
-  if (c < 1 || c > kMaxC || tile_rows < 1 || n_ranges < 1 || range_len < 32 || range_len % 32 ||
-      static_cast<int64_t>(n_ranges) * range_len < p || n_ranges > 65535 ||
-      static_cast<int64_t>(tile_rows) * c * 4 > kMaxAccBytes) {
+  if (c < 1 || col_tile < 1 || col_tile > kMaxC || col_tile > c || tile_rows < 1 || n_ranges < 1 ||
+      range_len < 32 || range_len % 32 || static_cast<int64_t>(n_ranges) * range_len < p ||
+      n_ranges > 65535 || static_cast<int64_t>(tile_rows) * col_tile * 4 > kMaxAccBytes) {
     return cudaErrorInvalidValue;
   }
   if (n_ranges == 1 && partials != out) return cudaErrorInvalidValue;
-  const int acc_bytes = (tile_rows * c * 4 + 15) / 16 * 16;
-  const int per_point = 8 + c * static_cast<int>(sizeof(T));
+  const int acc_bytes = (tile_rows * col_tile * 4 + 15) / 16 * 16;
+  const int per_point = 8 + col_tile * static_cast<int>(sizeof(T));
   int stage = (kSmemBytes - acc_bytes) / (kStages * per_point);
   stage = (stage < kMaxStage ? stage : kMaxStage) / 32 * 32;
   if (stage < 32) return cudaErrorInvalidValue;
   const int smem = acc_bytes + kStages * stage * per_point;
-  const auto kernel = c % 2 == 0 ? segsum_small_kernel<T, true> : segsum_small_kernel<T, false>;
+  // pairs of channels where every column tile is of an even width
+  const bool pair = c % 2 == 0 && col_tile % 2 == 0;
+  const auto kernel = pair ? segsum_small_kernel<T, true> : segsum_small_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const int64_t row_tiles = (n_rows + tile_rows - 1) / tile_rows;
-  const dim3 grid(static_cast<unsigned>(row_tiles), static_cast<unsigned>(n_ranges));
-  kernel<<<grid, kThreads, smem, s>>>(idx, g, partials, p, c, n_rows, tile_rows, range_len, stage,
-                                      acc_bytes);
+  const int64_t col_tiles = (c + col_tile - 1) / col_tile;
+  const dim3 grid(static_cast<unsigned>(row_tiles * col_tiles), static_cast<unsigned>(n_ranges));
+  kernel<<<grid, kThreads, smem, s>>>(idx, g, partials, p, c, col_tile, n_rows, tile_rows,
+                                      static_cast<int>(row_tiles), range_len, stage, acc_bytes);
   err = cudaGetLastError();
   if (err != cudaSuccess || n_ranges == 1) return err;
   const int64_t n_el = n_rows * c;
@@ -383,18 +438,19 @@ extern "C" int lrf_segsum_phase_cycles(void* host) {
 
 // idx int64 [P] and g [P, C] (f32 or bf16) on 16-byte boundaries; partials
 // f32 [n_ranges, n_rows, C] (the output itself when n_ranges == 1); out f32
-// [n_rows, C]; the plan's tile_rows, n_ranges and range_len.
+// [n_rows, C]; col_tile = min(C, kMaxC); the plan's tile_rows, n_ranges and
+// range_len.
 extern "C" int lrf_segsum_small(const void* idx, const void* g, int g_is_bf16, void* partials,
-                                void* out, int64_t p, int c, int64_t n_rows, int tile_rows,
-                                int n_ranges, int64_t range_len, void* stream) {
+                                void* out, int64_t p, int c, int col_tile, int64_t n_rows,
+                                int tile_rows, int n_ranges, int64_t range_len, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   const auto* ix = static_cast<const int64_t*>(idx);
   auto* pa = static_cast<float*>(partials);
   auto* o = static_cast<float*>(out);
   cudaError_t err =
-      g_is_bf16 ? launch(ix, static_cast<const __nv_bfloat16*>(g), pa, o, p, c, n_rows, tile_rows,
-                         n_ranges, range_len, s)
-                : launch(ix, static_cast<const float*>(g), pa, o, p, c, n_rows, tile_rows, n_ranges,
-                         range_len, s);
+      g_is_bf16 ? launch(ix, static_cast<const __nv_bfloat16*>(g), pa, o, p, c, col_tile, n_rows,
+                         tile_rows, n_ranges, range_len, s)
+                : launch(ix, static_cast<const float*>(g), pa, o, p, c, col_tile, n_rows, tile_rows,
+                         n_ranges, range_len, s);
   return static_cast<int>(err);
 }

@@ -31,8 +31,11 @@ one memory pool: they never run at once. Nothing falls back to eager steps:
 a failed capture or replay raises.
 
 The kernel wrappers' launch counters (LAUNCHES) count at capture, not at
-replay, and a host span inside the step runs only at capture too. What a
-replay does is seen on the card: every step graph holds the tracer's
+replay, and a host span inside the step runs only at capture too. The
+tracer's counters counted inside a captured step (`profiling.count`: which
+L1 path, K3's launches and column tiles) are tallied at its capture and
+recorded again at each replay. What a replay does is seen on the card:
+every step graph holds the tracer's
 device stamps (utils/profiling.py) at its module boundaries, which write
 one row of this executor's stamp ring (`ring`) at each replay, the row
 taken from the step's static inputs; a profiler trace of a replayed chunk
@@ -124,7 +127,9 @@ class ChunkGraphs:
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"ChunkGraphs captures CUDA graphs, got device {self.device}")
-        self.graphs: dict[tuple[StepStatics, StepBranches], torch.cuda.CUDAGraph] = {}
+        # each step key's graph and the tracer counters its capture counted
+        # (profiling.tallied)
+        self.graphs: dict[tuple[StepStatics, StepBranches], tuple[torch.cuda.CUDAGraph, dict]] = {}
         self.captures = 0  # graphs captured since construction
         self.replays = 0  # graph replays since construction
         self._binding = None
@@ -200,18 +205,21 @@ class ChunkGraphs:
         for k in range(n_steps):
             torch._foreach_copy_(buf.step_leaves(), [v[k] for v in streams])
             key = (statics, branches_seq[k])
-            graph = self.graphs.get(key)
-            if graph is None:
+            captured = self.graphs.get(key)
+            if captured is None:
                 self.graphs[key] = self._warm_up_and_capture(lambda: step(key[1]))
             else:
+                graph, tally = captured
                 graph.replay()
                 self.replays += 1
+                profiling.count_all(tally)
             out[k].copy_(buf.metrics)
         return field, buf.pose, buf.intr, {n: out[:, i] for i, n in enumerate(names)}
 
-    def _warm_up_and_capture(self, step) -> torch.cuda.CUDAGraph:
+    def _warm_up_and_capture(self, step) -> tuple[torch.cuda.CUDAGraph, dict]:
         """Run `step` eagerly on a side stream (this step's update), then
-        capture it; raises if either fails."""
+        capture it; raises if either fails. Returns the graph and the
+        tracer counters its capture counted."""
         current = torch.cuda.current_stream(self.device)
         side = self._side
         side.wait_stream(current)
@@ -221,7 +229,8 @@ class ChunkGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        with profiling.span("graph.capture"), torch.cuda.graph(graph, pool=self._pool):
+        with profiling.span("graph.capture"), profiling.tallied() as tally, \
+                torch.cuda.graph(graph, pool=self._pool):
             step()
         self.captures += 1
-        return graph
+        return graph, dict(tally)

@@ -126,6 +126,8 @@ class LocalTensorfs:
     _replicated = True
 
     def __init__(self, cfg: LocalConfig, camera_prior: dict | None = None, device="cuda"):
+        if cfg.tensorf.is_cp and (cfg.tv_weight_density > 0 or cfg.tv_weight_app > 0):
+            raise ValueError("TV regularizes a field's planes; a CP field has none (set the TV weights to 0)")
         self.cfg = cfg
         self.camera_prior = camera_prior
         self.device = torch.device(device)

@@ -218,7 +218,7 @@ def render_rays(
         w_k, idx_k = torch.topk(weight, k, dim=-1)
         pts_k = torch.gather(pts_norm, 1, idx_k[..., None].expand(r, k, 3)).reshape(-1, 3)
         vd_k = viewdirs.detach()[:, None, :].expand(r, k, 3).reshape(-1, 3)
-        rgb_k = apply_mlp(params["mlp"], pts_k, vd_k, compute_app_feature(params, pts_k), cfg, refine)
+        rgb_k = apply_mlp(params["mlp"], pts_k, vd_k, compute_app_feature(params, pts_k, cfg), cfg, refine)
         rgb_k = torch.where((w_k > cfg.ray_march_weight_thres)[..., None], rgb_k.reshape(r, k, 3), 0.0)
         rgb_map = torch.sum(w_k[..., None] * rgb_k, dim=-2)
     else:
@@ -228,7 +228,7 @@ def render_rays(
         app_mask = weight > cfg.ray_march_weight_thres
         if rgb_all is None:
             if app_feat_all is None:
-                app_feat_all = compute_app_feature(params, flat)
+                app_feat_all = compute_app_feature(params, flat, cfg)
             rgb_all = apply_mlp(params["mlp"], flat, vd, app_feat_all, cfg, refine)
         rgb = torch.where(app_mask[..., None], rgb_all.reshape(r, s, 3), 0.0)
         rgb_map = torch.sum(weight[..., None] * rgb, dim=-2)

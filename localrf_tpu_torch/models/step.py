@@ -35,7 +35,14 @@ from ..optim import (
 from ..parallel.sharding import all_mean, captures_collectives
 from ..utils import profiling
 from .render import render_rays
-from .tensorf import TensorfConfig, build_combined_quad_views, density_l1, tv_loss_app, tv_loss_density
+from .tensorf import (
+    TensorfConfig,
+    build_combined_quad_views,
+    density_l1,
+    factor_names,
+    tv_loss_app,
+    tv_loss_density,
+)
 
 
 class FieldState(NamedTuple):
@@ -301,7 +308,7 @@ def _losses(field_params, pose, intr_params, statics, batch, scalars, noise, bra
     # are made last); with no branch on, the same stamps mark an empty span
     zero = torch.zeros((), device=rgb.device)
     kinds = (("density",) if branches.tv_density or branches.l1 else ()) + (("app",) if branches.tv_app else ())
-    names = [f"{kind}_{part}_{i}" for kind in kinds for part in ("plane", "line") for i in range(3)]
+    names = [n for kind in kinds for n in factor_names(s.cfg, kind)]
     if names:
         reg_params = dict(zip(names, profiling.mark(
             "regularizer", "regularizer.bwd_end", *(field_params[n] for n in names))))

@@ -1,5 +1,5 @@
-"""TensoRF-VM factored radiance field (PyTorch port of
-localrf_tpu/models/tensorf.py).
+"""TensoRF-VM and TensoRF-CP factored radiance fields (the VM field is
+the PyTorch port of localrf_tpu/models/tensorf.py).
 
 The field is an `nn.Module` whose parameters carry the JAX dict keys
 (`density_plane_{i}`, `density_line_{i}`, `app_plane_{i}`, `app_line_{i}`,
@@ -12,6 +12,13 @@ Density: 3 planes [8, H, W] + 3 lines [8, D]; appearance: 3x [24, ., .]
 planes + lines; feature = sum over planes of plane*line products;
 appearance products feed a 72->27 basis matmul. matMode=[[0,1],[0,2],[1,2]],
 vecMode=[2,1,0].
+
+`TensorfConfig.decomposition="cp"` selects TensoRF's TensorCP instead: no
+planes, and each of the R_sigma density and R_app appearance components is
+the product of three lines (`density_line_{i}` [R_sigma, D],
+`app_line_{i}` [R_app, D], the ranks given as 1-tuples), so feature =
+line_0[x_2] * line_1[x_1] * line_2[x_0] per component; density sums the
+first R_sigma products, the other R_app feed the basis.
 """
 from __future__ import annotations
 
@@ -46,14 +53,16 @@ VEC_MODE = (2, 1, 0)
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # the shading heads of the JAX package (apply_mlp); RGB needs app_dim 3
 SHADING_MODES = ("MLP_Fea_late_view", "MLP_Fea", "MLP_Fea_woView", "MLP_PE", "MLP", "RGB")
+# field decompositions: TensoRF-VM (planes and lines) and TensoRF-CP (lines only)
+DECOMPOSITIONS = ("vm", "cp")
 
 
 @dataclasses.dataclass(frozen=True)
 class TensorfConfig:
     """Static field configuration; the same fields as the JAX TensorfConfig
-    (see there for what each does), plus `l1_stream_min_vox`. The three
-    `fused_*_gather` flags (XLA's gather workarounds, not ported) must stay
-    at their defaults."""
+    (see there for what each does), plus `l1_stream_min_vox` and
+    `decomposition`. The three `fused_*_gather` flags (XLA's gather
+    workarounds, not ported) must stay at their defaults."""
 
     grid_size: tuple[int, int, int]
     density_n_comp: tuple[int, int, int] = (8, 8, 8)
@@ -99,6 +108,9 @@ class TensorfConfig:
     # density_l1 evaluates the voxel grid in checkpointed blocks at and above
     # this many voxels (the JAX package reads LOCALRF_L1_STREAM* env vars)
     l1_stream_min_vox: int = 4 * 2**20
+    # "vm" (three planes and three lines a kind) or "cp" (three lines a kind;
+    # density_n_comp and app_n_comp are 1-tuples)
+    decomposition: str = "vm"
 
     def __post_init__(self):
         # the XLA gather-emitter workarounds are not ported (ROADMAP.md)
@@ -116,6 +128,17 @@ class TensorfConfig:
             raise ValueError(f"unknown shading mode {self.shading_mode}")
         if self.line_bwd not in ("gather", "segsum", "onehot"):
             raise ValueError(f"TensorfConfig.line_bwd={self.line_bwd!r}")
+        if self.decomposition not in DECOMPOSITIONS:
+            raise ValueError(f"TensorfConfig.decomposition={self.decomposition!r}")
+        if self.is_cp and (len(self.density_n_comp) != 1 or len(self.app_n_comp) != 1):
+            raise ValueError(
+                "a CP field takes one rank a kind (n_lamb_sigma [R], n_lamb_sh [R]), got "
+                f"{list(self.density_n_comp)} and {list(self.app_n_comp)}")
+
+    @property
+    def is_cp(self) -> bool:
+        """Whether the field is line-only (TensoRF-CP)."""
+        return self.decomposition == "cp"
 
     @property
     def line_mode(self) -> str:
@@ -209,20 +232,25 @@ def init_mlp(cfg: TensorfConfig, generator: torch.Generator, device) -> dict[str
     return out
 
 
+def factor_names(cfg: TensorfConfig, kind: str) -> list[str]:
+    """The factor tables of one kind ("density" or "app"): its planes, then
+    its lines (a CP field has lines only)."""
+    parts = ("line",) if cfg.is_cp else ("plane", "line")
+    return [f"{kind}_{part}_{i}" for part in parts for i in range(3)]
+
+
 def init_tensorf(cfg: TensorfConfig, generator: torch.Generator, device) -> TensorfField:
     """Random init: factor grids 0.1*randn, basis/MLP torch-Linear-style."""
     g = cfg.grid_size
+    names = set(factor_names(cfg, "density") + factor_names(cfg, "app"))
     t = {}
     for i in range(3):
         m0, m1 = MAT_MODE[i]
-        v = VEC_MODE[i]
         for kind, n_comp in (("density", cfg.density_n_comp), ("app", cfg.app_n_comp)):
-            t[f"{kind}_plane_{i}"] = 0.1 * torch.randn(
-                (n_comp[i], g[m1], g[m0]), generator=generator, device=device
-            )
-            t[f"{kind}_line_{i}"] = 0.1 * torch.randn(
-                (n_comp[i], g[v]), generator=generator, device=device
-            )
+            c = n_comp[i % len(n_comp)]  # a CP field's one rank serves all three
+            for name, shape in ((f"{kind}_plane_{i}", (c, g[m1], g[m0])), (f"{kind}_line_{i}", (c, g[VEC_MODE[i]]))):
+                if name in names:
+                    t[name] = 0.1 * torch.randn(shape, generator=generator, device=device)
     n_app = sum(cfg.app_n_comp)
     t["basis_mat"] = _uniform((n_app, cfg.app_dim), 1.0 / math.sqrt(n_app), generator, device)
     t.update(init_mlp(cfg, generator, device))
@@ -256,12 +284,8 @@ def normalize_coord(pts: torch.Tensor, cfg: TensorfConfig) -> torch.Tensor:
 
 def build_quad_views(params, cfg: TensorfConfig, kinds=("density", "app")) -> dict:
     """Quad-packed gather views of each factor grid (see ops/grid.py)."""
-    views = {}
-    for kind in kinds:
-        for i in range(3):
-            views[f"{kind}_plane_{i}"] = build_quad_plane(params[f"{kind}_plane_{i}"])
-            views[f"{kind}_line_{i}"] = build_quad_line(params[f"{kind}_line_{i}"])
-    return views
+    return {name: (build_quad_plane if "_plane_" in name else build_quad_line)(params[name])
+            for kind in kinds for name in factor_names(cfg, kind)}
 
 
 def build_combined_quad_views(params, cfg: TensorfConfig) -> dict:
@@ -270,21 +294,26 @@ def build_combined_quad_views(params, cfg: TensorfConfig) -> dict:
     gather (and one backward segment sum) per orientation serves both
     features. Tables are cast to `cfg.gather_dtype`, except the line tables
     in the "segsum" line mode: K3 takes them in f32 and rounds the gathered
-    rows (ops/kernels/segsum.py `take_rows`)."""
+    rows (ops/kernels/segsum.py `take_rows`). A CP field has the lines
+    only: [R_sigma + R_app]-channel lines, rows of 2 (R_sigma + R_app)."""
     dt = _DTYPES[cfg.gather_dtype]
     line_dt = torch.float32 if cfg.line_mode == "segsum" else dt
     views = {}
-    for i in range(3):
-        plane = torch.cat([params[f"density_plane_{i}"], params[f"app_plane_{i}"]], dim=0)
-        line = torch.cat([params[f"density_line_{i}"], params[f"app_line_{i}"]], dim=0)
-        views[f"comb_plane_{i}"] = build_quad_plane(plane.to(dt))
-        views[f"comb_line_{i}"] = build_quad_line(line.to(line_dt))
+    for name in factor_names(cfg, "density"):
+        part = name.removeprefix("density_")  # "plane_i" or "line_i"
+        table = torch.cat([params[name], params[f"app_{part}"]], dim=0)
+        if "plane" in part:
+            views[f"comb_{part}"] = build_quad_plane(table.to(dt))
+        else:
+            views[f"comb_{part}"] = build_quad_line(table.to(line_dt))
     return views
 
 
 def compute_density_app_features(params, pts: torch.Tensor, cfg: TensorfConfig, quad: dict):
     """Density feature [P] (f32) and appearance feature [P, app_dim] (f32)
     from ONE shared gather per orientation."""
+    if cfg.is_cp:
+        return _cp_density_app_features(params, pts, cfg, quad)
     sigma = 0.0
     prods = []
     g = cfg.grid_size
@@ -308,14 +337,45 @@ def compute_density_app_features(params, pts: torch.Tensor, cfg: TensorfConfig, 
     return sigma, app
 
 
+def _cp_density_app_features(params, pts: torch.Tensor, cfg: TensorfConfig, quad: dict):
+    """compute_density_app_features of a CP field: one combined line gather
+    per orientation, the three lines' product per component in the table
+    dtype; sigma sums the first R_sigma products in f32, the other R_app
+    go through the basis in f32."""
+    g = cfg.grid_size
+    dt = _DTYPES[cfg.gather_dtype]
+    cd = params["density_line_0"].shape[0]
+    c = cd + params["app_line_0"].shape[0]
+    prod = None
+    for i in range(3):
+        v = VEC_MODE[i]
+        lf = quad_sample_1d(quad[f"comb_line_{i}"], g[v], pts[:, v], c, cfg.line_mode, dt)
+        prod = lf if prod is None else prod * lf
+    sigma = torch.sum(prod[:, :cd].to(torch.float32), dim=-1)
+    feat = prod[:, cd:]
+    basis = params["basis_mat"].to(feat.dtype)
+    return sigma, torch.matmul(feat.to(torch.float32), basis.to(torch.float32))
+
+
 def compute_density_feature(params, pts: torch.Tensor, cfg: TensorfConfig, quad: dict | None = None
                             ) -> torch.Tensor:
     """Raw density feature at normalized points [P, 3] -> [P]: from
     density-only quad views (build_quad_views(..., kinds=("density",))), or
     with quad=None (cfg.fast_gather off) by bilinear lookups in the f32
-    factor grids (the grid-sample route, JAX's oracle; the same math)."""
-    out = 0.0
+    factor grids (the grid-sample route, JAX's oracle; the same math). A CP
+    field sums its three density lines' product over the components."""
     g = cfg.grid_size
+    if cfg.is_cp:
+        prod = 1.0
+        for i in range(3):
+            v = VEC_MODE[i]
+            line = params[f"density_line_{i}"]
+            if quad is None:
+                prod = prod * grid_sample_1d(line, pts[:, v])
+            else:
+                prod = prod * quad_sample_1d(quad[f"density_line_{i}"], g[v], pts[:, v], line.shape[0])
+        return torch.sum(prod, dim=-1)
+    out = 0.0
     for i in range(3):
         m0, m1 = MAT_MODE[i]
         v = VEC_MODE[i]
@@ -330,10 +390,16 @@ def compute_density_feature(params, pts: torch.Tensor, cfg: TensorfConfig, quad:
     return out
 
 
-def compute_app_feature(params, pts: torch.Tensor) -> torch.Tensor:
+def compute_app_feature(params, pts: torch.Tensor, cfg: TensorfConfig) -> torch.Tensor:
     """Appearance feature at normalized points [P, 3] -> [P, app_dim] on the
     grid-sample route: bilinear lookups in the f32 factor grids, their
-    products through the basis in f32."""
+    products through the basis in f32 (a CP field: the three appearance
+    lines' product)."""
+    if cfg.is_cp:
+        prod = 1.0
+        for i in range(3):
+            prod = prod * grid_sample_1d(params[f"app_line_{i}"], pts[:, VEC_MODE[i]])
+        return torch.matmul(prod, params["basis_mat"])
     prods = []
     for i in range(3):
         m0, m1 = MAT_MODE[i]
@@ -447,9 +513,10 @@ L1_BLOCK_TARGET = 1 << 24
 
 
 def _l1_block(cfg: TensorfConfig, *tensors) -> torch.Tensor:
-    planes, lines = tensors[:3], tensors[3:]
+    n = len(tensors) // 2
+    planes, lines = tensors[:n], tensors[n:]
     feat = 0.0
-    for i in range(3):
+    for i in range(n):
         feat = feat + torch.einsum("cp,cd->pd", planes[i], lines[i]).reshape(-1)
     sigmas = feature2density(feat, cfg)
     return torch.sum(torch.sqrt(torch.clamp(sigmas, min=1e-5)))
@@ -462,15 +529,32 @@ def density_l1(params, cfg: TensorfConfig) -> torch.Tensor:
     takes the kernel (ops/kernels/density_l1.py: one pass for the value and
     both gradients; there every orientation's voxel p D + d has the same
     (p, d)) and counts `l1.kernel`; any other grid, and every grid on the
-    CPU, takes density_l1_blocked and counts `l1.blocked`."""
+    CPU, takes density_l1_blocked and counts `l1.blocked`.
+
+    A CP field's feature is the product of its three density lines, f[(a,
+    b), d] = sum_c line_1[c, a] line_2[c, b] line_0[c, d]: the same form
+    with one plane, the virtual plane line_1 (x) line_2 [C, G_1, G_2] built
+    under autograd (its backward gives the two lines' gradients), and
+    line_0 (`l1_factors`); it counts `l1.cp` too."""
     g = cfg.grid_size
-    if params["density_plane_0"].device.type == "cuda" and g[0] == g[1] == g[2]:
+    planes, lines = l1_factors(params, cfg)
+    if planes[0].device.type == "cuda" and g[0] == g[1] == g[2]:
         profiling.count("l1.kernel")
-        return l1_kernel.density_l1([params[f"density_plane_{i}"] for i in range(3)],
-                                    [params[f"density_line_{i}"] for i in range(3)],
-                                    cfg.density_shift, density_relu(cfg))
+        return l1_kernel.density_l1(planes, lines, cfg.density_shift, density_relu(cfg))
     profiling.count("l1.blocked")
-    return density_l1_blocked(params, cfg)
+    return _density_l1_blocked(planes, lines, cfg)
+
+
+def l1_factors(params, cfg: TensorfConfig) -> tuple[list, list]:
+    """The density L1 term's (planes [C_i, H, W], lines [C_i, D]): a VM
+    field's three of each; a CP field's virtual plane line_1 (x) line_2
+    and line_0 (counted as `l1.cp`)."""
+    if not cfg.is_cp:
+        return ([params[f"density_plane_{i}"] for i in range(3)],
+                [params[f"density_line_{i}"] for i in range(3)])
+    profiling.count("l1.cp")
+    plane = params["density_line_1"][:, :, None] * params["density_line_2"][:, None, :]
+    return [plane], [params["density_line_0"]]
 
 
 def density_l1_blocked(params, cfg: TensorfConfig) -> torch.Tensor:
@@ -478,12 +562,12 @@ def density_l1_blocked(params, cfg: TensorfConfig) -> torch.Tensor:
     cfg.l1_stream_min_vox voxels the grid is produced in checkpointed blocks
     (same per-voxel values; only the order of the f32 sum differs), so
     neither pass holds the dense volume. The kernel's plain version."""
+    return _density_l1_blocked(*l1_factors(params, cfg), cfg)
+
+
+def _density_l1_blocked(planes: list, lines: list, cfg: TensorfConfig) -> torch.Tensor:
     n_vox = int(np.prod(cfg.grid_size))
-    planes = [
-        params[f"density_plane_{i}"].reshape(params[f"density_plane_{i}"].shape[0], -1)
-        for i in range(3)
-    ]
-    lines = [params[f"density_line_{i}"] for i in range(3)]
+    planes = [p.reshape(p.shape[0], -1) for p in planes]
     blk = _l1_block_size([ln.shape[1] for ln in lines], n_vox, L1_BLOCK_TARGET)
     if n_vox < cfg.l1_stream_min_vox or not blk:
         total = _l1_block(cfg, *planes, *lines)
@@ -503,19 +587,18 @@ def density_l1_blocked(params, cfg: TensorfConfig) -> torch.Tensor:
 
 @torch.no_grad()
 def upsample_tensorf(params, cfg: TensorfConfig, new_grid) -> tuple[TensorfField, TensorfConfig]:
-    """Bilinear align_corners upsample of all factor grids to `new_grid`.
-    Returns (new field, new config)."""
+    """Bilinear align_corners upsample of all factor grids to `new_grid` (a
+    CP field's lines only). Returns (new field, new config)."""
     new_cfg = cfg.with_grid(new_grid)
     g = new_cfg.grid_size
     out = {name: p.detach() for name, p in params.named_parameters()}
-    for i in range(3):
-        m0, m1 = MAT_MODE[i]
-        v = VEC_MODE[i]
-        for kind in ("density", "app"):
-            out[f"{kind}_plane_{i}"] = resize_align_corners_2d(
-                params[f"{kind}_plane_{i}"], g[m1], g[m0]
-            )
-            out[f"{kind}_line_{i}"] = resize_align_corners_1d(params[f"{kind}_line_{i}"], g[v])
+    for name in factor_names(cfg, "density") + factor_names(cfg, "app"):
+        i = int(name[-1])
+        if "_plane_" in name:
+            m0, m1 = MAT_MODE[i]
+            out[name] = resize_align_corners_2d(params[name], g[m1], g[m0])
+        else:
+            out[name] = resize_align_corners_1d(params[name], g[VEC_MODE[i]])
     return TensorfField({k: v.clone() for k, v in out.items()}), new_cfg
 
 

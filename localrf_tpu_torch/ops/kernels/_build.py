@@ -54,9 +54,9 @@ SIGNATURES = {
     + (_P,) * 3 + (_I, _P),
     # n_tiles, n_ranges -> ints of K5's workspace (int64), -1 past its limits
     "lrf_segment_sum_merged_workspace": (_I, _I),
-    # idx (int64), g, g_is_bf16, partials (f32), out (f32), P, C, n_rows,
-    # tile_rows, n_ranges, range_len, stream
-    "lrf_segsum_small": (_P, _P, _I, _P, _P, _L, _I, _L, _I, _I, _L, _P),
+    # idx (int64), g, g_is_bf16, partials (f32), out (f32), P, C, col_tile,
+    # n_rows, tile_rows, n_ranges, range_len, stream
+    "lrf_segsum_small": (_P, _P, _I, _P, _P, _L, _I, _I, _L, _I, _I, _L, _P),
     # rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, b2, w3,
     # b3, out, P, G, t_bf16, m_bf16, SM count, stream
     "lrf_march_fwd": (_P,) * 16 + (_L, _I, _I, _I, _I, _P),

@@ -36,7 +36,7 @@ LAUNCHES = {"density_l1": 0}
 # persistent blocks of the kernel: 2 per SM of an H100 (fixed here, not read
 # from the card, so that the summation order never depends on the card)
 BLOCKS = 264
-MAX_K = 64  # the kernel's channels (its register tiles are instantiated up to 64)
+MAX_K = 96  # the kernel's channels (its register tiles are instantiated up to 96)
 # shared memory a block may use on sm_90 (the kernel also takes 64 static bytes)
 SMEM_LIMIT = 232_448 - 64
 
@@ -54,10 +54,18 @@ def _check_cubic(planes, lines) -> tuple[int, int]:
 
 
 def _launch(planes, lines, shift: float, relu: bool) -> tuple:
-    """The kernel's (value, plane gradients..., line gradients...)."""
+    """The kernel's (value, plane gradients..., line gradients...) of one to
+    three plane/line pairs (a CP field gives its virtual plane and one
+    line)."""
+    n = len(planes)
+    if not 1 <= n <= 3 or len(lines) != n:
+        raise ValueError("density_l1 takes one to three planes and as many lines")
     if planes[0].device.type != "cuda":
         raise ValueError(f"density_l1: no kernel for device {planes[0].device}")
     k, g = _check_cubic(planes, lines)
+    # the kernel's channels past the given pairs: empty planes and lines
+    planes = [*planes, *(planes[0].new_empty((0, g, g)) for _ in range(3 - n))]
+    lines = [*lines, *(lines[0].new_empty((0, g)) for _ in range(3 - n))]
     for t in (*planes, *lines):
         if t.dtype != torch.float32 or t.device != planes[0].device:
             raise TypeError(f"density_l1 takes f32 tensors on one device, got {t.dtype} on {t.device}")
@@ -83,13 +91,14 @@ def _launch(planes, lines, shift: float, relu: bool) -> tuple:
             dlines.data_ptr(), value.data_ptr(), BLOCKS, _build.stream_ptr(dev),
         )
     LAUNCHES["density_l1"] += 1
-    return (value, *dplanes) + tuple(dlines.split([p.shape[0] for p in planes]))
+    return (value, *dplanes[:n]) + dlines.split([p.shape[0] for p in planes])[:n]
 
 
 class _DensityL1(torch.autograd.Function):
     @staticmethod
     def forward(ctx, shift, relu, *tensors):
-        value, *grads = _launch(tensors[:3], tensors[3:], shift, relu)
+        n = len(tensors) // 2
+        value, *grads = _launch(tensors[:n], tensors[n:], shift, relu)
         ctx.save_for_backward(*grads)
         return value
 
@@ -100,8 +109,7 @@ class _DensityL1(torch.autograd.Function):
 
 def density_l1(planes, lines, shift: float, relu: bool = False) -> torch.Tensor:
     """The L1 term of a cubic grid's density planes [C_i, G, G] and lines
-    [C_i, G] (three of each), differentiable w.r.t. all six: CUDA tensors
-    launch the kernel; any other device raises."""
-    if len(planes) != 3 or len(lines) != 3:
-        raise ValueError("density_l1 takes three planes and three lines")
+    [C_i, G] (one to three of each: a CP field gives its virtual plane and
+    one line), differentiable w.r.t. all of them: CUDA tensors launch the
+    kernel; any other device raises."""
     return _DensityL1.apply(float(shift), bool(relu), *planes, *lines)

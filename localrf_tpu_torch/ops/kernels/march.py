@@ -370,10 +370,12 @@ def march_core(rows0, rows1, rows2, wxy, w1l, x0, vd, lines, basis, w1, b1, w2, 
 
 
 def fused_march_supported(cfg) -> bool:
-    """The kernel is specialised to the reference's default shape config."""
+    """The kernel is specialised to the reference's default shape config
+    (a VM field; a CP field takes the unfused path)."""
     g = cfg.grid_size
     return (
-        tuple(cfg.density_n_comp) == (CD, CD, CD)
+        not cfg.is_cp
+        and tuple(cfg.density_n_comp) == (CD, CD, CD)
         and tuple(cfg.app_n_comp) == (CA, CA, CA)
         and cfg.app_dim == APP_DIM
         and cfg.feature_c == FEAT_C

@@ -2,7 +2,8 @@
 
 K3: `segment_sum_small` launches the CUDA kernels in csrc/segsum_small.cu
 (an f32 segment sum whose output tile stays in shared memory; see the note
-there for what bounds it on the card), replacing the Pallas TPU kernel
+there for what bounds it on the card; rows of any width, in column tiles of
+MAX_C), replacing the Pallas TPU kernel
 localrf_tpu/ops/pallas/segsum.py `segment_sum_matmul`. `take_rows` is the
 row gather whose backward is that segment sum (`--line_bwd segsum`);
 `segment_sum_small_plain` (an f32 `index_add_`) is the CPU path.
@@ -35,16 +36,21 @@ from typing import NamedTuple
 
 import torch
 
+from ...utils import profiling
 from . import _build
 from .binned_scatter import row_ordered_sum, segment_sum_plain
 
 LAUNCHES = {"segment_sum_small": 0}
-MAX_C = 64  # the kernel's payload width (csrc/segsum_small.cu kMaxC): a quad line row
+# a block's column tile (csrc/segsum_small.cu kMaxC): a VM quad line row of
+# 64 values is one tile; wider rows (a CP field's 768) are cut into tiles of
+# MAX_C columns, the last one narrower
+MAX_C = 64
 _PAYLOAD_DTYPES = (torch.float32, torch.bfloat16)
 
 # K3's plan: an f32 accumulator of at most ACC_FLOATS values (160 KB, one
 # [640, 64] line table) per block; at most BLOCKS blocks (one per SM of an
-# H100, fixed here so that the order never depends on the card), ranges of
+# H100, fixed here so that the order never depends on the card) over the
+# row tiles, column tiles and ranges, ranges of
 # at least MIN_RANGE points, in multiples of RANGE_ALIGN (so that every
 # stage's indices and payload rows start on a 16-byte boundary for the
 # kernel's bulk copies), and at most SCRATCH_FLOATS (32 MB) of partial
@@ -58,24 +64,28 @@ SCRATCH_FLOATS = 8 * 2**20
 
 class SegsumPlan(NamedTuple):
     """K3's schedule, from (P, n_rows, C) alone: row tiles of `tile_rows`
-    rows (`n_tiles`), point ranges [k * range_len, (k + 1) * range_len)
-    (`n_ranges`, none empty). Only the ranges set the summation order."""
+    rows (`n_tiles`), column tiles of MAX_C columns (`n_col_tiles`; one of
+    all C columns where C <= MAX_C), point ranges [k * range_len, (k + 1) *
+    range_len) (`n_ranges`, none empty). Only the ranges set the summation
+    order: tiles split the table, never a sum."""
 
     tile_rows: int
     n_tiles: int
     n_ranges: int
     range_len: int
+    n_col_tiles: int = 1
 
 
 def segsum_plan(p: int, n_rows: int, c: int) -> SegsumPlan:
     c = max(c, 1)
-    tile_rows = max(1, min(n_rows, ACC_FLOATS // c))
+    n_col_tiles = -(-c // MAX_C)
+    tile_rows = max(1, min(n_rows, ACC_FLOATS // min(c, MAX_C)))
     n_tiles = -(-n_rows // tile_rows)
-    n_ranges = max(1, min(-(-p // MIN_RANGE), BLOCKS // max(n_tiles, 1),
+    n_ranges = max(1, min(-(-p // MIN_RANGE), BLOCKS // max(n_tiles * n_col_tiles, 1),
                           SCRATCH_FLOATS // max(n_rows * c, 1)))
     per_range = -(-p // n_ranges)
     range_len = max(1, -(-per_range // RANGE_ALIGN)) * RANGE_ALIGN
-    return SegsumPlan(tile_rows, n_tiles, max(1, -(-p // range_len)), range_len)
+    return SegsumPlan(tile_rows, n_tiles, max(1, -(-p // range_len)), range_len, n_col_tiles)
 
 
 def segment_sum_small_plain(idx: torch.Tensor, g: torch.Tensor, n_rows: int) -> torch.Tensor:
@@ -109,8 +119,6 @@ def _segment_sum_small_cuda(idx, g, n_rows: int) -> torch.Tensor:
         raise TypeError(f"segment_sum_small supports float32/bfloat16 payloads, got {g.dtype}")
     if idx.device != g.device:
         raise ValueError("idx and g must be on the same device")
-    if g.shape[1] > MAX_C:
-        raise ValueError(f"segment_sum_small takes rows of at most {MAX_C} values, got {g.shape[1]}")
     idx, g = idx.contiguous(), g.contiguous()
     p, c = g.shape
     if not (p and n_rows and c):
@@ -125,10 +133,12 @@ def _segment_sum_small_cuda(idx, g, n_rows: int) -> torch.Tensor:
     with torch.cuda.device(g.device):
         _build.launch(
             "lrf_segsum_small", idx.data_ptr(), g.data_ptr(), int(g.dtype == torch.bfloat16),
-            partials.data_ptr(), out.data_ptr(), p, c, n_rows, plan.tile_rows, plan.n_ranges,
+            partials.data_ptr(), out.data_ptr(), p, c, min(c, MAX_C), n_rows, plan.tile_rows, plan.n_ranges,
             plan.range_len, _build.stream_ptr(g.device),
         )
     LAUNCHES["segment_sum_small"] += 1
+    profiling.count("k3.launches")
+    profiling.count("k3.column_tiles", plan.n_col_tiles)
     return out
 
 

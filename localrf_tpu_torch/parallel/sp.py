@@ -140,7 +140,7 @@ def render_rays_sp(
 
     vd = viewdirs[:, None, :].expand(r, m, 3).reshape(-1, 3)
     if app_feat is None:
-        app_feat = compute_app_feature(params, flat)
+        app_feat = compute_app_feature(params, flat, cfg)
     rgb = apply_mlp(params["mlp"], flat, vd, app_feat, cfg, refine).reshape(r, m, 3)
     rgb = torch.where((weight > cfg.ray_march_weight_thres)[..., None], rgb, 0.0)
     part = torch.cat([torch.sum(weight[..., None] * rgb, dim=-2), torch.sum(weight, dim=-1, keepdim=True),

@@ -33,7 +33,7 @@ import torch
 import torch.distributed as dist
 
 from .checkpoint import load_checkpoint, save_checkpoint
-from .config import INERT_FLAGS, config_parser
+from .config import INERT_FLAGS, MODEL_NAMES, config_parser
 from .data.dataset import LocalRFDataset
 from .data.pool import DevicePixelPool
 from .models.local import LocalConfig, LocalTensorfs
@@ -259,6 +259,7 @@ def _make_model(args, train_dataset) -> LocalTensorfs:
         n_samples_cap=int(args.nSamples),
         aabb_lo=tuple(float(v) for v in aabb[0]),
         aabb_hi=tuple(float(v) for v in aabb[1]),
+        decomposition=MODEL_NAMES[args.model_name],
     )
     cfg = LocalConfig(
         fov=args.fov,

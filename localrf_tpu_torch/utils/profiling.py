@@ -203,10 +203,38 @@ def span(name: str, unit: str | None = None):
     return _Span(name, unit)
 
 
+# the counters of the step being captured (`tallied`), or None
+_tally: "collections.Counter | None" = None
+
+
 def count(name: str, value: int = 1) -> None:
-    """Add `value` to counter `name` of the current unit while recording."""
-    if recording() and RECORDER._room():
+    """Add `value` to counter `name` of the current unit while recording.
+    Inside `tallied` (a graph capture, which runs nothing) the count goes
+    to the capture's tally instead, whether recording or not."""
+    if _tally is not None:
+        _tally[name] += int(value)
+    elif recording() and RECORDER._room():
         RECORDER.counters.append((name, int(value), RECORDER._unit, time.time_ns()))
+
+
+@contextlib.contextmanager
+def tallied():
+    """Collect the counts of the enclosed block into a Counter (yielded)
+    instead of recording them: a captured step's counts, which each of its
+    replays records again (`count_all`)."""
+    global _tally
+    saved, _tally = _tally, collections.Counter()
+    try:
+        yield _tally
+    finally:
+        _tally = saved
+
+
+def count_all(tally: dict) -> None:
+    """Record every counter of `tally` (a replay of a captured step)."""
+    if tally and recording():
+        for name, value in tally.items():
+            count(name, value)
 
 
 def counters() -> dict:

@@ -152,6 +152,7 @@ def test_jax_checkpoint_loads_bit_for_bit(jax_file):
     want = dataclasses.asdict(jm.cfg)
     got = dataclasses.asdict(tm.cfg)
     got["tensorf"].pop("l1_stream_min_vox")  # the port's own (JAX reads an env var)
+    assert got["tensorf"].pop("decomposition") == "vm"  # the port's own: JAX has the VM field only
     assert got == want
     assert [f["cfg"].occ_m for f in tm.fields] == [f["cfg"].occ_m for f in jm.fields]
     assert tuple(extra["active_bounds"]) == bounds and extra["iteration"] == 9

@@ -133,13 +133,14 @@ MAKE_MODEL_CASES = {
 def test_make_model_builds_jax_config(case, capsys):
     """_make_model builds the LocalConfig JAX's builds from the same
     arguments (dataclasses.asdict; the port's TensorfConfig adds
-    l1_stream_min_vox), on --device; an XLA gather flag changes nothing and
-    says so."""
+    l1_stream_min_vox and decomposition), on --device; an XLA gather flag
+    changes nothing and says so."""
     argv = ["--N_voxel_init", str(16**3), *MAKE_MODEL_CASES[case], "--device", "cpu"]
     jm = jtrain._make_model(jconfig.config_parser(argv), _FakeDS())
     tm = ttrain._make_model(tconfig.config_parser(argv + ["--fused_plane_gather", "1"]), _FakeDS())
     got, want = dataclasses.asdict(tm.cfg), dataclasses.asdict(jm.cfg)
     got["tensorf"].pop("l1_stream_min_vox")
+    assert got["tensorf"].pop("decomposition") == "vm"  # JAX has the VM field only
     assert got == want
     assert tm.device == torch.device("cpu") and tm.fields[-1]["params"]["basis_mat"].device.type == "cpu"
     assert "--fused_plane_gather=1 has no effect" in capsys.readouterr().out

@@ -650,6 +650,99 @@ def test_density_l1_takes_the_kernel_on_cubic_grids_on_card(cuda_device, grid):
     assert abs(float(val.detach()) - float(blocked.detach())) <= 1e-5 * abs(float(blocked.detach()))
 
 
+def _k3_plan_before_column_tiles(p: int, n_rows: int, c: int) -> tuple:
+    """segsum_plan as it was before rows wider than MAX_C were tiled (C <=
+    64 only): (tile_rows, n_tiles, n_ranges, range_len)."""
+    tile_rows = max(1, min(n_rows, k3.ACC_FLOATS // c))
+    n_tiles = -(-n_rows // tile_rows)
+    n_ranges = max(1, min(-(-p // k3.MIN_RANGE), k3.BLOCKS // n_tiles, k3.SCRATCH_FLOATS // max(n_rows * c, 1)))
+    range_len = max(1, -(-(-(-p // n_ranges)) // k3.RANGE_ALIGN)) * k3.RANGE_ALIGN
+    return tile_rows, n_tiles, max(1, -(-p // range_len)), range_len
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,p,c,dtype,kind", [
+    (500, 4096 * 259, 768, "bfloat16", "ball"),  # a CP-384 step's line sum at 500^3
+    (500, 200_000, 768, "float32", "out-of-range"), (300, 60_000, 100, "bfloat16", "uniform"),
+    (70, 30_000, 131, "float32", "hot"),  # odd C: plain copies, one channel a lane
+])
+def test_k3_column_tiles_are_its_ordered_plain_version_on_card(cuda_device, n_rows, p, c, dtype, kind):
+    """Rows wider than MAX_C sum in column tiles in the order segsum_plan
+    fixes: bit for bit equal to segment_sum_small_ordered (CPU copies), to
+    a second launch and to a captured graph's replay."""
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    idx = _line_rows(gen, kind, p, n_rows, cuda_device)
+    g = torch.randn(p, c, generator=gen, device=cuda_device).to(getattr(torch, dtype))
+    assert k3.segsum_plan(p, n_rows, c).n_col_tiles == -(-c // k3.MAX_C)
+    got = k3.segment_sum_small(idx, g, n_rows)
+    assert got.dtype == torch.float32 and got.shape == (n_rows, c)
+    assert torch.equal(got, k3.segment_sum_small(idx, g, n_rows))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        k3.segment_sum_small(idx, g, n_rows)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = k3.segment_sum_small(idx, g, n_rows)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+    assert torch.equal(got.cpu(), k3.segment_sum_small_ordered(idx.cpu(), g.cpu(), n_rows))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_rows,p,c", [(640, 4096 * 332, 64), (64, 4096 * 72, 64), (300, 50_000, 7),
+                                        (1500, 200_000, 64), (640, 0, 64)])
+def test_k3_plan_and_sum_up_to_64_columns_are_unchanged_on_card(cuda_device, n_rows, p, c):
+    """Up to MAX_C columns K3's plan is the one it had before column tiles
+    (one column tile), and its sum is that plan's ordered plain version."""
+    plan = k3.segsum_plan(p, n_rows, c)
+    assert plan == k3.SegsumPlan(*_k3_plan_before_column_tiles(p, n_rows, c)) and plan.n_col_tiles == 1
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    idx = _line_rows(gen, "ball", p, n_rows, cuda_device)
+    g = torch.randn(p, c, generator=gen, device=cuda_device).to(torch.bfloat16)
+    got = k3.segment_sum_small(idx, g, n_rows)
+    assert torch.equal(got.cpu(), k3.segment_sum_small_ordered(idx.cpu(), g.cpu(), n_rows))
+
+
+@pytest.mark.gpu
+def test_density_l1_of_a_cp_field_at_500_takes_the_kernel_on_card(cuda_device):
+    """A CP-384 field's L1 term at 500^3 (K = 96: B whole would not fit the
+    block's shared memory, so the kernel streams it) through
+    models/tensorf.py's density_l1 (`l1.cp` and `l1.kernel` count, one
+    launch) against the blocked path in f64: the value within 1e-5
+    relative, each line's gradient within 3e-5 of its largest entry; two
+    launches bit-equal."""
+    from localrf_tpu_torch.models import tensorf as ttf
+    from localrf_tpu_torch.ops.kernels import density_l1 as l1
+    from localrf_tpu_torch.utils import profiling
+
+    g = 500
+    cfg = ttf.TensorfConfig(grid_size=(g, g, g), density_n_comp=(96,), app_n_comp=(288,), decomposition="cp")
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    lines = [(0.1 * torch.randn(96, g, generator=gen, device=cuda_device)).requires_grad_(True) for _ in range(3)]
+    params = {f"density_line_{i}": lines[i] for i in range(3)}
+    n0 = l1.LAUNCHES["density_l1"]
+    profiling.RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        val = ttf.density_l1(params, cfg)
+        counts = profiling.counters()
+    assert counts.get("l1.cp") == 1 and counts.get("l1.kernel") == 1 and "l1.blocked" not in counts
+    assert l1.LAUNCHES["density_l1"] == n0 + 1
+    grads = torch.autograd.grad(val, lines)
+    exact = [t.detach().double().requires_grad_(True) for t in lines]
+    ref = ttf.density_l1_blocked({f"density_line_{i}": exact[i] for i in range(3)}, cfg)
+    want = torch.autograd.grad(ref, exact)
+    assert abs(float(val.detach()) - float(ref.detach())) <= 1e-5 * abs(float(ref.detach()))
+    for got, w in zip(grads, want):
+        torch.testing.assert_close(got.double(), w, rtol=0.0, atol=3e-5 * float(w.abs().max()))
+    planes, rest = ttf.l1_factors(params, cfg)
+    first = l1._launch([planes[0].detach()], [rest[0].detach()], -5.0, False)
+    again = l1._launch([planes[0].detach()], [rest[0].detach()], -5.0, False)
+    assert len(first) == 3 and all(torch.equal(a, b) for a, b in zip(first, again))
+
+
 def _chunk_models(dev, n: int):
     from localrf_tpu_torch.data.dataset import SyntheticDataset
     from localrf_tpu_torch.data.pool import DevicePixelPool
