@@ -999,8 +999,12 @@ PATH_KERNELS = {
 # samples a ray keeps at 640^3
 GRID_TOP_K = 128
 # TensoRF-CP-384 (benchmark/configs/tensorf-cp384.json): 96 density and 288
-# appearance components, lego.txt's MLP_Fea head, K3's line sums
-PATH_TF = {"default": {}, "fused_march": {"fused_march": True}, "segsum": {"line_bwd": "segsum"},
+# appearance components, lego.txt's MLP_Fea head, K3's line sums. "default"
+# and "segsum" are the unfused feature path (JAX's default, and the port's
+# for every field the fused march does not fit): the port's own default at
+# these widths is the fused march
+PATH_TF = {"default": {"fused_march": False}, "fused_march": {"fused_march": True},
+           "segsum": {"line_bwd": "segsum", "fused_march": False},
            "grid": {"fast_gather": False, "app_top_k": GRID_TOP_K},
            "cp": {"decomposition": "cp", "density_n_comp": (96,), "app_n_comp": (288,), "line_bwd": "segsum",
                   "shading_mode": "MLP_Fea", "fea_pe": 2, "view_pe": 2}}
@@ -2350,7 +2354,7 @@ def cli_phase(dev, w: int = W, h: int = H) -> tuple[dict, dict, object]:
     run_s = time.perf_counter() - t0
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated() if cuda else 0
-    _check_launches("cli run", launches, "default")
+    _check_launches("cli run", launches, "fused_march")  # the CLI's default at the default widths
 
     # what the run went through, and what it wrote
     f0 = model.fields[0]

@@ -207,11 +207,15 @@ def config_parser(cmd: str | list[str] | None = None) -> argparse.Namespace:
         help="inert in the port (config.INERT_FLAGS): an XLA gather workaround",
     )
     parser.add_argument(
-        "--fused_march", type=int, default=0,
+        "--fused_march", type=int, default=1,
         help="fuse the march core (plane-row lerp, line lookup, factor product,"
         " basis matmul, shading MLP) into one kernel with its VJP (K4,"
         " ops/kernels/march.py); only for the reference's default shape"
-        " config",
+        " config (VM 8/24, app_dim 27, featureC 128, MLP_Fea_late_view, no"
+        " PE, a cubic grid), any other takes the unfused path. On by default"
+        " in the port (the JAX package's default is 0); 0 forces the unfused"
+        " path. A checkpoint keeps the value it was written with, so a JAX"
+        " checkpoint loads with 0",
     )
     parser.add_argument(
         "--data_parallel", type=int, default=0,

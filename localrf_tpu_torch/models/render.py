@@ -4,9 +4,10 @@ Contracted stratified sampling, occupancy culling (coarse probe + exact
 compaction, or a dense cull), factored-grid density, softplus, the
 compositing scan (the K1 kernel when cfg.pallas_composite), shading of
 every (compacted) sample from the shared gather or in the fused march core
-(the K4 kernel when cfg.fused_march) or, on the grid-sample route
-(cfg.fast_gather off), of every sample or of the top-K by weight
-(cfg.app_top_k), the eval renders' floater suppression, white background.
+(the K4 kernel when cfg.fused_march, the default, and the field fits it)
+or, on the grid-sample route (cfg.fast_gather off), of every sample or of
+the top-K by weight (cfg.app_top_k), the eval renders' floater
+suppression, white background.
 Static shapes: masked samples are zeroed, not dropped, which gives the
 same composited outputs as the reference's ragged gathers.
 """
@@ -168,10 +169,14 @@ def render_rays(
     if quad is None and cfg.fast_gather:
         quad = build_combined_quad_views(params, cfg)
     rgb_all = app_feat_all = None
+    # which feature path the chunk takes (in a captured step: tallied at
+    # capture, recorded at each replay)
+    fused = cfg.fast_gather and cfg.fused_march and fused_march_supported(cfg)
+    profiling.count("march.fused" if fused else "march.unfused")
     if not cfg.fast_gather:
         # the grid-sample route: appearance only once the weights are known
         sigma_feat = compute_density_feature(params, flat, cfg)
-    elif cfg.fused_march and fused_march_supported(cfg):
+    elif fused:
         # the fused march core (K4) shades every (compacted) sample itself
         sigma_feat, rgb_all = fused_march_features(params, quad, flat, vd, cfg)
     else:

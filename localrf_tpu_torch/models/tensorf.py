@@ -62,7 +62,10 @@ class TensorfConfig:
     """Static field configuration; the same fields as the JAX TensorfConfig
     (see there for what each does), plus `l1_stream_min_vox` and
     `decomposition`. The three `fused_*_gather` flags (XLA's gather
-    workarounds, not ported) must stay at their defaults."""
+    workarounds, not ported) must stay at their defaults. One default
+    differs from JAX's: `fused_march` is on, since on the card the fused
+    march core does the feature and shading work of the unfused path in
+    one kernel a direction; JAX's False still loads from its checkpoints."""
 
     grid_size: tuple[int, int, int]
     density_n_comp: tuple[int, int, int] = (8, 8, 8)
@@ -94,8 +97,9 @@ class TensorfConfig:
     occ_probe_ds: int = 4
     occ_refine: bool = True
     # the fused march core, K4 (ops/kernels/march.py), where
-    # fused_march_supported(cfg); the unfused path otherwise, as in JAX
-    fused_march: bool = False
+    # fused_march_supported(cfg); the unfused path otherwise. On by default
+    # (JAX's default is off): every field that fits the kernel takes it
+    fused_march: bool = True
     step_ratio: float = 0.5
     n_samples_cap: int = int(1e6)
     fea2dense_act: str = "softplus"

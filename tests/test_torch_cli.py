@@ -69,9 +69,11 @@ E2E_FLAGS = [
 
 def test_flags_and_defaults_match_jax():
     """The same flags with the same defaults as JAX's parser, apart from
-    --device (cuda here); JAX's XLA-only flags parse with their defaults."""
+    --device (cuda here) and --fused_march (on here); JAX's XLA-only flags
+    parse with their defaults."""
     t, j = vars(tconfig.config_parser([])), vars(jconfig.config_parser([]))
     assert t.pop("device") == "cuda" and j.pop("device") == "tpu"
+    assert t.pop("fused_march") == 1 and j.pop("fused_march") == 0
     assert t == j
     assert tconfig.config_parser(["--device", "cpu"]).device == "cpu"
     for flag in ("matmul_precision", "fused_plane_gather", "fused_line_gather", "fused_fwd_gather", "app_top_k"):
@@ -81,7 +83,8 @@ def test_flags_and_defaults_match_jax():
 @pytest.mark.parametrize("cli", [[], ["--batch_size", "1024", "--fov", "70"]])
 def test_config_files_parse_the_same(tmp_path, cli):
     """A --config file (comments, `key = value`, lists in brackets, bare
-    flags) gives the same arguments in both packages; the CLI wins."""
+    flags) gives the same arguments in both packages (but --fused_march's
+    default); the CLI wins."""
     cfgfile = tmp_path / "scene.txt"
     cfgfile.write_text("# a comment\ndatadir = /data/forest1\nfov = 59\nbatch_size = 2048\n"
                        "upsamp_list = [100, 150, 200]\nn_lamb_sigma = [4, 4, 4]\nline_bwd = segsum\n"
@@ -89,6 +92,7 @@ def test_config_files_parse_the_same(tmp_path, cli):
     argv = ["--config", str(cfgfile), *cli]
     t, j = vars(tconfig.config_parser(argv)), vars(jconfig.config_parser(argv))
     t.pop("device"), j.pop("device")
+    assert t.pop("fused_march") == 1 and j.pop("fused_march") == 0
     assert t == j
     assert t["upsamp_list"] == [100, 150, 200] and t["skip_saving_video"] is True
     assert t["batch_size"] == (1024 if cli else 2048)
@@ -133,14 +137,16 @@ MAKE_MODEL_CASES = {
 def test_make_model_builds_jax_config(case, capsys):
     """_make_model builds the LocalConfig JAX's builds from the same
     arguments (dataclasses.asdict; the port's TensorfConfig adds
-    l1_stream_min_vox and decomposition), on --device; an XLA gather flag
-    changes nothing and says so."""
+    l1_stream_min_vox and decomposition, and its fused_march defaults on),
+    on --device; an XLA gather flag changes nothing and says so."""
     argv = ["--N_voxel_init", str(16**3), *MAKE_MODEL_CASES[case], "--device", "cpu"]
     jm = jtrain._make_model(jconfig.config_parser(argv), _FakeDS())
     tm = ttrain._make_model(tconfig.config_parser(argv + ["--fused_plane_gather", "1"]), _FakeDS())
     got, want = dataclasses.asdict(tm.cfg), dataclasses.asdict(jm.cfg)
     got["tensorf"].pop("l1_stream_min_vox")
     assert got["tensorf"].pop("decomposition") == "vm"  # JAX has the VM field only
+    assert got["tensorf"].pop("fused_march") is True
+    assert want["tensorf"].pop("fused_march") is ("--fused_march" in argv)
     assert got == want
     assert tm.device == torch.device("cpu") and tm.fields[-1]["params"]["basis_mat"].device.type == "cpu"
     assert "--fused_plane_gather=1 has no effect" in capsys.readouterr().out
@@ -259,7 +265,8 @@ def test_schedule_matches_jax(tmp_path, monkeypatch):
     scene = str(tmp_path / "scene")
     make_scene_dir(scene)
     flags = ["--datadir", scene, *E2E_FLAGS, "--vis_every", "1000", "--scan_chunk", "1", "--render_test", "0",
-             "--render_path", "0", "--data_parallel", "1", "--gather_dtype", "float32", "--mlp_dtype", "float32"]
+             "--render_path", "0", "--data_parallel", "1", "--gather_dtype", "float32", "--mlp_dtype", "float32",
+             "--fused_march", "0"]
     j_events, inits, keys = [], [], []
     with monkeypatch.context() as mp:
         _record_jax(mp, j_events, inits, keys)

@@ -41,7 +41,8 @@ from localrf_tpu_torch.optim import pytree_adam_init
 from localrf_tpu_torch.utils import metrics as tmetrics
 
 W, H = 40, 30
-TF_KW = dict(grid_size=(24, 24, 24), pallas_composite=True, binned_min_rows=100)
+# the unfused feature path, JAX's default (the port's default is the fused march)
+TF_KW = dict(grid_size=(24, 24, 24), pallas_composite=True, binned_min_rows=100, fused_march=False)
 BF16 = dict(gather_dtype="bfloat16", mlp_dtype="bfloat16")
 OCC_M = 12
 

@@ -869,6 +869,41 @@ def test_captured_chunk_bit_exact_with_fixed_order_sums(cuda_device, monkeypatch
 
 
 @pytest.mark.gpu
+def test_default_step_launches_the_fused_march_once_each_way(cuda_device):
+    """A default bf16 field at 64^3 (TensorfConfig's defaults: the fused
+    march on) takes one eager training step through K4: K4-fwd and K4-bwd
+    launch once each, the step counts `march.fused` once and no
+    `march.unfused`, and its losses are finite."""
+    from localrf_tpu_torch.data.dataset import SyntheticDataset
+    from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
+    from localrf_tpu_torch.models.tensorf import TensorfConfig
+    from localrf_tpu_torch.utils import profiling
+
+    w, h = 96, 64
+    rng = np.random.default_rng(3)
+    shape = (4, h, w)
+    ds = SyntheticDataset(rng.random((*shape, 3), dtype=np.float32), "train",
+                          invdepths=0.1 + 0.9 * rng.random(shape, dtype=np.float32),
+                          fwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32),
+                          fwd_mask=np.ones(shape, np.float32),
+                          bwd_flow=rng.normal(0, 2, (*shape, 2)).astype(np.float32),
+                          bwd_mask=np.ones(shape, np.float32), n_init_frames=4, test_frame_every=0)
+    tf = TensorfConfig(grid_size=(64, 64, 64), pallas_composite=True, gather_dtype="bfloat16",
+                       mlp_dtype="bfloat16")
+    m = LocalTensorfs(LocalConfig(WH=(w, h), n_init_frames=4, n_views=4, batch_size=1024, tensorf=tf),
+                      device=cuda_device)
+    batch = ds.sample(1024, False, True, n_views=4)
+    n0 = dict(k4.LAUNCHES)
+    profiling.RECORDER.reset()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
+        m.optimizer_step(batch, optimize_poses=True)
+        counts = profiling.counters()
+    assert k4.LAUNCHES == {"march_fwd": n0["march_fwd"] + 1, "march_bwd": n0["march_bwd"] + 1}
+    assert counts.get("march.fused") == 1 and "march.unfused" not in counts
+    assert all(np.isfinite(v) for v in m.last_metrics.values())
+
+
+@pytest.mark.gpu
 def test_spawn_step_and_blended_eval_card_matches_cpu(cuda_device):
     """A 32^3 f32 model on the card and on the CPU spawns a field, slides,
     takes one step on it (losses rtol 1e-4) and renders one blended 40x30

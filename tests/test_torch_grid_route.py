@@ -98,7 +98,7 @@ def test_grid_route_equals_quad_route_and_top_k_covering_every_sample():
     field = field_from_jax(jp, device="cpu")
     o, d = (T(a) for a in _rays())
     out = {}
-    for name, kw in (("quad", {}), ("grid", dict(fast_gather=False)),
+    for name, kw in (("quad", dict(fused_march=False)), ("grid", dict(fast_gather=False)),
                      ("top47", dict(fast_gather=False, app_top_k=47))):
         cfg = ttf.TensorfConfig(grid_size=GRID, **kw)
         with torch.no_grad():

@@ -40,7 +40,8 @@ from localrf_tpu_torch.models import tensorf as ttf
 from localrf_tpu_torch.optim import pytree_adam_init
 
 W, H, N_VIEWS, BATCH = 40, 30, 4, 128
-TF_KW = dict(grid_size=(24, 24, 24), pallas_composite=True, binned_min_rows=100)
+# the unfused feature path, JAX's default (the port's default is the fused march)
+TF_KW = dict(grid_size=(24, 24, 24), pallas_composite=True, binned_min_rows=100, fused_march=False)
 
 
 def T(x):

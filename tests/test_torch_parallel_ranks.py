@@ -32,7 +32,8 @@ from localrf_tpu_torch.parallel import sharding, sp
 # a tiny scene of 32x24 frames, every third a held-out test frame (so the
 # chunk's third step is a pose-only one); f32 tables and MLP (the defaults)
 W, H, N_FRAMES, N_VIEWS, BATCH, K = 32, 24, 6, 4, 128, 4
-TF_KW = dict(grid_size=(24, 24, 24), pallas_composite=True, binned_min_rows=100)
+# the unfused feature path, JAX's default (the port's default is the fused march)
+TF_KW = dict(grid_size=(24, 24, 24), pallas_composite=True, binned_min_rows=100, fused_march=False)
 # the chunk starts at rf_iter 2 with the L1 on for two steps (n_iters_reg 4)
 # and ends in an alpha refresh (an event: the state is broadcast again)
 CHUNK_KW = dict(update_AlphaMask_list=[K], occ_min=4)

@@ -35,7 +35,8 @@ from localrf_tpu_torch.optim import pytree_adam_init
 
 W, H, N_FRAMES, N_VIEWS, BATCH = 40, 30, 4, 4, 128
 GRID = (24, 24, 24)
-TF_KW = dict(grid_size=GRID, pallas_composite=True, binned_min_rows=100)
+# the unfused feature path, JAX's default (the port's default is the fused march)
+TF_KW = dict(grid_size=GRID, pallas_composite=True, binned_min_rows=100, fused_march=False)
 
 
 def T(x):
@@ -90,8 +91,8 @@ RENDER_CASES = {
 @pytest.mark.parametrize("case", list(RENDER_CASES))
 def test_render_rays_matches_jax(rng, case):
     is_train, white_bg, with_alpha, kw = RENDER_CASES[case]
-    jcfg = jtf.TensorfConfig(**TF_KW, **kw)
-    tcfg = ttf.TensorfConfig(**TF_KW, **kw)
+    jcfg = jtf.TensorfConfig(**{**TF_KW, **kw})
+    tcfg = ttf.TensorfConfig(**{**TF_KW, **kw})
     jp = jax.device_get(jtf.init_tensorf(jax.random.PRNGKey(3), jcfg))
     field = field_from_jax(jp, device="cpu")
     o = rng.uniform(-0.4, 0.4, (64, 3)).astype(np.float32)
