@@ -38,8 +38,9 @@
    vs CPU: a 32^3 f32 model spawns a field, slides, takes one step on it
    and renders one 40x30 blended frame.
 4. Eager steps: trains the full-width TensoRF-VM model through the port's
-   entry points (LocalTensorfs.optimizer_step on SyntheticDataset batches
-   of 4096 rays over 960x540 frames): 5 steps from 64^3 (alpha refresh,
+   entry points (LocalTensorfs.run_chunk of one SyntheticDataset batch of
+   4096 rays over 960x540 frames at a time, each step eager: eager_chunks.py's
+   EagerSteps stands in for the captured graphs): 5 steps from 64^3 (alpha refresh,
    dense cull, upsample to 101^3), then 3 steps at 640^3 with a 320^3 ball
    alpha volume (coarse probe + compaction to 332 samples per ray) for each
    of the default path, the fused march and the segsum lines.
@@ -57,10 +58,14 @@
    VJP through K5, captured in the chunk's graphs; K3 sums in a fixed order
    of its own, also as K4-bwd's line gradient on the fused march) and holds
    it bit for bit against the same 16 steps taken eagerly by a twin model
-   from the same state; K5's launch count comes from these chunks, reset
-   just before each and read after it. Then, on the path as it runs: the first chunk
-   against a twin's eager steps (tolerances at CHUNK_TOL; the chunk's launch
-   counts are read before the twin runs), 3 chunks timed, one traced with
+   from the same state (chunks of one under eager_chunks.py's EagerSteps); K5's launch count
+   comes from these chunks, reset just before each and read after it.
+   Then, on the path as it runs: the first chunk against a twin's eager
+   steps (tolerances at CHUNK_TOL; the chunk's launch
+   counts are read before the twin runs), and the same steps as a second
+   twin's chunks of one (--scan_chunk 1: a captured graph a step, replayed
+   over batch values shipped from the host, no pool) against those eager
+   steps (CHUNK_TOL, the path's kernels launched), 3 chunks timed, one traced with
    torch.profiler, which must show one graph launch per step whose replays
    ran the path's kernels, and none of them outside a replay (the launch
    counters count at capture, not at replay, and must not move in a chunk
@@ -84,7 +89,7 @@
    4096), each timed: one in the cross-fade (both fields at weight 0.5),
    against the plain compositing (pallas_composite off) and against the
    sum over fields of w_k * render_frame_k; one of field 0 alone (also
-   profiled: idle share); render_chunk over 2 views against those frames;
+   profiled: idle share); forward_eval over 2 views against those frames;
    one of field 1 alone with floater_thresh 0.5 (no K1); PSNR and SSIM on
    the card against the (random) dataset frames; card memory before and
    after clear_eval_cache; K1-fwd launches counted per frame (one per chunk
@@ -165,6 +170,8 @@ import sys
 import time
 
 import numpy as np
+
+from eager_chunks import eager_steps
 
 # kernel tolerances (see the kernel modules): K1 forward/backward against the
 # cumprod reference, which multiplies in another order on the card
@@ -451,7 +458,8 @@ def record_sums(model, ds, module, name: str) -> list:
 
     setattr(module, name, spy)
     try:
-        model.optimizer_step(ds.sample(BATCH, model.is_refining, True, n_views=N_VIEWS), optimize_poses=True)
+        with eager_steps(model):
+            model.run_chunk([ds.sample(BATCH, model.is_refining, True, n_views=N_VIEWS)], optimize_poses=True)
     finally:
         setattr(module, name, segment_sum)
     return seen
@@ -1095,8 +1103,9 @@ def _check_launches(label: str, launches: dict, path: str, fixed_order: bool = F
 
 
 def run_slice(label: str, model, ds, n_steps: int, path: str = "default") -> dict:
-    """Drive n_steps optimizer_steps; check losses, updates, and that the
-    kernels of `path` (PATH_KERNELS) launched and no other did."""
+    """Drive n_steps eager steps (chunks of one under eager_steps); check
+    losses, updates, and that the kernels of `path` (PATH_KERNELS) launched
+    and no other did."""
     import torch
 
     before = _snapshot(model)
@@ -1108,7 +1117,8 @@ def run_slice(label: str, model, ds, n_steps: int, path: str = "default") -> dic
         batch = ds.sample(BATCH, model.is_refining, True, n_views=N_VIEWS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        model.optimizer_step(batch, optimize_poses=True)
+        with eager_steps(model):
+            model.run_chunk([batch], optimize_poses=True)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
         losses.append(dict(model.last_metrics))
@@ -1179,7 +1189,7 @@ def check_small_step_against_cpu(dev, path: str = "default") -> None:
     import torch
 
     from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
-    from localrf_tpu_torch.models.step import loss_grads
+    from localrf_tpu_torch.models.step import loss_grads, row
     from localrf_tpu_torch.models.tensorf import TensorfConfig, TensorfField
 
     w, h = 96, 64
@@ -1208,7 +1218,7 @@ def check_small_step_against_cpu(dev, path: str = "default") -> None:
             with relu_branches(masks, follow) as flips:
                 g_field, g_pose, _, metrics = loss_grads(
                     f["params"], m._pose_dev, m.intr.params, m._statics(True),
-                    m._device_batch(batch), m._scalars_py(),
+                    row(m._stage([batch], [m._gate()]), 0), m._scalars_py(),
                     {k: v.to(m.device) for k, v in noise.items()}, f["alpha_volume"],
                 )
             grads = {**g_field, "r": g_pose[0], "t": g_pose[1], "exposure": g_pose[2]}
@@ -1391,7 +1401,8 @@ def chunk_bit_exact(label: str, make, ds, path: str) -> tuple[int, dict]:
         got = model.chunk_metrics
         _reset_launch_counts()
         for i, b in enumerate(twin_batches):
-            twin.optimizer_step(b, optimize_poses=True)
+            with eager_steps(twin):
+                twin.run_chunk([b], optimize_poses=True)
             for k, v in twin.last_metrics.items():
                 if float(got[k][i]) != v:
                     raise AssertionError(f"{label} (fixed-order sums): step {i} {k}:"
@@ -1407,15 +1418,34 @@ def chunk_bit_exact(label: str, make, ds, path: str) -> tuple[int, dict]:
     return len(mine), launches
 
 
+def _against_eager(label: str, got: list[dict], eager: list[dict]) -> float:
+    """Every step's losses `got` against the eager steps' to CHUNK_TOL;
+    returns the worst relative rgb_loss difference."""
+    worst = 0.0
+    for i, want in enumerate(eager):
+        for k, v in want.items():
+            rtol = CHUNK_TOL["first" if i == 0 else "rgb" if k == "rgb_loss" else "other"]
+            err = abs(got[i][k] - v)
+            if k == "rgb_loss":
+                worst = max(worst, err / (abs(v) + 1e-7))
+            if not err <= rtol * abs(v) + 1e-7:
+                raise AssertionError(f"{label}: step {i} {k}: graph {got[i][k]} vs eager {v}")
+    return worst
+
+
 def chunk_against_eager(label: str, model, make_twin, ds, path: str) -> dict:
     """The model's next chunk (its graphs captured in it) against the same
-    batches as eager optimizer_steps of a twin made by make_twin() from the
-    same initial state (same config and seed), to CHUNK_TOL. The launch
-    counts of the chunk (warm-up and capture; replays call no wrapper) and
-    of the twin's steps are read apart, each right after its own run, and
-    the twin's are checked against `path`. Returns the chunk's host ms and
-    peak allocated bytes, the worst relative rgb_loss difference and the
-    chunk's launch counts."""
+    batches as eager steps (chunks of one under eager_steps) of a twin made
+    by make_twin() from the same initial state (same config and seed), to
+    CHUNK_TOL; then the same batches as a second twin's chunks of one
+    (`--scan_chunk 1`: a captured graph of each single step, replayed over
+    the batch values shipped from the host, no pool) against those eager
+    steps, to CHUNK_TOL. The launch counts of the chunk (warm-up and
+    capture; replays call no wrapper), of the eager steps and of the
+    chunks of one are read apart, each right after its own run; the eager
+    steps' and the chunks of one's are checked against `path`. Returns the
+    chunk's host ms and peak allocated bytes, the worst relative rgb_loss
+    differences and the chunk's launch counts."""
     import torch
 
     batches, state = _plan(ds, model)
@@ -1429,20 +1459,37 @@ def chunk_against_eager(label: str, model, make_twin, ds, path: str) -> dict:
     twin = make_twin()
     twin_batches = _replan(ds, state, twin, batches)
     _reset_launch_counts()
-    worst = 0.0
-    for i, b in enumerate(twin_batches):
-        twin.optimizer_step(b, optimize_poses=True)
-        for k, v in twin.last_metrics.items():
-            rtol = CHUNK_TOL["first" if i == 0 else "rgb" if k == "rgb_loss" else "other"]
-            err = abs(got[i][k] - v)
-            if k == "rgb_loss":
-                worst = max(worst, err / (abs(v) + 1e-7))
-            if not err <= rtol * abs(v) + 1e-7:
-                raise AssertionError(f"{label}: step {i} {k}: graph {got[i][k]} vs eager {v}")
+    eager = []
+    for b in twin_batches:
+        with eager_steps(twin):
+            twin.run_chunk([b], optimize_poses=True)
+        eager.append(dict(twin.last_metrics))
     _check_launches(f"{label} eager twin", _launch_counts(), path)
     del twin
+    worst = _against_eager(label, got, eager)
+    single = make_twin()
+    if single.pool is not None:
+        raise AssertionError(f"{label}: the chunks of one must ship their batch values from the host")
+    _reset_launch_counts()
+    ones = []
+    for b in twin_batches:
+        single.run_chunk([b], optimize_poses=True)
+        ones.append(dict(single.last_metrics))
+    ones_launches = _launch_counts()
+    _check_launches(f"{label} chunks of one", ones_launches, path)
+    graphs = single._graphs
+    if graphs.captures + graphs.replays != len(twin_batches) or not graphs.replays:
+        raise AssertionError(f"{label} chunks of one: {graphs.captures} captures and {graphs.replays}"
+                             f" replays for {len(twin_batches)} steps")
+    worst_ones = _against_eager(f"{label} chunks of one", ones, eager)
+    print(f"chunk {label}: {len(ones)} chunks of one (host-shipped batches, no pool): {graphs.captures}"
+          f" capture(s), {graphs.replays} replays, launches {ones_launches}; against eager steps: worst"
+          f" relative rgb_loss difference {worst_ones:.3e}")
+    single.drop_graphs()
+    del single, graphs
     torch.cuda.empty_cache()
-    return {"capture_ms": ms, "peak": peak, "worst_rel": worst, "launches": launches}
+    return {"capture_ms": ms, "peak": peak, "worst_rel": worst, "worst_rel_ones": worst_ones,
+            "launches": launches, "ones_launches": ones_launches}
 
 
 def profile_chunk(model, batches) -> dict:
@@ -1528,7 +1575,8 @@ def run_chunks(label: str, make, ds, path: str, model=None) -> tuple[dict, objec
     bit for bit against eager steps under fixed-order sums
     (chunk_bit_exact); then, on the path as it
     runs, a pooled model's (`model`, by default make(True)) first
-    chunk (captures) against a twin's eager steps (chunk_against_eager),
+    chunk (captures) against a twin's eager steps, and a second twin's
+    chunks of one against those (chunk_against_eager),
     N_TIMED timed chunks and one chunk under the profiler. Checks losses,
     updates, the first chunk's launch counts, and that no chunk after the
     first captured or called a kernel wrapper (every step a replay).
@@ -1590,7 +1638,8 @@ def run_chunks(label: str, make, ds, path: str, model=None) -> tuple[dict, objec
     return {"ms": ms, "ms_all": times, "idle": idle, "device_gaps": gaps, "peak": peak,
             "reserved": reserved, "graphs": n_graphs, "captures": graphs.captures,
             "launches": launches, "replayed": replayed, "capture_ms": first["capture_ms"],
-            "worst_rel": first["worst_rel"], "bit_exact_tensors": n_exact,
+            "worst_rel": first["worst_rel"], "worst_rel_ones": first["worst_rel_ones"],
+            "ones_launches": first["ones_launches"], "bit_exact_tensors": n_exact,
             "exact_launches": exact_launches, "trace": trace}, model
 
 
@@ -1689,8 +1738,8 @@ HEAD_TOL = {"first": 1e-4, "rgb": 1e-3, "other": CHUNK_TOL["other"]}
 def heads_card_vs_cpu(dev) -> dict:
     """For each head of HEAD_STEPS: a 64^3 model (f32, 1024 rays in 4
     views of 96x64, the compositing kernel on) on the card and its copy on
-    the CPU take 3 optimizer_steps on the same batches and noise; losses to
-    HEAD_TOL; on the card K1 and K2 launch. Returns {head: (card losses,
+    the CPU take 3 eager steps (chunks of one) on the same batches and
+    noise; losses to HEAD_TOL; on the card K1 and K2 launch. Returns {head: (card losses,
     cpu losses) of the last step}."""
     import torch
 
@@ -1717,7 +1766,8 @@ def heads_card_vs_cpu(dev) -> dict:
             noise = LocalTensorfs._next_noise(gpu, tf)
             for m in (gpu, cpu):
                 m._next_noise = lambda _cfg, m=m: {k: v.to(m.device) for k, v in noise.items()}
-                m.optimizer_step(batch, optimize_poses=True)
+                with eager_steps(m):
+                    m.run_chunk([batch], optimize_poses=True)
             got, want = gpu.last_metrics, cpu.last_metrics
             for k, v in want.items():
                 tol = HEAD_TOL["first" if i == 0 else "rgb" if k == "rgb_loss" else "other"]
@@ -1749,7 +1799,7 @@ GRID_CPU_RAYS = 512
 def grid_phase(dev, ds) -> dict:
     """The grid-sample route at 640^3: render_rays (eval) of 4096 rays with
     app_top_k 0 against the quad route; with app_top_k 128, timed, and on
-    GRID_CPU_RAYS rays against the CPU; then one eager optimizer_step on the
+    GRID_CPU_RAYS rays against the CPU; then one eager step on the
     route (K1 and no other kernel: no quad gathers, no K2). Returns the
     times and errors, and the step's slice result."""
     import torch
@@ -1912,6 +1962,7 @@ def _blend_of_fields(model, view: int) -> tuple:
     import torch
 
     from localrf_tpu_torch.models.step import render_frame
+    from localrf_tpu_torch.models.tensorf import build_combined_quad_views
 
     dev = model.device
     bw = model.blending_weights[view]
@@ -1927,11 +1978,13 @@ def _blend_of_fields(model, view: int) -> tuple:
         f = model.fields[k]
         c2rf = c2w.copy()
         c2rf[:3, 3] += model.world2rf[k]
+        params = model._eval_params(f)
         r, d = render_frame(
-            model._eval_params(f), f["cfg"], ids, torch.from_numpy(c2rf).to(dev),
+            params, f["cfg"], ids, torch.from_numpy(c2rf).to(dev),
             torch.tensor(model.focal(W), dtype=torch.float32, device=dev),
             torch.from_numpy(model.center(W, H)).to(dev), w=W, h=H,
             refine=1.0 if model.is_refining else 0.0, alpha_volume=f["alpha_volume"],
+            quad=build_combined_quad_views(params, f["cfg"]) if f["cfg"].fast_gather else None,
         )
         rgb += r[:n] * float(bw[k])
         depth += d[:n] * float(bw[k])
@@ -2074,7 +2127,7 @@ def spawn_and_eval(dev) -> tuple[dict, dict]:
     print(f"eval field 0, profiled: {trace['wall_ms']:.1f} ms host, {trace['busy_ms']:.1f} busy on the"
           f" card: idle share {1 - trace['busy_ms'] / trace['wall_ms']:.3f}; card ms by kernel: {top}")
     sub = np.random.default_rng(0).choice(W * H, BATCH // 2, replace=False)
-    rgb_m, depth_m, frames["render_chunk, 2 views"], lm = _eval(
+    rgb_m, depth_m, frames["2 views"], lm = _eval(
         model, np.concatenate([sub, sub]), [v_blend, v_old], counts)
     _expect_launches("eval 2 views", lm, {"fused_weights_fwd": 2 * -(-BATCH // (BATCH // 2))})
     sub_t = torch.from_numpy(sub).to(dev)
@@ -2092,8 +2145,8 @@ def spawn_and_eval(dev) -> tuple[dict, dict]:
         psnr, ssim = _frame_metrics(rgb, ds, view)
         print(f"eval {label} (frame {view}, weights {bw[view].tolist()}): {frames[label]:.1f} ms,"
               f" PSNR {psnr:.3f} SSIM {ssim:.4f} against the random frame")
-    print(f"eval render_chunk over frames {v_blend} and {v_old} ({BATCH // 2} pixels each):"
-          f" {frames['render_chunk, 2 views']:.1f} ms, max err against the frames {err_multi:.3e}")
+    print(f"eval forward_eval over frames {v_blend} and {v_old} ({BATCH // 2} pixels each):"
+          f" {frames['2 views']:.1f} ms, max err against the frames {err_multi:.3e}")
     print(f"eval blended: max err against the plain compositing rgb {err_plain[0]:.3e} depth"
           f" {err_plain[1]:.3e}; against the sum over fields of w_k * render_frame_k rgb {err_sum[0]:.3e}"
           f" depth {err_sum[1]:.3e}")
@@ -2177,7 +2230,8 @@ def check_spawn_eval_against_cpu(dev) -> None:
     _reset_launch_counts()
     for m in (gpu, cpu):
         m._next_noise = lambda _, m=m: {k: v.to(m.device) for k, v in noise.items()}
-        m.optimizer_step(batch, optimize_poses=True)
+        with eager_steps(m):
+            m.run_chunk([batch], optimize_poses=True)
     for k, v in cpu.last_metrics.items():
         if not np.isclose(gpu.last_metrics[k], v, rtol=1e-4, atol=1e-6):
             raise AssertionError(f"small spawn: {k} card {gpu.last_metrics[k]} vs cpu {v}")
@@ -3199,7 +3253,8 @@ def main() -> None:
         label: {"ms_per_step": ph["ms"], "peak_bytes": ph["peak"]} for label, ph in phases.items()}}))
     print(json.dumps({"chunk": {
         label: {k: ph[k] for k in ("ms", "ms_all", "idle", "device_gaps", "peak", "reserved",
-                                   "captures", "capture_ms", "worst_rel", "bit_exact_tensors")}
+                                   "captures", "capture_ms", "worst_rel", "worst_rel_ones",
+                                   "bit_exact_tensors")}
         for label, ph in chunks.items()}}))
     spawn = chunks["spawn 64^3"]
     print(json.dumps({"spawn": {"memory": spawn["memory"], "eval": spawn["eval"]}, "eval_launches": evals}))

@@ -8,13 +8,13 @@ retired fields, whose parameters move to host memory when the next field
 spawns.
 
 Ported: construction, frame append, spawning fields with the cross-fade
-ladder (`append_rf`), sliding the pose window (`set_window_start`),
-`optimizer_step` / `optimizer_step_poses_only` (one eager step), the chunk
-path `plan_chunk` -> `run_chunk` (the default `--scan_chunk 16
---pixel_pool 1` of the JAX package), whose steps replay captured CUDA
-graphs on a card (models/graph.py) and loop on the CPU, the queries the
-training loop reads, the blended eval render `forward_eval`, and ray-batch
-data parallelism over torch.distributed ranks (`set_mesh`,
+ladder (`append_rf`), sliding the pose window (`set_window_start`), the
+training step as a chunk, `plan_chunk` -> `run_chunk` (the default
+`--scan_chunk 16 --pixel_pool 1` of the JAX package; a single step is a
+chunk of one), whose steps replay captured CUDA graphs on a card
+(models/graph.py) and loop on the CPU, the queries the training loop
+reads, the blended eval render `forward_eval`, and ray-batch data
+parallelism over torch.distributed ranks (`set_mesh`,
 parallel/sharding.py).
 
 Under a mesh every rank runs every step, event and eval, and so every
@@ -53,15 +53,11 @@ from .step import (
     StepStatics,
     _apply_exposure,
     cam2world_from_params,
-    render_chunk,
     render_frame,
-    row,
     stack_noise,
     stack_scalars,
     train_chunk,
     train_chunk_pooled,
-    train_step,
-    train_step_poses_only,
 )
 from .tensorf import (
     TensorfConfig,
@@ -434,22 +430,35 @@ class LocalTensorfs:
                 out[k] = np.asarray(batch[k], np.float32).reshape(-1)
         return out
 
-    def _scalar_row(self, scal: dict) -> dict:
-        """One step's host scalars as device tensors (three copies)."""
-        return row(stack_scalars([scal], self.device), 0)
-
     def _shard(self, batch: dict, keys, axis: int) -> dict:
         """This rank's share of a host batch (sharding.shard_batch)."""
         return batch if self.mesh is None else shard_batch(batch, self.mesh, keys, axis)
 
-    def _device_batch(self, batch: dict) -> dict:
-        """One step's batch on the device (this rank's share under a mesh)."""
-        out = {
-            k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-            for k, v in self._shard(self._host_batch(batch), _SHARDED_KEYS, 0).items()
-        }
-        out["gate"] = torch.from_numpy(self._gate()).to(self.device)
-        return out
+    def _stage(self, batches: list[dict], gates: list[np.ndarray]) -> dict:
+        """K steps' inputs stacked [K, ...] on the device (this rank's share
+        under a mesh): with a pool the index streams (px, slots, view_ids),
+        else the batches' values (_host_batch); and each step's pose gate
+        (`gates`, _gate's value at the step). Row k is the batch train_core
+        takes (with a pool, through step.pooled_batch)."""
+        use_pool = self.pool is not None
+        rows = []
+        for i, b in enumerate(batches):
+            if use_pool:
+                hb = {
+                    "px": np.asarray(b["idx"], np.int64) % self.pool.n_px,
+                    "slots": self.pool.slots_for(b["view_ids"]),
+                    "view_ids": np.asarray(b["view_ids"], np.int64) - self.win_start,
+                }
+            else:
+                hb = self._host_batch(b)
+            hb["gate"] = gates[i]
+            rows.append(hb)
+        stacked = self._shard({key: np.stack([hb[key] for hb in rows]) for key in rows[0]},
+                              POOL_SHARDED_KEYS if use_pool else _SHARDED_KEYS, 1)
+        stacked = {key: np.ascontiguousarray(v) for key, v in stacked.items()}
+        profiling.count("h2d.copies", len(stacked))
+        profiling.count("h2d.bytes", sum(v.nbytes for v in stacked.values()))
+        return {key: torch.from_numpy(v).to(self.device) for key, v in stacked.items()}
 
     def _schedule_entry(self):
         """Per-step schedule bookkeeping at step entry."""
@@ -482,80 +491,28 @@ class LocalTensorfs:
     def _has_post_step_event(self, rf_iter: int) -> bool:
         return rf_iter in self.N_voxel_list or rf_iter in self.update_AlphaMask_list
 
-    def _apply_post_step_events(self):
-        """Upsample / occupancy refresh keyed on the pre-increment rf_iter;
-        either one drops the captured graphs (new tensors)."""
+    def _apply_post_step_events(self, rf_iter: int):
+        """Upsample / occupancy refresh keyed on a joint step's
+        pre-increment `rf_iter`; either one drops the captured graphs (new
+        tensors)."""
         c = self.cfg
         f = self.fields[-1]
-        if self._has_post_step_event(self.rf_iter[-1]):
+        if self._has_post_step_event(rf_iter):
             self.drop_graphs()
             self._replicated = False
-        if self.rf_iter[-1] in self.N_voxel_list:
-            reso = n_to_reso(self.N_voxel_list[self.rf_iter[-1]], f["cfg"].aabb)
+        if rf_iter in self.N_voxel_list:
+            reso = n_to_reso(self.N_voxel_list[rf_iter], f["cfg"].aabb)
             lr_scale = f["opt"].lr_scale
             f["params"], f["cfg"] = upsample_tensorf(f["params"], f["cfg"], reso)
             f["opt"] = pytree_adam_init(f["params"], c.moment_dtype)
             if not c.lr_upsample_reset:
                 f["opt"] = f["opt"]._replace(lr_scale=lr_scale)
-        if self.rf_iter[-1] in self.update_AlphaMask_list:
+        if rf_iter in self.update_AlphaMask_list:
             reso_mask = tuple(int(g / 2) for g in f["cfg"].grid_size)
             f["alpha_volume"] = update_alpha_volume(f["params"], f["cfg"], reso_mask)
         f["cfg"] = dataclasses.replace(
             f["cfg"], occ_m=self._occ_m(f["cfg"], f["alpha_volume"] is not None)
         )
-
-    def optimizer_step(self, batch: dict, optimize_poses: bool) -> bool:
-        """One eager joint step; returns can_add_rf."""
-        self._replicate()
-        self._schedule_entry()
-        f = self.fields[-1]
-        dev_batch = self._device_batch(batch)
-        statics = self._statics(optimize_poses, dev_batch["view_ids"].shape[0])
-        scal = self._scalars_py()
-        new_field, new_pose, new_intr, metrics = train_step(
-            FieldState(f["params"], f["opt"]),
-            self._pose_dev,
-            self.intr,
-            dev_batch,
-            self._scalar_row(scal),
-            statics,
-            self._next_noise(statics.cfg),
-            f["alpha_volume"],
-            StepBranches.of(scal),
-            self.mesh,
-        )
-        f["params"], f["opt"] = new_field.params, new_field.opt
-        self._pose_dev = new_pose
-        self.intr = new_intr
-        self.last_metrics = {k: float(v) for k, v in metrics.items()}
-
-        self._apply_post_step_events()
-        if self.is_refining:
-            self.rf_iter[-1] += 1
-        return self.rf_iter[-1] >= self.n_iters - 1
-
-    def optimizer_step_poses_only(self, batch: dict):
-        """One eager test-pose photometric refinement step: only the pose
-        window changes (no schedule entry, no rf_iter advance)."""
-        self._replicate()
-        f = self.fields[-1]
-        dev_batch = self._device_batch(batch)
-        statics = self._statics(True, dev_batch["view_ids"].shape[0])
-        scal = self._scalars_py(pose_only=True)
-        _, new_pose, _, metrics = train_step_poses_only(
-            FieldState(f["params"], f["opt"]),
-            self._pose_dev,
-            self.intr,
-            dev_batch,
-            self._scalar_row(scal),
-            statics,
-            self._next_noise(statics.cfg),
-            f["alpha_volume"],
-            StepBranches.of(scal),
-            self.mesh,
-        )
-        self._pose_dev = new_pose
-        self.last_metrics = {k: float(v) for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
     # chunk execution: K steps, replayed as captured graphs on a card
@@ -638,11 +595,13 @@ class LocalTensorfs:
         self._replicated = True
 
     def run_chunk(self, batches: list[dict], optimize_poses: bool) -> bool:
-        """Execute pre-planned batches as one chunk: the same schedule
-        bookkeeping as a sequence of optimizer_step /
-        optimizer_step_poses_only calls (test-pose batches are pose-only
-        steps), the same noise stream, one read-back of the metrics. Returns
-        can_add_rf after the last step. While the tracer records: host spans
+        """Execute pre-planned batches as one chunk of steps (a single step
+        is a chunk of one): each step's schedule bookkeeping (entry, rf_iter
+        advance) and noise draw in step order, test-pose batches as
+        pose-only steps, one read-back of the metrics, then the post-step
+        events of the last joint step (none when the chunk held only
+        test-pose batches). Returns can_add_rf after the last joint step
+        (False without one). While the tracer records: host spans
         for each part (pool_sync, schedule, upload, replay, readback, stamps,
         events), the steps' device stamps read after the read-back, and the
         graphs' captures and replays as counters."""
@@ -651,32 +610,23 @@ class LocalTensorfs:
         with profiling.span("run_chunk", unit="chunk"):
             return self._run_chunk(batches, optimize_poses)
 
-    def _schedule(self, batches: list[dict]) -> tuple[list[dict], list[dict], int]:
-        """Each step's host scalars and host batch (index streams with a
-        pool), advancing the schedule as the steps will; returns them and
-        the last joint step's pre-increment rf_iter."""
+    def _schedule(self, batches: list[dict]) -> tuple[list[dict], list[np.ndarray], int | None]:
+        """Each step's host scalars and pose gate, advancing the schedule as
+        the steps will; returns them and the last joint step's
+        pre-increment rf_iter (None without a joint step)."""
         scal_seq: list[dict] = []
-        host_batches: list[dict] = []
-        rf_iter_pre_last = self.rf_iter[-1]
+        gates: list[np.ndarray] = []
+        event_iter = None
         for b in batches:
             pose_only = bool(b["train_test_poses"])
             if not pose_only:
                 self._schedule_entry()
-                rf_iter_pre_last = self.rf_iter[-1]
+                event_iter = self.rf_iter[-1]
             scal_seq.append(self._scalars_py(pose_only))
-            if self.pool is not None:
-                hb = {
-                    "px": np.asarray(b["idx"], np.int64) % self.pool.n_px,
-                    "slots": self.pool.slots_for(b["view_ids"]),
-                    "view_ids": np.asarray(b["view_ids"], np.int64) - self.win_start,
-                }
-            else:
-                hb = self._host_batch(b)
-            hb["gate"] = self._gate()
-            host_batches.append(hb)
+            gates.append(self._gate())
             if not pose_only and self.is_refining:
                 self.rf_iter[-1] += 1
-        return scal_seq, host_batches, rf_iter_pre_last
+        return scal_seq, gates, event_iter
 
     def _run_chunk(self, batches: list[dict], optimize_poses: bool) -> bool:
         self._replicate()
@@ -686,19 +636,14 @@ class LocalTensorfs:
             if use_pool:
                 self.pool.sync()
         with profiling.span("schedule"):
-            scal_seq, host_batches, rf_iter_pre_last = self._schedule(batches)
+            scal_seq, gates, event_iter = self._schedule(batches)
         with profiling.span("upload"):
-            stacked = self._shard({key: np.stack([hb[key] for hb in host_batches]) for key in host_batches[0]},
-                                  POOL_SHARDED_KEYS if use_pool else _SHARDED_KEYS, 1)
-            stacked = {key: np.ascontiguousarray(v) for key, v in stacked.items()}
-            profiling.count("h2d.copies", len(stacked))
-            profiling.count("h2d.bytes", sum(v.nbytes for v in stacked.values()))
-            stacked = {key: torch.from_numpy(v).to(self.device) for key, v in stacked.items()}
+            stacked = self._stage(batches, gates)
             scalars = stack_scalars(scal_seq, self.device)
             branches = [StepBranches.of(sc) for sc in scal_seq]
             f = self.fields[-1]
             statics = self._statics(optimize_poses, stacked["view_ids"].shape[1])
-            # the noise stream of k sequential optimizer_step calls, in step order
+            # one draw a step, in step order (k chunks of one draw the same)
             noise = stack_noise([self._next_noise(statics.cfg) for _ in range(k)])
         field_state = FieldState(f["params"], f["opt"])
         recording = profiling.recording()
@@ -735,11 +680,9 @@ class LocalTensorfs:
 
         # device-side events keyed on the last joint step's pre-increment iter
         with profiling.span("events"):
-            rf_iter_saved = self.rf_iter[-1]
-            self.rf_iter[-1] = rf_iter_pre_last
-            self._apply_post_step_events()
-            self.rf_iter[-1] = rf_iter_saved
-        return self.rf_iter[-1] >= self.n_iters - 1
+            if event_iter is not None:
+                self._apply_post_step_events(event_iter)
+        return event_iter is not None and self.rf_iter[-1] >= self.n_iters - 1
 
     # ------------------------------------------------------------------
     # queries
@@ -814,9 +757,10 @@ class LocalTensorfs:
         """Render the rays `ray_ids` (pixel ids, rays_per_view of each view
         in `view_ids`, view-major) at w x h, blending every field whose
         weight is nonzero for the views; then exposure (test_id: the mean of
-        the neighbours' exposures) and the clip to [0, 1]. One view renders
-        whole frames through render_frame, several go chunk by chunk through
-        render_chunk; each field renders chunk // n_fields rays at a time.
+        the neighbours' exposures) and the clip to [0, 1]. Each view renders
+        as a frame: every field through render_frame over the view's rays
+        padded to whole chunks, chunk // n_fields rays at a time, weighted
+        by the view's blending weight for the field.
         Under a mesh whose "data" size divides that chunk, each rank renders
         its contiguous part of every chunk (JAX's _eval_ray_sharding) and
         the frame is gathered on every rank (a sum over "data" of the ranks'
@@ -831,8 +775,8 @@ class LocalTensorfs:
                       floater_thresh):
         """forward_eval's body in three host spans (prologue, chunks,
         epilogue). While the tracer records, the card stamps the frame's
-        entry and end (row 0 of the frame's ring) and each chunk and
-        field's start, features and end (one row each)."""
+        entry and end (row 0 of the frame's ring) and each chunk's start,
+        features and end (one row each, field by field, view by view)."""
         with profiling.span("prologue"):
             view_ids = np.asarray(view_ids)
             if blending_weights is None:
@@ -840,13 +784,14 @@ class LocalTensorfs:
             active_rf_ids = [int(i) for i in np.nonzero(blending_weights.sum(axis=0))[0]]
             if not active_rf_ids:
                 raise RuntimeError("No valid field for the requested views")
+            n_views = len(view_ids)
             n_rays = ray_ids.shape[0]
-            rays_per_view = n_rays // len(view_ids)
+            rays_per_view = n_rays // n_views
             chunk = max(chunk // len(active_rf_ids), 1)
-            n_chunks = (n_rays + chunk - 1) // chunk
+            n_chunks = (rays_per_view + chunk - 1) // chunk  # a view's chunks
             n_pad = n_chunks * chunk
             dev = self.device
-            ring = profiling.eval_ring(n_chunks * len(active_rf_ids), dev)
+            ring = profiling.eval_ring(n_views * n_chunks * len(active_rf_ids), dev)
             if ring is not None:
                 ring.stamp("start")
             self._replicate()
@@ -869,62 +814,43 @@ class LocalTensorfs:
             split = world > 1 and chunk % world == 0
             part = chunk // world if split else chunk
             lo = rank * part if split else 0
+            mine = (torch.arange(n_chunks, device=dev)[:, None] * chunk + lo
+                    + torch.arange(part, device=dev)[None]).reshape(-1)
             ids = torch.from_numpy(np.asarray(ray_ids, np.int64)).to(dev)
-            # the last chunk padded with ray id 0: one chunk shape a frame
-            ids_p = torch.cat([ids, ids.new_zeros(n_pad - n_rays)])
+            # each view's rays, its last chunk padded with ray id 0 (one chunk
+            # shape a frame), and this rank's part of them [V, n_chunks, part]
+            ids_p = torch.cat([ids.reshape(n_views, rays_per_view),
+                               ids.new_zeros(n_views, n_pad - rays_per_view)], dim=1)
+            ids_mine = ids_p[:, mine].reshape(n_views, n_chunks, part)
             bw = torch.from_numpy(np.asarray(blending_weights, np.float32)).to(dev)  # [V, n_rf]
-            # the padded frame's blended rgb (columns 0-2) and depth (column 3)
-            out = torch.zeros((n_pad, 4), device=dev)
+            # each view's padded frame: blended rgb (columns 0-2) and depth (column 3)
+            out = torch.zeros((n_views, n_pad, 4), device=dev)
 
             def cam2rf(c2w: np.ndarray, rf_id: int) -> torch.Tensor:
                 c2w = c2w.copy()
                 c2w[..., :3, 3] += world2rf[rf_id]
                 return torch.from_numpy(np.ascontiguousarray(c2w, np.float32)).to(dev)
 
-            if len(view_ids) > 1:
-                # padded rays weigh 0
-                bw_exp = torch.cat([bw.repeat_interleave(rays_per_view, dim=0),
-                                    bw.new_zeros(n_pad - n_rays, bw.shape[1])])
-                c2w_exp = np.repeat(cam2world, rays_per_view, axis=0)
-                c2w_exp = np.concatenate([c2w_exp, np.repeat(c2w_exp[-1:], n_pad - n_rays, axis=0)])
-                fields = []
-                for rf_id in active_rf_ids:
-                    f = self.fields[rf_id]
-                    params = self._eval_params(f)
-                    quad = build_combined_quad_views(params, f["cfg"]) if f["cfg"].fast_gather else None
-                    fields.append((rf_id, f, params, quad, cam2rf(c2w_exp, rf_id)))
-
         with profiling.span("chunks"), profiling.stamping(ring):
             if ring is not None:
                 ring.row = 1
-            if len(view_ids) == 1:
-                mine = (torch.arange(n_chunks, device=dev)[:, None] * chunk + lo
-                        + torch.arange(part, device=dev)[None]).reshape(-1)
-                for rf_id in active_rf_ids:
-                    f = self.fields[rf_id]
+            for rf_id in active_rf_ids:
+                f = self.fields[rf_id]
+                params = self._eval_params(f)
+                # built once a call, before the field's first chunk
+                quad = build_combined_quad_views(params, f["cfg"]) if f["cfg"].fast_gather else None
+                for v in range(n_views):
                     rgb, depth = render_frame(
-                        self._eval_params(f), f["cfg"], ids_p[mine].reshape(n_chunks, part),
-                        cam2rf(cam2world[0], rf_id), alpha_volume=self._eval_alpha(f), **kw,
+                        params, f["cfg"], ids_mine[v], cam2rf(cam2world[v], rf_id),
+                        alpha_volume=self._eval_alpha(f), quad=quad, **kw,
                     )
-                    out[mine] += torch.cat([rgb, depth[:, None]], dim=1) * bw[0, rf_id]
-            else:
-                for ci in range(n_chunks):
-                    sl = slice(ci * chunk + lo, ci * chunk + lo + part)
-                    for rf_id, f, params, quad, c2rf in fields:
-                        profiling.stamp("start")
-                        rgb, depth, _, _ = render_chunk(
-                            params, f["cfg"], ids_p[sl], c2rf[sl], alpha_volume=self._eval_alpha(f),
-                            quad=quad, **kw,
-                        )
-                        out[sl] += torch.cat([rgb, depth[:, None]], dim=1) * bw_exp[sl, rf_id, None]
-                        profiling.stamp("end")
-                        if ring is not None:
-                            ring.row += 1
+                    out[v, mine] += torch.cat([rgb, depth[:, None]], dim=1) * bw[v, rf_id]
 
         with profiling.span("epilogue"):
             if split:
                 all_sum_(out, self.mesh)
-            rgbs, depths = out[:n_rays, :3].contiguous(), out[:n_rays, 3].contiguous()
+            out = out[:, :rays_per_view].reshape(n_rays, 4)
+            rgbs, depths = out[:, :3].contiguous(), out[:, 3].contiguous()
 
             if self.cfg.lr_exposure_init > 0:
                 rgbs = _apply_exposure(

@@ -11,8 +11,8 @@ as a CUDA graph (models/graph.py). Four host branches key the graphs
 (`StepBranches`): the regularizers JAX runs as `lax.cond` on tv_wd, tv_wa
 and l1_w > 0, and the pose-only switch (JAX gates on a traced 0/1).
 
-The eval renders `render_chunk` and `render_frame` run one field over
-fixed-size chunks of rays under `torch.no_grad()`.
+The eval render `render_frame` runs one field over a frame's fixed-size
+chunks of rays under `torch.no_grad()`.
 """
 from __future__ import annotations
 
@@ -37,7 +37,6 @@ from ..utils import profiling
 from .render import render_rays
 from .tensorf import (
     TensorfConfig,
-    build_combined_quad_views,
     density_l1,
     factor_names,
     tv_loss_app,
@@ -94,7 +93,7 @@ class StepStatics:
 class StepBranches:
     """The host-side switches of one step: whether each of JAX's three
     regularizer `lax.cond`s (tv_wd, tv_wa, l1_w > 0) takes its loss branch,
-    and whether the step is a pose-only one (JAX's train_step_poses_only).
+    and whether the step is a pose-only one (a test-pose batch).
     The graph executor captures one graph per (StepStatics, StepBranches)."""
 
     tv_density: bool = False
@@ -450,24 +449,6 @@ def train_core(
     return new_field, new_pose, new_intr, metrics
 
 
-def train_step(field, pose, intr, batch, scalars, statics: StepStatics, noise, alpha_volume=None,
-               branches: StepBranches | None = None, mesh=None):
-    """Single full joint step."""
-    scalars = dict(scalars, pose_only=0.0)
-    branches = dataclasses.replace(branches or StepBranches.of(scalars), pose_only=False)
-    return train_core(field, pose, intr, batch, scalars, statics, noise, alpha_volume, branches, mesh)
-
-
-def train_step_poses_only(field, pose, intr, batch, scalars, statics: StepStatics, noise,
-                          alpha_volume=None, branches: StepBranches | None = None, mesh=None):
-    """Photometric-only pose refinement for held-out test frames: no field,
-    exposure or intrinsics update and no lr decay (train_core's pose-only
-    branch)."""
-    scalars = dict(scalars, pose_only=1.0)
-    branches = dataclasses.replace(branches or StepBranches.of(scalars), pose_only=True)
-    return train_core(field, pose, intr, batch, scalars, statics, noise, alpha_volume, branches, mesh)
-
-
 # ------------------------------ chunks ------------------------------
 
 
@@ -499,6 +480,15 @@ def _run_chunk(field, pose, intr, batch_of, inputs_seq, scalars_seq, statics, no
     # a mesh whose collectives no graph captures (gloo) steps eagerly on a card
     if pose.r.device.type == "cuda" and (mesh is None or captures_collectives(mesh)):
         raise ValueError("a chunk on CUDA replays captured graphs: pass graphs=ChunkGraphs(device)")
+    return run_steps(field, pose, intr, batch_of, inputs_seq, scalars_seq, statics, noise_seq, n_steps,
+                     alpha_volume, branches_seq, mesh, stamps)
+
+
+def run_steps(field, pose, intr, batch_of, inputs_seq, scalars_seq, statics, noise_seq, n_steps,
+              alpha_volume, branches_seq, mesh=None, stamps=None):
+    """K steps taken eagerly, one train_core after another (the chunk on
+    the CPU and under a gloo mesh), step k stamped into row k of `stamps`.
+    Returns (field, pose, intr, metrics {name: [K]})."""
     out = []
     for k in range(n_steps):
         if stamps is not None:
@@ -547,50 +537,17 @@ def train_chunk_pooled(field, pose, intr, pool: dict, index_seq: dict, scalars_s
 # ------------------------------ eval ------------------------------
 
 
-def _eval_rays(field_params, cfg: TensorfConfig, ray_idx, cam2rf, focal, center, w, h,
-               floater_thresh, white_bg, fov360, refine, alpha_volume, quad):
-    """Rays of ray_idx (pixel ids) through cam2rf [B, 3, 4], rendered
-    against one field. Returns (rgb, depth, directions, (i, j))."""
-    i, j = ids2pixel(w, h, ray_idx)
-    if fov360:
-        directions = get_ray_directions_360(i, j, w, h)
-    else:
-        directions = get_ray_directions_lean(i, j, focal, center)
-    rays_o, rays_d = get_rays_lean(directions, cam2rf)
-    rgb, depth = render_rays(
-        field_params, cfg, rays_o, rays_d, is_train=False, white_bg=white_bg, refine=refine,
-        floater_thresh=floater_thresh, alpha_volume=alpha_volume, quad=quad,
-    )
-    return rgb, depth, directions, (i, j)
-
-
-@torch.no_grad()
-def render_chunk(field_params, cfg: TensorfConfig, ray_idx: torch.Tensor, cam2rf: torch.Tensor,
-                 focal, center, *, w: int, h: int, floater_thresh: float = 0.0, white_bg: bool = True,
-                 fov360: bool = False, refine=1.0, alpha_volume=None, quad: dict | None = None):
-    """Deterministic eval render of one chunk of pixel ids [B] against one
-    field; cam2rf [1 or B, 3, 4]. `quad` is the field's
-    build_combined_quad_views when the caller already built it. Returns
-    (rgb [B, 3], depth [B], directions [B, 3], ij [B, 2])."""
-    if cam2rf.shape[0] == 1:
-        cam2rf = cam2rf.expand(ray_idx.shape[0], 3, 4)
-    rgb, depth, directions, (i, j) = _eval_rays(
-        field_params, cfg, ray_idx, cam2rf, focal, center, w, h, floater_thresh, white_bg, fov360,
-        refine, alpha_volume, quad)
-    return rgb, depth, directions, torch.stack([i, j], dim=-1)
-
-
 @torch.no_grad()
 def render_frame(field_params, cfg: TensorfConfig, ray_idx: torch.Tensor, cam2rf: torch.Tensor,
                  focal, center, *, w: int, h: int, floater_thresh: float = 0.0, white_bg: bool = True,
-                 fov360: bool = False, refine=1.0, alpha_volume=None):
+                 fov360: bool = False, refine=1.0, alpha_volume=None, quad: dict | None):
     """Whole-frame eval render against one field: ray_idx [n_chunks, chunk]
     pixel ids (the last chunk padded), one pose cam2rf [3, 4]. A loop over
-    the chunks with no host sync (JAX's lax.scan); the quad tables are
-    built once for the frame (none on the grid-sample route). Returns (rgb
-    [n_chunks * chunk, 3], depth [n_chunks * chunk])."""
+    the chunks with no host sync (JAX's lax.scan). `quad` is the field's
+    build_combined_quad_views, built by the caller (None on the
+    grid-sample route). Returns (rgb [n_chunks * chunk, 3], depth
+    [n_chunks * chunk])."""
     n_chunks, chunk = ray_idx.shape
-    quad = build_combined_quad_views(field_params, cfg) if cfg.fast_gather else None
     c2rf = cam2rf[None].expand(chunk, 3, 4)
     rgb = torch.empty((n_chunks, chunk, 3), device=ray_idx.device)
     depth = torch.empty((n_chunks, chunk), device=ray_idx.device)
@@ -601,9 +558,16 @@ def render_frame(field_params, cfg: TensorfConfig, ray_idx: torch.Tensor, cam2rf
         if ring is not None:
             ring.row = base + c
         profiling.stamp("start")
-        rgb[c], depth[c], _, _ = _eval_rays(
-            field_params, cfg, ray_idx[c], c2rf, focal, center, w, h, floater_thresh, white_bg,
-            fov360, refine, alpha_volume, quad)
+        i, j = ids2pixel(w, h, ray_idx[c])
+        if fov360:
+            directions = get_ray_directions_360(i, j, w, h)
+        else:
+            directions = get_ray_directions_lean(i, j, focal, center)
+        rays_o, rays_d = get_rays_lean(directions, c2rf)
+        rgb[c], depth[c] = render_rays(
+            field_params, cfg, rays_o, rays_d, is_train=False, white_bg=white_bg, refine=refine,
+            floater_thresh=floater_thresh, alpha_volume=alpha_volume, quad=quad,
+        )
         profiling.stamp("end")
     if ring is not None:
         ring.row = base + n_chunks

@@ -438,29 +438,13 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
         return max(1, min(length, steps_to_vis + 1))
 
     while training:
-        if scan_chunk > 1:
-            batches = model.plan_chunk(train_dataset, optimize_poses, _max_chunk_len())
-            can_add_rf = model.run_chunk(batches, optimize_poses)
-            if any(not b["train_test_poses"] for b in batches):
-                training |= (
-                    train_dataset.active_frames_bounds[1] != train_dataset.num_images
-                )
-            iteration += len(batches) - 1  # post-block sees the last executed step
-        else:
-            batch = train_dataset.sample(
-                args.batch_size, model.is_refining, optimize_poses, n_views=args.n_views
+        batches = model.plan_chunk(train_dataset, optimize_poses, _max_chunk_len())
+        can_add_rf = model.run_chunk(batches, optimize_poses)
+        if any(not b["train_test_poses"] for b in batches):
+            training |= (
+                train_dataset.active_frames_bounds[1] != train_dataset.num_images
             )
-            train_test_poses = batch["train_test_poses"]
-
-            if train_test_poses:
-                can_add_rf = False
-                if optimize_poses:
-                    model.optimizer_step_poses_only(batch)
-            else:
-                can_add_rf = model.optimizer_step(batch, optimize_poses)
-                training |= (
-                    train_dataset.active_frames_bounds[1] != train_dataset.num_images
-                )
+        iteration += len(batches) - 1  # post-block sees the last executed step
 
         # progressive state machine (ref: train.py:440-474)
         if not model.is_refining:
@@ -516,9 +500,7 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
             # scalars read from the device (opt lr_scale, pose lrs,
             # focal/center): at progress_refresh_rate only, since a read
             # waits for the card; the curves are smooth schedules
-            if iteration % args.progress_refresh_rate < (
-                1 if scan_chunk <= 1 else scan_chunk
-            ):
+            if iteration % args.progress_refresh_rate < scan_chunk:
                 f_last = model.fields[-1]
                 lr_scale = float(f_last["opt"].lr_scale)
                 writer.add_scalar(
@@ -543,9 +525,7 @@ def reconstruction(args, train_dataset=None, test_dataset=None):
                         writer.add_scalar(f"tensorf_bounds/rf{rf_i}_b0", int(active[0]), iteration)
                         writer.add_scalar(f"tensorf_bounds/rf{rf_i}_b1", int(active[-1]), iteration)
 
-        if rank0 and iteration % args.progress_refresh_rate < (
-            1 if scan_chunk <= 1 else scan_chunk
-        ):
+        if rank0 and iteration % args.progress_refresh_rate < scan_chunk:
             ips = min(args.progress_refresh_rate, iteration + 1) / (
                 time.time() - start_time
             )

@@ -187,7 +187,8 @@ def _poses_close(tm, jm):
 
 
 def test_step_and_chunk_after_loading_match_jax(jax_file):
-    """From the same JAX file, JAX and the port take one optimizer_step, then
+    """From the same JAX file, JAX and the port take one step (JAX's
+    optimizer_step, the port's chunk of one), then
     a pooled run_chunk of 4 steps, with JAX's noise: the losses, the pose
     window and the new field parameters agree."""
     path, _, bounds = jax_file
@@ -203,7 +204,7 @@ def test_step_and_chunk_after_loading_match_jax(jax_file):
     noise = [jax_noise(sub, n_samples)]
     tm._next_noise = lambda cfg: noise.pop(0)
     jm.optimizer_step(bj, optimize_poses=True)
-    tm.optimizer_step(bt, optimize_poses=True)
+    tm.run_chunk([bt], optimize_poses=True)
     for k, v in jm.last_metrics.items():
         np.testing.assert_allclose(tm.last_metrics[k], v, rtol=1e-4, atol=1e-7, err_msg=k)
     _params_close(tm, jm)
@@ -280,7 +281,7 @@ def test_port_file_round_trips(jax_file, tmp_path, moment_dtype):
         tm.fields[-1]["opt"] = opt._replace(m={k: v.bfloat16() for k, v in opt.m.items()},
                                             v={k: v.bfloat16() for k, v in opt.v.items()})
     _, ds = _datasets(bounds)
-    tm.optimizer_step(ds.sample(64, True, True, n_views=4), optimize_poses=True)
+    tm.run_chunk([ds.sample(64, True, True, n_views=4)], optimize_poses=True)
     out = str(tmp_path / "port.th")
     tckpt.save_checkpoint(tm, out, extra={"iteration": 3})
     t2, extra = tckpt.load_checkpoint(out, return_extra=True, device="cpu")
@@ -302,7 +303,7 @@ def test_port_file_round_trips(jax_file, tmp_path, moment_dtype):
     noise = tm._next_noise(tm.fields[-1]["cfg"])
     for m in (tm, t2):
         m._next_noise = lambda cfg: noise
-        m.optimizer_step(batch, optimize_poses=True)
+        m.run_chunk([batch], optimize_poses=True)
     assert tm.last_metrics == t2.last_metrics
     a, b = _state(tm), _state(t2)
     for k in a:

@@ -1,7 +1,7 @@
 """Port parity of the chunk path (the JAX package's default `--scan_chunk 16
 --pixel_pool 1`): the device pixel pool, plan_chunk and run_chunk against
 the JAX package on the CPU, and run_chunk against the same steps taken one
-at a time.
+at a time (chunks of one).
 
 Setup: 6 frames of 40x30 with every third a held-out test frame, so the
 sampler's third batch is a pose-only (test-pose) step; weights carried
@@ -207,9 +207,12 @@ def test_run_chunk_pooled_matches_jax():
 
 @pytest.mark.parametrize("pooled", [True, False], ids=["pooled", "host-batches"])
 def test_run_chunk_is_the_same_steps_one_at_a_time(pooled):
-    """On the CPU, run_chunk of 4 batches is bit for bit the same as
-    optimizer_step / optimizer_step_poses_only on those batches: state,
-    metrics, schedule, noise stream and the post-step alpha refresh."""
+    """On the CPU, one run_chunk of 4 batches is bit for bit the same as 4
+    run_chunks of one batch each (the pose-only step a chunk of its own):
+    state, metrics, schedule, noise stream and the post-step alpha
+    refresh. The chunks of one ship their batch values from the host; in
+    the pooled case the chunk of 4 gathers them from a pixel pool, which
+    must equal the host's values."""
     kw = dict(update_AlphaMask_list=[4], occ_min=4, lr_i_init=1e-3)
     m1 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw), device="cpu")
     m2 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw), device="cpu")
@@ -221,10 +224,7 @@ def test_run_chunk_is_the_same_steps_one_at_a_time(pooled):
     b1, b2 = _batches(ds1), _batches(ds2)
     steps = []
     for b in b1:
-        if b["train_test_poses"]:
-            m1.optimizer_step_poses_only(b)
-        else:
-            m1.optimizer_step(b, optimize_poses=True)
+        m1.run_chunk([b], optimize_poses=True)
         steps.append(dict(m1.last_metrics))
     m2.run_chunk(b2, optimize_poses=True)
 
@@ -248,6 +248,75 @@ def test_run_chunk_is_the_same_steps_one_at_a_time(pooled):
         assert torch.equal(m1.intr.params[k], m2.intr.params[k]), k
     assert torch.equal(m1.intr.opt.lr_scale, m2.intr.opt.lr_scale)
     assert torch.equal(m1._gen.get_state(), m2._gen.get_state())
+
+
+def test_eager_reference_is_the_cpu_chunk():
+    """eager_chunks.eager_steps, the eager reference that captured graphs
+    are held against on a card, stands in for a model's graphs through
+    ChunkGraphs.run's interface. On the CPU its chunk of 4 (a pose-only
+    step and an alpha refresh among them) is bit for bit the CPU's own:
+    metrics, field, pose window and noise stream."""
+    from eager_chunks import EagerSteps, eager_steps
+
+    kw = dict(update_AlphaMask_list=[4], occ_min=4, lr_i_init=1e-3)
+    m1 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw), device="cpu")
+    m2 = tlocal.LocalTensorfs(_config(tlocal, ttf, **kw), device="cpu")
+    ds1, ds2 = _dataset(), _dataset()
+    for m in (m1, m2):
+        _schedule(m)
+    m1.run_chunk(_batches(ds1), optimize_poses=True)
+    with eager_steps(m2):
+        assert isinstance(m2._graphs, EagerSteps)
+        m2.run_chunk(_batches(ds2), optimize_poses=True)
+    assert m2._graphs is None
+
+    assert m1.rf_iter == m2.rf_iter == [5]
+    for k, v in m1.chunk_metrics.items():
+        np.testing.assert_array_equal(m2.chunk_metrics[k], v, err_msg=k)
+    f1, f2 = m1.fields[-1], m2.fields[-1]
+    for (k, p1), (_, p2) in zip(f1["params"].named_parameters(), f2["params"].named_parameters()):
+        assert torch.equal(p1, p2), k
+    assert torch.equal(f1["alpha_volume"], f2["alpha_volume"]) and f1["cfg"] == f2["cfg"]
+    for name, a, b in zip(tstep.PoseState._fields, m1._pose_dev, m2._pose_dev):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            np.testing.assert_array_equal(x.numpy(), y.numpy(), err_msg=name)
+    assert torch.equal(m1._gen.get_state(), m2._gen.get_state())
+
+
+EVENTS = {"upsample": dict(N_voxel_list={4: 30**3}), "alpha-refresh": dict(update_AlphaMask_list=[4], occ_min=4)}
+
+
+@pytest.mark.parametrize("event", list(EVENTS))
+def test_test_pose_chunk_applies_no_event(event, monkeypatch):
+    """A chunk of one test-pose batch at an rf_iter that keys a post-step
+    event (an upsample, an alpha refresh) takes a pose-only step and
+    applies no event: the field's grid and alpha volume stay as they were,
+    rf_iter too, and it returns False. The next joint step applies the
+    event once."""
+    calls = {"upsample_tensorf": 0, "update_alpha_volume": 0}
+    for name in calls:
+        def counted(*args, _f=getattr(tlocal, name), _n=name, **kwargs):
+            calls[_n] += 1
+            return _f(*args, **kwargs)
+        monkeypatch.setattr(tlocal, name, counted)
+    m = tlocal.LocalTensorfs(_config(tlocal, ttf, **EVENTS[event]), device="cpu")
+    ds = _dataset()
+    _schedule(m, rf_iter=4)
+    joint, _, test_pose, _ = _batches(ds)
+    grid = m.fields[-1]["cfg"].grid_size
+    pose_r = m._pose_dev.r.clone()
+    assert not m.run_chunk([test_pose], optimize_poses=True)
+    assert m.rf_iter == [4] and not torch.equal(m._pose_dev.r[:N_FRAMES], pose_r[:N_FRAMES])
+    assert m.fields[-1]["cfg"].grid_size == grid and m.fields[-1]["alpha_volume"] is None
+    assert calls == {"upsample_tensorf": 0, "update_alpha_volume": 0}
+    m.run_chunk([joint], optimize_poses=True)
+    assert m.rf_iter == [5]
+    if event == "upsample":
+        assert calls == {"upsample_tensorf": 1, "update_alpha_volume": 0}
+        assert m.fields[-1]["cfg"].grid_size == (30, 30, 30) != grid
+    else:
+        assert calls == {"upsample_tensorf": 0, "update_alpha_volume": 1}
+        assert m.fields[-1]["alpha_volume"] is not None
 
 
 def test_chunk_on_cuda_needs_graphs():

@@ -239,15 +239,19 @@ def _record_jax(monkeypatch, events: list, inits: list, keys: list):
 
     monkeypatch.setattr(jlocal.LocalTensorfs, "_next_key", key)
     monkeypatch.setattr(jlocal, "init_tensorf", init_tensorf)
-    _count_events(monkeypatch, jlocal.LocalTensorfs, events)
+    _count_events(monkeypatch, jlocal.LocalTensorfs, events,
+                  {"optimizer_step": lambda batch: 1, "optimizer_step_poses_only": lambda batch: 1})
 
 
-def _count_events(monkeypatch, cls, events: list):
+def _count_events(monkeypatch, cls, events: list, steps_of: dict):
+    """Note each frame append and field spawn with the steps taken before
+    it; `steps_of` maps each step method of `cls` to the steps a call takes,
+    from its first argument."""
     steps = [0]
-    for name in ("optimizer_step", "optimizer_step_poses_only"):
-        def counted(self, *a, _f=getattr(cls, name), **kw):
-            steps[0] += 1
-            return _f(self, *a, **kw)
+    for name, n_steps in steps_of.items():
+        def counted(self, first, *a, _f=getattr(cls, name), _n=n_steps, **kw):
+            steps[0] += _n(first)
+            return _f(self, first, *a, **kw)
         monkeypatch.setattr(cls, name, counted)
     for name in ("append_frame", "append_rf"):
         def noted(self, *a, _f=getattr(cls, name), _n=name, **kw):
@@ -258,8 +262,9 @@ def _count_events(monkeypatch, cls, events: list):
 
 def test_schedule_matches_jax(tmp_path, monkeypatch):
     """A JAX and a port reconstruction of the same scene step by step
-    (--scan_chunk 1), the port's fields initialized with JAX's draws and its
-    steps fed JAX's noise, one device each, f32 tables and MLP: frames are
+    (--scan_chunk 1: JAX's eager steps, the port's chunks of one), the
+    port's fields initialized with JAX's draws and its steps fed JAX's
+    noise, one device each, f32 tables and MLP: frames are
     appended and fields spawned after the same steps, the blending weights,
     rf_iter and pose links are equal, and the final poses agree."""
     scene = str(tmp_path / "scene")
@@ -278,7 +283,7 @@ def test_schedule_matches_jax(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tlocal.LocalTensorfs, "_next_noise", noise)
     monkeypatch.setattr(tlocal, "init_tensorf", lambda cfg, gen, device: field_from_jax(inits.pop(0), device))
-    _count_events(monkeypatch, tlocal.LocalTensorfs, t_events)
+    _count_events(monkeypatch, tlocal.LocalTensorfs, t_events, {"run_chunk": len})
     tm, _ = ttrain.reconstruction(tconfig.config_parser(flags + ["--logdir", str(tmp_path / "port"),
                                                                "--device", "cpu"]))
     assert not keys and not inits  # the port drew exactly JAX's

@@ -1,7 +1,7 @@
 """Port parity of the eval path: render_rays' floater suppression,
-LocalTensorfs.forward_eval over two blended fields (render_frame for one
-view, render_chunk for several) and the metrics, against the JAX package
-on the CPU.
+LocalTensorfs.forward_eval over two blended fields (every view a frame
+through render_frame) and the metrics, against the JAX package on the
+CPU.
 
 Setup: a JAX model and the port's with the same two fields (the first
 field's weights carried across with params_from_jax before the spawn, the
@@ -157,11 +157,12 @@ EVAL_CASES = {
 @pytest.mark.parametrize("case", list(EVAL_CASES))
 def test_forward_eval_matches_jax(case, dtype):
     """forward_eval's rgb, depth, directions and pixel coordinates equal
-    JAX's: the single-view fast path (render_frame, chunks padded with ray
-    id 0) on a frame inside the cross-fade (0 < w < 1 on both fields) and
-    on one only the retired field covers (its host params uploaded), the
-    multi-view path (render_chunk), test_id's neighbour exposure on frame 0
-    (whose previous neighbour is frame 1), floater_thresh and 360 rays."""
+    JAX's (its single-view render_frame and its multi-view render_chunk):
+    one view (chunks padded with ray id 0) on a frame inside the cross-fade
+    (0 < w < 1 on both fields) and on one only the retired field covers
+    (its host params uploaded), several views, test_id's neighbour exposure
+    on frame 0 (whose previous neighbour is frame 1), floater_thresh and
+    360 rays."""
     views, kw, local_kw = EVAL_CASES[case]
     jm, tm = two_field_models(BF16 if dtype == "bfloat16" else None, **local_kw)
     assert tm.fields[0]["opt"] is None

@@ -779,7 +779,9 @@ def test_captured_chunk_matches_eager_steps_on_card(cuda_device):
     """Two chunks through captured graphs (pooled; test-pose steps and an
     L1 flip make several keys) against the same batches as eager steps from
     the same initial state. A key is captured once, when first seen, and
-    the launch counters move only then (a replay calls no wrapper)."""
+    the launch counters move only then (a replay calls no wrapper). The
+    eager steps are chunks of one under eager_chunks.eager_steps."""
+    from eager_chunks import eager_steps
     from localrf_tpu_torch.ops.kernels import composite
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -795,10 +797,8 @@ def test_captured_chunk_matches_eager_steps_on_card(cuda_device):
         new_keys = set(mg._graphs.graphs) - keys
         eager = []
         for b in be:
-            if b["train_test_poses"]:
-                me.optimizer_step_poses_only(b)
-            else:
-                me.optimizer_step(b, optimize_poses=True)
+            with eager_steps(me):
+                me.run_chunk([b], optimize_poses=True)
             eager.append(dict(me.last_metrics))
         for i, m in enumerate(eager):
             for k, v in m.items():
@@ -810,6 +810,35 @@ def test_captured_chunk_matches_eager_steps_on_card(cuda_device):
         assert (n1 != n0) == bool(new_keys)
         if chunk == 0:
             assert len(new_keys) >= 2
+    assert mg.rf_iter == me.rf_iter
+
+
+@pytest.mark.gpu
+def test_chunks_of_one_over_host_batches_match_eager_steps_on_card(cuda_device):
+    """`--scan_chunk 1` on a card: with no pool, each single step is a
+    chunk of one, a captured graph replayed over the batch values shipped
+    from the host. Over 8 steps (test-pose steps and an L1 flip among them)
+    its losses match the same batches as eager steps from the same initial
+    state; every step after its key's capture is a replay."""
+    from eager_chunks import eager_steps
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, (mg, dsg), (me, dse) = _chunk_models(cuda_device, 3)
+    assert mg.pool is None and me.pool is None
+    bg = mg.plan_chunk(dsg, True, max_len=8)
+    be = me.plan_chunk(dse, True, max_len=8)
+    assert len(bg) == len(be) == 8 and any(b["train_test_poses"] for b in bg)
+    for i, (b, c) in enumerate(zip(bg, be)):
+        mg.run_chunk([b], optimize_poses=True)
+        with eager_steps(me):
+            me.run_chunk([c], optimize_poses=True)
+        for k, v in me.last_metrics.items():
+            got = mg.last_metrics[k]
+            assert np.isfinite(got)
+            rtol = 1e-6 if i == 0 else 1e-3
+            assert abs(got - v) <= rtol * abs(v) + 1e-7, (i, k, got, v)
+    graphs = mg._graphs
+    assert graphs.captures == len(graphs) >= 2 and graphs.captures + graphs.replays == 8
     assert mg.rf_iter == me.rf_iter
 
 
@@ -839,9 +868,12 @@ def test_captured_chunk_bit_exact_with_fixed_order_sums(cuda_device, monkeypatch
     """With every sum of the step in a fixed order (torch's deterministic
     algorithms; the plane gathers' VJP through K5, K2's function without
     atomics), a pooled chunk of captured graphs with test-pose steps and an
-    L1 flip equals the same steps taken eagerly, bit for bit: every loss,
-    the field and its Adam state, the pose window and its Adam state (the
-    window's padding rows hold NaN, as in JAX, and compare by their bits)."""
+    L1 flip equals the same steps taken eagerly (chunks of one under
+    eager_chunks.eager_steps), bit for bit: every loss, the field and its
+    Adam state, the pose window and its Adam state (the window's padding
+    rows hold NaN, as in JAX, and compare by their bits)."""
+    from eager_chunks import eager_steps
+
     torch.backends.cuda.matmul.allow_tf32 = False
     monkeypatch.setattr(k2, "segment_sum", k2.binned_segment_sum_merged)
     prev = torch.are_deterministic_algorithms_enabled()
@@ -854,10 +886,8 @@ def test_captured_chunk_bit_exact_with_fixed_order_sums(cuda_device, monkeypatch
         mg.run_chunk(bg, optimize_poses=True)
         assert len(mg._graphs) >= 2
         for i, b in enumerate(be):
-            if b["train_test_poses"]:
-                me.optimizer_step_poses_only(b)
-            else:
-                me.optimizer_step(b, optimize_poses=True)
+            with eager_steps(me):
+                me.run_chunk([b], optimize_poses=True)
             for k, v in me.last_metrics.items():
                 assert float(mg.chunk_metrics[k][i]) == v, (i, k)
         got, want = _trained_state(mg), _trained_state(me)
@@ -871,9 +901,11 @@ def test_captured_chunk_bit_exact_with_fixed_order_sums(cuda_device, monkeypatch
 @pytest.mark.gpu
 def test_default_step_launches_the_fused_march_once_each_way(cuda_device):
     """A default bf16 field at 64^3 (TensorfConfig's defaults: the fused
-    march on) takes one eager training step through K4: K4-fwd and K4-bwd
-    launch once each, the step counts `march.fused` once and no
-    `march.unfused`, and its losses are finite."""
+    march on) takes one eager training step through K4 (a chunk of one
+    under eager_chunks.eager_steps): K4-fwd and K4-bwd launch once each, the
+    step counts `march.fused` once and no `march.unfused`, and its losses
+    are finite."""
+    from eager_chunks import eager_steps
     from localrf_tpu_torch.data.dataset import SyntheticDataset
     from localrf_tpu_torch.models.local import LocalConfig, LocalTensorfs
     from localrf_tpu_torch.models.tensorf import TensorfConfig
@@ -895,8 +927,8 @@ def test_default_step_launches_the_fused_march_once_each_way(cuda_device):
     batch = ds.sample(1024, False, True, n_views=4)
     n0 = dict(k4.LAUNCHES)
     profiling.RECORDER.reset()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]):
-        m.optimizer_step(batch, optimize_poses=True)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]), eager_steps(m):
+        m.run_chunk([batch], optimize_poses=True)
         counts = profiling.counters()
     assert k4.LAUNCHES == {"march_fwd": n0["march_fwd"] + 1, "march_bwd": n0["march_bwd"] + 1}
     assert counts.get("march.fused") == 1 and "march.unfused" not in counts
@@ -950,7 +982,7 @@ def test_render_frame_makes_no_host_sync(cuda_device, floater_thresh):
     (torch's sync check set to "error"), with the coarse probe and
     compaction of an alpha volume, and with floater_thresh."""
     from localrf_tpu_torch.models.step import render_frame
-    from localrf_tpu_torch.models.tensorf import TensorfConfig, init_tensorf
+    from localrf_tpu_torch.models.tensorf import TensorfConfig, build_combined_quad_views, init_tensorf
 
     cfg = TensorfConfig(grid_size=(32, 32, 32), pallas_composite=True, occ_m=12)
     params = init_tensorf(cfg, torch.Generator(device=cuda_device).manual_seed(0), cuda_device)
@@ -963,7 +995,8 @@ def test_render_frame_makes_no_host_sync(cuda_device, floater_thresh):
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        rgb, depth = render_frame(*args, w=40, h=30, floater_thresh=floater_thresh, alpha_volume=alpha)
+        rgb, depth = render_frame(*args, w=40, h=30, floater_thresh=floater_thresh, alpha_volume=alpha,
+                                  quad=build_combined_quad_views(params, cfg) if cfg.fast_gather else None)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert rgb.shape == (1200, 3) and depth.shape == (1200,)

@@ -1,6 +1,6 @@
 """Port parity of the six shading heads (`TensorfConfig.shading_mode`):
 render_rays forward and gradients against the JAX package on the CPU for
-each head, one train_step in TensoRF's published head (MLP_Fea, fea_pe 2,
+each head, one training step in TensoRF's published head (MLP_Fea, fea_pe 2,
 view_pe 2), and the config's checks.
 
 Inputs are made from seeds with numpy (rays) and by JAX (the field init,
@@ -154,7 +154,7 @@ def test_fused_march_is_the_late_view_head_only():
 
 
 def test_train_step_mlp_fea_matches_jax():
-    """One train_step in TensoRF's published head (configs/lego.txt:
+    """One training step in TensoRF's published head (configs/lego.txt:
     MLP_Fea, fea_pe 2, view_pe 2): losses, gradients, new params and poses
     against JAX's (test_torch_slice's comparison)."""
     jm, tm = _models(dict(shading_mode="MLP_Fea", fea_pe=2, view_pe=2))

@@ -223,8 +223,9 @@ def spawned_pair(pool: bool = False):
 
 def test_step_after_spawn_and_slide_matches_jax():
     """On the new field after a spawn and a slide: the losses and the
-    gradients of one step (field, poses, exposures), then one
-    optimizer_step's losses, new field parameters and pose window."""
+    gradients of one step (field, poses, exposures), then one step's
+    losses, new field parameters and pose window (JAX's optimizer_step, the
+    port's chunk of one)."""
     jm, tm, ds_j, ds_t = spawned_pair()
     batch_t = ds_t.sample(BATCH, True, True, n_views=N_VIEWS)
     batch_j = ds_j.sample(BATCH, True, True, n_views=N_VIEWS)
@@ -247,7 +248,7 @@ def test_step_after_spawn_and_slide_matches_jax():
         f["params"], (pose.r, pose.t, pose.exposure))
     tf_ = tm.fields[-1]
     g_field, g_pose, _, m_t = tstep.loss_grads(
-        tf_["params"], tm._pose_dev, tm.intr.params, tm._statics(True), tm._device_batch(batch_t),
+        tf_["params"], tm._pose_dev, tm.intr.params, tm._statics(True), tstep.row(tm._stage([batch_t], [tm._gate()]), 0),
         tm._scalars_py(), noise)
     assert float(m_j["flow_loss"]) > 0 and float(m_j["depth_loss"]) > 0
     for k in m_j:
@@ -264,7 +265,7 @@ def test_step_after_spawn_and_slide_matches_jax():
 
     tm._next_noise = lambda cfg: noise
     jm.optimizer_step(batch_j, optimize_poses=True)
-    tm.optimizer_step(batch_t, optimize_poses=True)
+    tm.run_chunk([batch_t], optimize_poses=True)
     for k, v in jm.last_metrics.items():
         np.testing.assert_allclose(tm.last_metrics[k], v, rtol=1e-4, atol=1e-7, err_msg=k)
     want = params_from_jax(jax.device_get(jm.fields[-1]["params"]), device="cpu")

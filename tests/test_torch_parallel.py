@@ -220,9 +220,9 @@ def eval_single():
 
 @pytest.mark.parametrize("call", [*ranks.EVAL_ONE, *ranks.EVAL_TWO])
 def test_sharded_eval_matches_one_rank(two_ranks, eval_single, call):
-    """forward_eval with each chunk's rays split over 2 ranks (one view
-    through render_frame, several through render_chunk, two fields after a
-    spawn and a slide; a chunk of 255 rays is not split) against one rank;
+    """forward_eval with each chunk's rays split over 2 ranks (one view,
+    several, two fields after a spawn and a slide; a chunk of 255 rays is
+    not split) against one rank;
     both ranks hold the gathered frame."""
     for rank in range(2):
         got = ranks.result(two_ranks, "eval", rank)
@@ -364,9 +364,14 @@ def test_torchrun_cli_trains_on_two_ranks(tmp_path):
     spawn, mid-run evals and checkpoints, and renders; rank 0 alone writes
     (the same files as a one-process run, one TensorBoard event file), and
     its final poses match the one-process run's to 1e-6 (f32 tables and
-    MLP: bf16 lerp weights would round apart)."""
+    MLP: bf16 lerp weights would round apart). The one-process run takes
+    the ranks' thread count: at a test worker's default (every core) its
+    OpenMP regions crawl on a machine the other workers load (measured
+    under the tier-1 command, 6 workers on an 8-core CPU: 547.7 s against
+    13 s alone, while the ranks took 28 s)."""
     import subprocess
     import sys
+    import time
 
     import chip_smoke
     from localrf_tpu_torch import config as tconfig
@@ -378,12 +383,19 @@ def test_torchrun_cli_trains_on_two_ranks(tmp_path):
     env = dict(os.environ, OMP_NUM_THREADS=str(ranks.THREADS))
     cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
            "-m", "localrf_tpu_torch.train", *flags, "--logdir", str(tmp_path / "dp"), "--data_parallel", "2"]
+    t0 = time.perf_counter()
     run = subprocess.run(cmd, cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))), env=env,
                          capture_output=True, text=True, timeout=240)
-    assert run.returncode == 0, run.stderr[-3000:]
-    assert "ray-batch data parallelism over 2 ranks" in run.stdout
-    model, _ = ttrain.reconstruction(tconfig.config_parser(flags + ["--logdir", str(tmp_path / "one"),
-                                                                    "--data_parallel", "1"]))
+    took = f"rc {run.returncode} after {time.perf_counter() - t0:.1f} s"
+    assert run.returncode == 0, f"{took}\n{run.stdout[-1000:]}\n{run.stderr[-3000:]}"
+    assert "ray-batch data parallelism over 2 ranks" in run.stdout, took
+    threads = torch.get_num_threads()
+    torch.set_num_threads(ranks.THREADS)
+    try:
+        model, _ = ttrain.reconstruction(tconfig.config_parser(flags + ["--logdir", str(tmp_path / "one"),
+                                                                        "--data_parallel", "1"]))
+    finally:
+        torch.set_num_threads(threads)
     assert len(model.fields) >= 2
     dp, one = _files(str(tmp_path / "dp")), _files(str(tmp_path / "one"))
     events = [f for f in dp if f.startswith("events.out.tfevents")]

@@ -166,7 +166,7 @@ def step_grads(m, batch: dict, inputs: dict, mesh=None) -> dict[str, np.ndarray]
     """loss_grads of one joint step of `m` on `batch` (this rank's share
     under `mesh`), with JAX's first noise draw."""
     f = m.fields[-1]
-    dev = m._device_batch(batch)
+    dev = tstep.row(m._stage([batch], [m._gate()]), 0)
     g_field, g_pose, _, metrics = tstep.loss_grads(
         f["params"], m._pose_dev, m.intr.params, m._statics(True, dev["view_ids"].shape[0]), dev,
         m._scalars_py(), step_noise(inputs)[0], f["alpha_volume"], mesh=mesh)

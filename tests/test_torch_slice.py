@@ -1,5 +1,6 @@
-"""Port parity of the training-step slice: render_rays, one train_step and
-two LocalTensorfs.optimizer_steps against the JAX package on the CPU, on
+"""Port parity of the training-step slice: render_rays, one train_core step
+and LocalTensorfs.run_chunk's steps (chunks of one) against the JAX
+package's train_step and optimizer_steps on the CPU, on
 weights carried across with params_from_jax and the stratified noise JAX
 draws from its key. A small grid with binned_min_rows lowered, so the
 compositing kernel (K1) and the segment sum (K2) run, and with
@@ -131,7 +132,7 @@ def test_render_rays_matches_jax(rng, case):
                    rel=5e-2 if kw.get("gather_dtype") == "bfloat16" else 1e-4)
 
 
-# ------------------------ train_step / LocalTensorfs ------------------------
+# ------------------------ train_core / LocalTensorfs ------------------------
 
 
 def _dataset(seed=0, cls=SyntheticDataset):
@@ -174,7 +175,8 @@ TRAIN_CONFIGS = {
 
 @pytest.mark.parametrize("config", list(TRAIN_CONFIGS))
 def test_train_step_matches_jax(config):
-    """One train_step: losses, field/pose/exposure gradients, new params."""
+    """One train_core step against JAX's train_step: losses,
+    field/pose/exposure gradients, new params."""
     _train_step_against_jax(*_models(TRAIN_CONFIGS[config]))
 
 
@@ -191,7 +193,8 @@ def test_train_step_fov360_matches_jax():
 
 
 def _train_step_against_jax(jm, tm, field_rel=1e-4):
-    """One train_step of two models from _models on the same batch and
+    """One step (JAX's train_step, the port's train_core) of two models
+    from _models on the same batch and
     noise: losses, field/pose/exposure gradients (the field's to
     `field_rel` of each tensor's largest entry), new params (where the
     gradient is over 10 field_rel of its largest entry)."""
@@ -214,7 +217,7 @@ def _train_step_against_jax(jm, tm, field_rel=1e-4):
         j_stat, key, None)
 
     t_stat = tm._statics(True)
-    t_batch = tm._device_batch(batch)
+    t_batch = tstep.row(tm._stage([batch], [tm._gate()]), 0)
     noise = jax_noise(key, t_stat.cfg.n_samples)
     tf_ = tm.fields[-1]
     g_field, g_pose, _, m_t = tstep.loss_grads(
@@ -229,7 +232,7 @@ def _train_step_against_jax(jm, tm, field_rel=1e-4):
     for got, want in zip(g_pose, g_j[1]):
         grad_close(got[:N_FRAMES], np.asarray(want)[:N_FRAMES])
 
-    new_field, new_pose, _, _ = tstep.train_step(
+    new_field, new_pose, _, _ = tstep.train_core(
         tstep.FieldState(tf_["params"], tf_["opt"]), tm._pose_dev, tm.intr, t_batch,
         tm._scalars_py(), t_stat, noise)
     want_p = params_from_jax(jax.device_get(new_f.params), device="cpu")
@@ -253,7 +256,8 @@ def _train_step_against_jax(jm, tm, field_rel=1e-4):
 
 @pytest.mark.parametrize("config", list(TRAIN_CONFIGS))
 def test_local_tensorfs_two_steps_with_alpha_refresh(config):
-    """Two optimizer_steps; an occupancy refresh after the first, so the
+    """Two steps (JAX's optimizer_steps, the port's chunks of one); an
+    occupancy refresh after the first, so the
     second marches against the alpha volume (coarse probe + compaction).
     The second step starts from parameters a first Adam step may have moved
     apart (see the module docstring), so its losses get rtol 1e-3."""
@@ -263,7 +267,7 @@ def test_local_tensorfs_two_steps_with_alpha_refresh(config):
         _, sub = jax.random.split(jm._key)  # the key jm's step will draw
         tm._next_noise = lambda cfg, sub=sub: jax_noise(sub, cfg.n_samples)
         jm.optimizer_step(ds_j.sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
-        tm.optimizer_step(ds_t.sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
+        tm.run_chunk([ds_t.sample(BATCH, True, True, n_views=N_VIEWS)], optimize_poses=True)
         rtol = 1e-4 if step == 0 else 1e-3
         for k, v in jm.last_metrics.items():
             np.testing.assert_allclose(tm.last_metrics[k], v, rtol=rtol, atol=1e-7, err_msg=k)
@@ -297,7 +301,7 @@ def test_upsample_keeps_lr_scale_without_reset():
         before_t = {k: p.detach().clone() for k, p in tm.fields[-1]["params"].named_parameters()}
         before_j = params_from_jax(jax.device_get(jm.fields[-1]["params"]), device="cpu")
         jm.optimizer_step(ds_j.sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
-        tm.optimizer_step(ds_t.sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
+        tm.run_chunk([ds_t.sample(BATCH, True, True, n_views=N_VIEWS)], optimize_poses=True)
         for k, v in jm.last_metrics.items():
             np.testing.assert_allclose(tm.last_metrics[k], v, rtol=1e-4 if step == 0 else 1e-3, atol=1e-7,
                                        err_msg=k)
@@ -340,7 +344,7 @@ def test_camera_prior_focal_and_relative_poses():
     _, sub = jax.random.split(jm._key)
     tm._next_noise = lambda cfg: jax_noise(sub, cfg.n_samples)
     jm.optimizer_step(_dataset(3, JSyntheticDataset).sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
-    tm.optimizer_step(_dataset(3).sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
+    tm.run_chunk([_dataset(3).sample(BATCH, True, True, n_views=N_VIEWS)], optimize_poses=True)
     for k, v in jm.last_metrics.items():
         np.testing.assert_allclose(tm.last_metrics[k], v, rtol=1e-4, atol=1e-7, err_msg=k)
 
@@ -365,7 +369,7 @@ def test_train_core_pose_only_gating():
     f = tm.fields[-1]
     before = {k: p.detach().clone() for k, p in f["params"].named_parameters()}
     pose0 = tm._pose_dev
-    batch = tm._device_batch(_dataset().sample(BATCH, True, True, n_views=N_VIEWS))
+    batch = tstep.row(tm._stage([_dataset().sample(BATCH, True, True, n_views=N_VIEWS)], [tm._gate()]), 0)
     scal = dict(tm._scalars_py(), pose_only=1.0)
     new_field, new_pose, _, metrics = tstep.train_core(
         tstep.FieldState(f["params"], f["opt"]), pose0, tm.intr, batch, scal, tm._statics(True),
@@ -387,7 +391,7 @@ def test_intrinsics_step_on_first_field_while_refining():
     tm.lr_factor = 0.5
     assert tm._statics(True).intrinsics_on
     tm._next_noise = lambda cfg: trender.draw_noise(cfg.n_samples, torch.Generator().manual_seed(0), "cpu")
-    tm.optimizer_step(_dataset().sample(BATCH, True, True, n_views=N_VIEWS), optimize_poses=True)
+    tm.run_chunk([_dataset().sample(BATCH, True, True, n_views=N_VIEWS)], optimize_poses=True)
     assert tm.intr.opt.step == 1 and tm.intr.opt.lr_scale == 0.5
     assert float(tm.intr.params["focal_offset"]) != 1.0
     assert not torch.equal(tm.intr.params["center_rel"], torch.full((2,), 0.5))

@@ -416,7 +416,9 @@ def test_mapped_device_intervals_meet_the_profilers_kernels(cuda_device, tmp_pat
 def test_recording_chunk_matches_eager_steps_bit_for_bit_on_card(cuda_device, monkeypatch):
     """With every sum in a fixed order, a chunk of captured graphs (their
     stamps inside) replayed while the tracer records equals the same steps
-    taken eagerly, bit for bit: the stamps and marks change no number."""
+    taken eagerly (chunks of one under eager_chunks.eager_steps), bit for
+    bit: the stamps and marks change no number."""
+    from eager_chunks import eager_steps
     from localrf_tpu_torch.ops.kernels import binned_scatter as k2
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -431,10 +433,8 @@ def test_recording_chunk_matches_eager_steps_bit_for_bit_on_card(cuda_device, mo
             mg.run_chunk(bg[1:], optimize_poses=True)
         assert len(profiling.RECORDER.device) == 1
         for b in be:
-            if b["train_test_poses"]:
-                me.optimizer_step_poses_only(b)
-            else:
-                me.optimizer_step(b, optimize_poses=True)
+            with eager_steps(me):
+                me.run_chunk([b], optimize_poses=True)
         for k, v in me.last_metrics.items():
             assert float(mg.chunk_metrics[k][-1]) == v, k
         for (k, p), (_, q) in zip(mg.fields[-1]["params"].named_parameters(),
